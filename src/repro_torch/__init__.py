@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the recursive-query engine (``repro``).
+
+Same sub-package layout as the JAX package: ``graph`` (host builders that
+return tensors), ``core`` (IFE engine, extension backends, policies,
+single-device dispatcher), ``kernels`` (hand-written CUDA kernels with
+their plain PyTorch versions), ``runtime`` (engine cache, two-phase
+hybrid, admission) and ``launch`` (the serving driver).
+
+Entry points run on ``cuda`` unless the caller asks for the CPU; this
+package never imports JAX.
+"""

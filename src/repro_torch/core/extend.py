@@ -1,0 +1,799 @@
+"""Pluggable frontier-extension backends (port of ``repro.core.extend``).
+
+Backends share one contract and produce bit-identical final states:
+
+- ``ell_push``: forward-ELL scatter from the active rows;
+- ``ell_pull``: gather over the padded reverse ELL with visited
+  suppression;
+- ``pull_binned``: the same pull over degree-binned reverse slabs;
+- ``pull_binned_fused``: ``pull_binned`` through the fused
+  ``binned_pull`` CUDA kernel (plain PyTorch on CPU tensors);
+- ``block_mxu``: the OR-reach over stored 0/1 tiles through the
+  ``msbfs_extend`` CUDA kernel (plain PyTorch on CPU tensors); parents
+  stay on the push scatter.
+
+``direction="auto"`` is Beamer's alpha/beta switch between push and a
+pull flavor, decided per iteration on the host from the frontier's and
+the unexplored edge mass.
+
+All operands live on one device; the JAX package's row offsets, sharded
+state layout and collectives have size-1 axes here and drop out.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..graph.csr import (
+    BinnedRevEll,
+    CSRGraph,
+    EllGraph,
+    ShardedBlocks,
+    binned_rev_csr,
+    ell_from_csr,
+    sharded_blocks_from_csr,
+    truncate_csr,
+)
+from ..graph.partition import pad_ell
+from ..kernels.binned_pull.ops import (
+    BinnedPullPack,
+    binned_pull as _fused_pull,
+    build_pack as build_binned_pack,
+)
+from ..kernels.msbfs_extend.ops import extend_blocks
+from .edge_compute import (
+    NO_PARENT,
+    _deg_chunk,
+    chunk_fold,
+    ell_min_parent,
+    ell_min_parent_lanes,
+    ell_reach_dense,
+    ell_reach_lanes,
+)
+
+BACKENDS = (
+    "ell_push", "ell_pull", "pull_binned", "pull_binned_fused", "block_mxu"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtendSpec:
+    """Static configuration of the extension step (hashable: engine-cache
+    key material)."""
+
+    backend: str = "ell_push"  # one of BACKENDS
+    direction: str = "fixed"  # fixed | auto (Beamer push/pull switch)
+    alpha: float = 14.0  # pull when m_frontier > m_unexplored / alpha
+    beta: float = 24.0  # ... and n_frontier > n / beta
+    block: int = 128  # tile size of the block_mxu operand
+    pull: str = "binned"  # auto's bottom-up flavor
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown extension backend: {self.backend}")
+        if self.direction not in ("fixed", "auto"):
+            raise ValueError(f"unknown direction mode: {self.direction}")
+        if self.pull not in ("binned", "binned_fused", "ell"):
+            raise ValueError(f"unknown pull flavor: {self.pull}")
+        if self.direction == "auto" and self.backend != "ell_push":
+            raise ValueError(
+                "direction='auto' switches between push and pull (flavor "
+                "chosen by the `pull` field); it cannot be combined with "
+                f"backend={self.backend!r}"
+            )
+
+    @property
+    def needs_rev(self) -> bool:
+        """Scans the single padded reverse-ELL slab."""
+        return self.backend == "ell_pull" or (
+            self.direction == "auto" and self.pull == "ell"
+        )
+
+    @property
+    def needs_binned(self) -> bool:
+        """Scans (or accounts with) the degree-binned reverse slabs."""
+        return self.backend in ("pull_binned", "pull_binned_fused") or (
+            self.direction == "auto"
+            and self.pull in ("binned", "binned_fused")
+        )
+
+    @property
+    def needs_binned_pack(self) -> bool:
+        """Scans the kernel-ready row-padded repack of the binned slabs."""
+        return self.backend == "pull_binned_fused" or (
+            self.direction == "auto" and self.pull == "binned_fused"
+        )
+
+    @property
+    def needs_blocks(self) -> bool:
+        return self.direction == "fixed" and self.backend == "block_mxu"
+
+    @property
+    def pad_block(self) -> int:
+        """Row-padding unit the operands need (tiles must divide the row
+        count; 32 keeps bit-packed words aligned)."""
+        return self.block if self.needs_blocks else 32
+
+
+_ALIASES = {
+    "dopt": ExtendSpec(direction="auto"),
+    "auto": ExtendSpec(direction="auto"),
+    "dopt_ell": ExtendSpec(direction="auto", pull="ell"),
+    "dopt_binned": ExtendSpec(direction="auto", pull="binned"),
+    "dopt_fused": ExtendSpec(direction="auto", pull="binned_fused"),
+}
+
+
+def as_spec(extend) -> ExtendSpec:
+    """Normalize a backend name / alias / spec / None to an ExtendSpec."""
+    if extend is None:
+        return ExtendSpec()
+    if isinstance(extend, ExtendSpec):
+        return extend
+    if isinstance(extend, str):
+        if extend in _ALIASES:
+            return _ALIASES[extend]
+        return ExtendSpec(backend=extend)
+    raise TypeError(f"cannot interpret extend={extend!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphOperands:
+    """The physical scan operands of one graph: ``fwd`` always, the others
+    only when an engine's ExtendSpec scans them."""
+
+    fwd: EllGraph
+    rev: Optional[EllGraph] = None
+    rev_binned: Optional[BinnedRevEll] = None
+    rev_binned_pack: Optional[BinnedPullPack] = None
+    blocks: Optional[ShardedBlocks] = None
+
+    @property
+    def n_nodes(self) -> int:
+        return self.fwd.n_nodes
+
+    @property
+    def device(self) -> torch.device:
+        return self.fwd.indices.device
+
+
+def as_operands(graph) -> GraphOperands:
+    if isinstance(graph, GraphOperands):
+        return graph
+    return GraphOperands(fwd=graph)
+
+
+def effective_csr(csr: CSRGraph, max_deg: int | None) -> CSRGraph:
+    """The edge set every backend scans under a ``max_deg`` cap (the cap
+    rounded up to the ELL pad multiple of 8)."""
+    cap = None if max_deg is None else -(-int(max_deg) // 8) * 8
+    return truncate_csr(csr, cap)
+
+
+def build_operands(
+    csr: CSRGraph,
+    extend="ell_push",
+    max_deg: int | None = None,
+    shards: int = 1,
+    block: int | None = None,
+    binned_shards: int | None = None,
+) -> tuple[GraphOperands, int]:
+    """Host-side operand construction (CPU tensors; ``prepare_graph``
+    places them). Rows pad to a multiple of ``shards * pad_block``; the
+    reverse / binned / block operands derive from the truncated forward
+    graph so every backend scans the identical edge set. Returns
+    (operands, n_pad)."""
+    spec = as_spec(extend)
+    pad_block = block or spec.pad_block
+    eff = effective_csr(csr, max_deg)
+    fwd = pad_ell(ell_from_csr(eff), shards, block=pad_block)
+    n_pad = fwd.n_nodes
+    rev = None
+    if spec.needs_rev:
+        rev = pad_ell(ell_from_csr(eff.reverse()), shards, block=pad_block)
+    rev_binned = None
+    rev_binned_pack = None
+    if spec.needs_binned:
+        k = shards if binned_shards is None else int(binned_shards)
+        rev_binned = binned_rev_csr(eff, n_pad, k)
+        if spec.needs_binned_pack:
+            rev_binned_pack = build_binned_pack(rev_binned, n_pad)
+    blocks = None
+    if spec.needs_blocks:
+        blocks = sharded_blocks_from_csr(eff, n_pad, shards, spec.block)
+    return (
+        GraphOperands(
+            fwd=fwd,
+            rev=rev,
+            rev_binned=rev_binned,
+            rev_binned_pack=rev_binned_pack,
+            blocks=blocks,
+        ),
+        n_pad,
+    )
+
+
+def operands_from_numpy(leaves: dict, device="cpu") -> GraphOperands:
+    """The port's bundle from a flat dict of numpy leaves, named like the
+    JAX package's ``OperandStream.build_shard`` keys: ``fwd.indices``,
+    ``fwd.degrees``, ``fwd.weights``, the same under ``rev.``,
+    ``bn.perm``, ``bn.inv``, ``bn.slab{b}``, ``bn.w{b}``,
+    ``pack.inv_pad``, ``pack.perm_pad``, ``pack.slab{b}``, ``pack.w{b}``,
+    ``blocks.blocks``, ``blocks.rows``, ``blocks.cols``. Lets both
+    packages run on identical operands (the graph plays the part of
+    weights)."""
+    dev = torch.device(device)
+
+    def t(k):
+        a = np.ascontiguousarray(leaves[k])
+        if not a.flags.writeable:  # e.g. a view of a JAX array
+            a = a.copy()
+        return torch.from_numpy(a).to(dev)
+
+    def ell(p):
+        if f"{p}.indices" not in leaves:
+            return None
+        return EllGraph(
+            indices=t(f"{p}.indices"),
+            degrees=t(f"{p}.degrees"),
+            weights=t(f"{p}.weights") if f"{p}.weights" in leaves else None,
+        )
+
+    def seq(prefix):
+        out, b = [], 0
+        while f"{prefix}{b}" in leaves:
+            out.append(t(f"{prefix}{b}"))
+            b += 1
+        return tuple(out)
+
+    bn = None
+    if "bn.inv" in leaves:
+        bn = BinnedRevEll(
+            slabs=seq("bn.slab"), perm=t("bn.perm"), inv=t("bn.inv"),
+            slab_weights=seq("bn.w") if "bn.w0" in leaves else None,
+        )
+    pack = None
+    if "pack.inv_pad" in leaves:
+        pack = BinnedPullPack(
+            slabs=seq("pack.slab"), inv_pad=t("pack.inv_pad"),
+            perm_pad=t("pack.perm_pad"),
+            slab_weights=seq("pack.w") if "pack.w0" in leaves else None,
+        )
+    blocks = None
+    if "blocks.blocks" in leaves:
+        blocks = ShardedBlocks(
+            blocks=t("blocks.blocks"), block_rows=t("blocks.rows"),
+            block_cols=t("blocks.cols"),
+        )
+    return GraphOperands(fwd=ell("fwd"), rev=ell("rev"), rev_binned=bn,
+                         rev_binned_pack=pack, blocks=blocks)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtendCtx:
+    """Per-call extension context: the global output width (the padded
+    node count). On one device every state tensor is global."""
+
+    n_out: int
+
+
+# ---------------------------------------------------------------------------
+# ell_push: forward scatter.
+# ---------------------------------------------------------------------------
+
+
+class PushBackend:
+    name = "ell_push"
+
+    @staticmethod
+    def reach_dense(ops, frontier, visited, ctx):
+        return ell_reach_dense(ops.fwd, frontier, ctx.n_out)
+
+    @staticmethod
+    def reach_lanes(ops, lanes, visited, ctx):
+        return ell_reach_lanes(ops.fwd, lanes, ctx.n_out)
+
+    @staticmethod
+    def min_parent(ops, frontier, visited, ctx):
+        return ell_min_parent(ops.fwd, frontier, ctx.n_out)
+
+    @staticmethod
+    def min_parent_lanes(ops, lanes, visited, ctx):
+        return ell_min_parent_lanes(ops.fwd, lanes, ctx.n_out)
+
+    @staticmethod
+    def reach_parent_dense(ops, frontier, visited, ctx):
+        return (
+            PushBackend.reach_dense(ops, frontier, visited, ctx),
+            PushBackend.min_parent(ops, frontier, visited, ctx),
+        )
+
+    @staticmethod
+    def reach_parent_lanes(ops, lanes, visited, ctx):
+        return (
+            PushBackend.reach_lanes(ops, lanes, visited, ctx),
+            PushBackend.min_parent_lanes(ops, lanes, visited, ctx),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Pull gathers over one ELL-shaped slab ([rows, D] ids, sentinel >= n_out).
+# ---------------------------------------------------------------------------
+
+
+def _extended(src: torch.Tensor, pad) -> torch.Tensor:
+    """``src`` plus one trailing pad row: index ``n_out`` reads ``pad``."""
+    tail = torch.full((1,) + tuple(src.shape[1:]), pad, dtype=src.dtype,
+                      device=src.device)
+    return torch.cat([src, tail])
+
+
+def _slab_fold(s: torch.Tensor, src_ext: torch.Tensor, reduce, acc0,
+               lane_bytes: int):
+    """Fold ``reduce(acc, ids_chunk, gathered_chunk)`` over degree chunks
+    of slab ``s``; ids widen to int64 one chunk at a time, so a wide slab
+    is never copied whole."""
+    rows, D = s.shape
+    n_out = src_ext.shape[0] - 1
+    chunk = _deg_chunk(rows, 8 + lane_bytes, budget=1 << 28)
+
+    def step(start, width, acc):
+        ids = s[:, start : start + width]
+        got = src_ext[ids.clamp(0, n_out).long()]
+        return reduce(acc, ids, got)
+
+    return chunk_fold(D, min(chunk, max(D, 1)), step, acc0)
+
+
+def _gather_any(s, gf_ext):
+    """[rows, D] x [n_out+1] bool -> [rows] bool."""
+    acc0 = torch.zeros(s.shape[0], dtype=torch.bool, device=s.device)
+    return _slab_fold(s, gf_ext, lambda a, i, g: a | g.any(dim=1), acc0, 1)
+
+
+def _gather_lanes(s, gl_ext):
+    """[rows, D] x [n_out+1, L] -> [rows, L] max."""
+    n_lanes = gl_ext.shape[-1]
+    acc0 = torch.zeros((s.shape[0], n_lanes), dtype=gl_ext.dtype,
+                       device=s.device)
+    return _slab_fold(
+        s, gl_ext, lambda a, i, g: torch.maximum(a, g.amax(dim=1)), acc0,
+        n_lanes,
+    )
+
+
+def _gather_min_parent(s, gf_ext):
+    """[rows] min in-neighbor id whose frontier bit is set."""
+    acc0 = torch.full((s.shape[0],), NO_PARENT, dtype=torch.int32,
+                      device=s.device)
+
+    def red(a, ids, got):
+        cand = torch.where(got, ids, NO_PARENT).amin(dim=1)
+        return torch.minimum(a, cand)
+
+    return _slab_fold(s, gf_ext, red, acc0, 5)
+
+
+def _gather_min_parent_lanes(s, gl_ext):
+    """[rows, L] per-lane min in-neighbor id whose lane bit is set."""
+    n_lanes = gl_ext.shape[-1]
+    acc0 = torch.full((s.shape[0], n_lanes), NO_PARENT, dtype=torch.int32,
+                      device=s.device)
+
+    def red(a, ids, got):
+        cand = torch.where(got != 0, ids[:, :, None], NO_PARENT).amin(dim=1)
+        return torch.minimum(a, cand)
+
+    return _slab_fold(s, gl_ext, red, acc0, 5 * n_lanes)
+
+
+def _suppress(x, visited, value):
+    if visited is None:
+        return x
+    if x.dtype == torch.bool:
+        return x & ~(visited != 0)
+    return torch.where(visited != 0, torch.tensor(value, dtype=x.dtype,
+                                                  device=x.device), x)
+
+
+class PullBackend:
+    """Gather over the padded reverse ELL with visited suppression."""
+
+    name = "ell_pull"
+
+    @staticmethod
+    def _reach_dense(ops, gf, visited, ctx):
+        return _suppress(_gather_any(ops.rev.indices, _extended(gf, False)),
+                         visited, False)
+
+    @staticmethod
+    def _reach_lanes(ops, gl, visited, ctx):
+        return _suppress(_gather_lanes(ops.rev.indices, _extended(gl, 0)),
+                         visited, 0)
+
+    @staticmethod
+    def _min_parent(ops, gf, visited, ctx):
+        cand = _gather_min_parent(ops.rev.indices, _extended(gf, False))
+        return _suppress(cand, visited, NO_PARENT)
+
+    @staticmethod
+    def _min_parent_lanes(ops, gl, visited, ctx):
+        cand = _gather_min_parent_lanes(ops.rev.indices, _extended(gl, 0))
+        return _suppress(cand, visited, NO_PARENT)
+
+
+class BinnedPullBackend:
+    """The ``ell_pull`` contract over ``BinnedRevEll`` slabs: each degree
+    bucket padded only to its own width, results un-permuted through
+    ``inv``."""
+
+    name = "pull_binned"
+
+    @staticmethod
+    def _binned_map(bn: BinnedRevEll, per_slab, neutral):
+        parts = []
+        for slab in bn.slabs:
+            s = slab[0]
+            if s.shape[0] == 0 or s.shape[1] == 0:
+                parts.append(neutral(s.shape[0]))
+            else:
+                parts.append(per_slab(s))
+        cat = torch.cat(parts) if len(parts) > 1 else parts[0]
+        return cat[bn.inv[0].long()]
+
+    @staticmethod
+    def _reach_dense(ops, gf, visited, ctx):
+        ext = _extended(gf, False)
+        dev = gf.device
+        reached = BinnedPullBackend._binned_map(
+            ops.rev_binned, lambda s: _gather_any(s, ext),
+            lambda r: torch.zeros(r, dtype=torch.bool, device=dev),
+        )
+        return _suppress(reached, visited, False)
+
+    @staticmethod
+    def _reach_lanes(ops, gl, visited, ctx):
+        ext = _extended(gl, 0)
+        n_lanes = gl.shape[-1]
+        reached = BinnedPullBackend._binned_map(
+            ops.rev_binned, lambda s: _gather_lanes(s, ext),
+            lambda r: torch.zeros((r, n_lanes), dtype=gl.dtype,
+                                  device=gl.device),
+        )
+        return _suppress(reached, visited, 0)
+
+    @staticmethod
+    def _min_parent(ops, gf, visited, ctx):
+        ext = _extended(gf, False)
+        cand = BinnedPullBackend._binned_map(
+            ops.rev_binned, lambda s: _gather_min_parent(s, ext),
+            lambda r: torch.full((r,), NO_PARENT, dtype=torch.int32,
+                                 device=gf.device),
+        )
+        return _suppress(cand, visited, NO_PARENT)
+
+    @staticmethod
+    def _min_parent_lanes(ops, gl, visited, ctx):
+        ext = _extended(gl, 0)
+        n_lanes = gl.shape[-1]
+        cand = BinnedPullBackend._binned_map(
+            ops.rev_binned, lambda s: _gather_min_parent_lanes(s, ext),
+            lambda r: torch.full((r, n_lanes), NO_PARENT, dtype=torch.int32,
+                                 device=gl.device),
+        )
+        return _suppress(cand, visited, NO_PARENT)
+
+
+class FusedBinnedPullBackend:
+    """``pull_binned`` through the fused ``binned_pull`` kernel over the
+    row-padded pack; bit-identical to ``pull_binned``."""
+
+    name = "pull_binned_fused"
+
+    @staticmethod
+    def _reach_dense(ops, gf, visited, ctx):
+        return _fused_pull(ops.rev_binned_pack, gf, visited,
+                           op="reach") != 0
+
+    @staticmethod
+    def _reach_lanes(ops, gl, visited, ctx):
+        return _fused_pull(ops.rev_binned_pack, gl, visited,
+                           op="reach_lanes")
+
+    @staticmethod
+    def _min_parent(ops, gf, visited, ctx):
+        return _fused_pull(ops.rev_binned_pack, gf, visited,
+                           op="min_parent")
+
+    @staticmethod
+    def _min_parent_lanes(ops, gl, visited, ctx):
+        return _fused_pull(ops.rev_binned_pack, gl, visited,
+                           op="min_parent_lanes")
+
+
+def _pull_contract(cls):
+    """Public backend methods of a pull flavor from its cores (one device:
+    the frontier is already global, so there is no union to take first)."""
+    cls.reach_dense = staticmethod(cls._reach_dense)
+    cls.reach_lanes = staticmethod(cls._reach_lanes)
+    cls.min_parent = staticmethod(cls._min_parent)
+    cls.min_parent_lanes = staticmethod(cls._min_parent_lanes)
+    cls.reach_parent_dense = staticmethod(lambda ops, f, v, ctx: (
+        cls._reach_dense(ops, f, v, ctx), cls._min_parent(ops, f, v, ctx)))
+    cls.reach_parent_lanes = staticmethod(lambda ops, f, v, ctx: (
+        cls._reach_lanes(ops, f, v, ctx),
+        cls._min_parent_lanes(ops, f, v, ctx)))
+    return cls
+
+
+for _cls in (PullBackend, BinnedPullBackend, FusedBinnedPullBackend):
+    _pull_contract(_cls)
+
+
+# ---------------------------------------------------------------------------
+# block_mxu: OR-reach over stored tiles through the msbfs_extend kernel.
+# ---------------------------------------------------------------------------
+
+
+class BlockBackend:
+    """OR-reach over the stored 0/1 tiles; candidate parents have no 0/1
+    product form and stay on the push scatter (same merged values)."""
+
+    name = "block_mxu"
+
+    @staticmethod
+    def reach_lanes(ops, lanes, visited, ctx):
+        sb = ops.blocks
+        bsz = sb.block_size
+        rows = ops.fwd.n_nodes
+        n_lanes = lanes.shape[-1]
+        out = extend_blocks(
+            sb.blocks[0], sb.block_rows[0], sb.block_cols[0],
+            lanes.reshape(rows // bsz, bsz, n_lanes), g_out=ctx.n_out // bsz,
+        )
+        return out.reshape(ctx.n_out, n_lanes)
+
+    @staticmethod
+    def reach_dense(ops, frontier, visited, ctx):
+        lanes = frontier[:, None].to(torch.uint8)
+        return BlockBackend.reach_lanes(ops, lanes, visited, ctx)[:, 0] != 0
+
+    min_parent = staticmethod(PushBackend.min_parent)
+    min_parent_lanes = staticmethod(PushBackend.min_parent_lanes)
+
+    @staticmethod
+    def reach_parent_dense(ops, frontier, visited, ctx):
+        return (
+            BlockBackend.reach_dense(ops, frontier, visited, ctx),
+            PushBackend.min_parent(ops, frontier, visited, ctx),
+        )
+
+    @staticmethod
+    def reach_parent_lanes(ops, lanes, visited, ctx):
+        return (
+            BlockBackend.reach_lanes(ops, lanes, visited, ctx),
+            PushBackend.min_parent_lanes(ops, lanes, visited, ctx),
+        )
+
+
+# ---------------------------------------------------------------------------
+# direction="auto": Beamer's alpha/beta switch, and the stats tap.
+# ---------------------------------------------------------------------------
+
+
+def _predicate_locals(ops, frontier, visited):
+    """``(n_f, m_f, m_u, unvis)``: active-row count, frontier out-edge
+    mass, unexplored out-edge mass (float32 device scalars) and the
+    unvisited-row mask (None when the compute keeps no visited set)."""
+    act = (frontier != 0) if frontier.ndim == 1 else (frontier != 0).any(-1)
+    deg = ops.fwd.degrees.to(torch.float32)
+    n_f = act.sum(dtype=torch.float32)
+    m_f = (deg * act).sum()
+    if visited is not None:
+        vis = (visited != 0) if visited.ndim == 1 else (visited != 0).any(-1)
+        unvis = ~vis
+        m_u = (deg * unvis).sum()
+    else:
+        unvis = None
+        m_u = deg.sum() - m_f
+    return n_f, m_f, m_u, unvis
+
+
+#: columns of one ``frontier_stats`` sample
+STATS_WIDTH = 6
+#: bytes one int32 adjacency slot streams through an extension scan
+BYTES_PER_SLOT = 5.0
+
+
+def frontier_stats(ops, state, ctx: ExtendCtx, bin_widths=None):
+    """One per-iteration sample for the online direction-threshold
+    learner: ``[n_f, m_f, m_u, pull_slots_binned, wall_ms, pull_bytes]``
+    float32 of the state about to extend. ``wall_ms`` is host-filled
+    (-1 here); the slot columns are -1 when ``bin_widths`` (this graph's
+    per-row binned slab widths) is None."""
+    visited = getattr(state, "visited", None)
+    n_f, m_f, m_u, unvis = _predicate_locals(ops, state.frontier, visited)
+    if bin_widths is None:
+        pull = torch.zeros((), dtype=torch.float32, device=n_f.device)
+    elif unvis is None:
+        pull = bin_widths.sum()
+    else:
+        pull = (bin_widths * unvis).sum()
+    minus1 = torch.full((), -1.0, dtype=torch.float32, device=n_f.device)
+    if bin_widths is None:
+        return torch.stack([n_f, m_f, m_u, minus1, minus1, minus1])
+    return torch.stack([n_f, m_f, m_u, pull, minus1, pull * BYTES_PER_SLOT])
+
+
+def stats_bin_widths(ops: GraphOperands):
+    """Per-local-row binned slab widths (float32) for the stats tap, or
+    None when the operands carry no binned slabs."""
+    if ops.rev_binned is None:
+        return None
+    bn = ops.rev_binned
+    wvec = torch.cat([
+        torch.full((s.shape[-2],), float(s.shape[-1]), dtype=torch.float32,
+                   device=bn.inv.device)
+        for s in bn.slabs
+    ])
+    return wvec[bn.inv[0].long()]
+
+
+class AutoBackend:
+    """Per-iteration push/pull choice. The predicate is read on the host
+    (one device-to-host sync per iteration) and exactly one branch runs."""
+
+    name = "dopt"
+
+    def __init__(self, spec: ExtendSpec):
+        self.alpha = spec.alpha
+        self.beta = spec.beta
+        self.pull_be = {
+            "binned": BinnedPullBackend,
+            "binned_fused": FusedBinnedPullBackend,
+            "ell": PullBackend,
+        }[spec.pull]
+
+    def use_pull(self, ops, frontier, visited, ctx) -> bool:
+        n_f, m_f, m_u, _ = _predicate_locals(ops, frontier, visited)
+        alpha = torch.tensor(self.alpha, dtype=torch.float32)
+        beta = torch.tensor(self.beta, dtype=torch.float32)
+        stats = torch.stack([n_f, m_f, m_u]).cpu()
+        n_f, m_f, m_u = stats[0], stats[1], stats[2]
+        # float32 products, like the JAX predicate
+        return bool((m_f * alpha > m_u) & (n_f * beta > ctx.n_out))
+
+    def reach_dense(self, ops, frontier, visited, ctx):
+        if self.use_pull(ops, frontier, visited, ctx):
+            return self.pull_be._reach_dense(ops, frontier, visited, ctx)
+        return PushBackend.reach_dense(ops, frontier, visited, ctx)
+
+    def reach_lanes(self, ops, lanes, visited, ctx):
+        if self.use_pull(ops, lanes, visited, ctx):
+            return self.pull_be._reach_lanes(ops, lanes, visited, ctx)
+        return PushBackend.reach_lanes(ops, lanes, visited, ctx)
+
+    def min_parent(self, ops, frontier, visited, ctx):
+        if self.use_pull(ops, frontier, visited, ctx):
+            return self.pull_be._min_parent(ops, frontier, visited, ctx)
+        return PushBackend.min_parent(ops, frontier, visited, ctx)
+
+    def min_parent_lanes(self, ops, lanes, visited, ctx):
+        if self.use_pull(ops, lanes, visited, ctx):
+            return self.pull_be._min_parent_lanes(ops, lanes, visited, ctx)
+        return PushBackend.min_parent_lanes(ops, lanes, visited, ctx)
+
+    def reach_parent_dense(self, ops, frontier, visited, ctx):
+        if self.use_pull(ops, frontier, visited, ctx):
+            return (self.pull_be._reach_dense(ops, frontier, visited, ctx),
+                    self.pull_be._min_parent(ops, frontier, visited, ctx))
+        return PushBackend.reach_parent_dense(ops, frontier, visited, ctx)
+
+    def reach_parent_lanes(self, ops, lanes, visited, ctx):
+        if self.use_pull(ops, lanes, visited, ctx):
+            return (
+                self.pull_be._reach_lanes(ops, lanes, visited, ctx),
+                self.pull_be._min_parent_lanes(ops, lanes, visited, ctx),
+            )
+        return PushBackend.reach_parent_lanes(ops, lanes, visited, ctx)
+
+
+_FIXED = {
+    "ell_push": PushBackend,
+    "ell_pull": PullBackend,
+    "pull_binned": BinnedPullBackend,
+    "pull_binned_fused": FusedBinnedPullBackend,
+    "block_mxu": BlockBackend,
+}
+
+
+def make_backend(spec: ExtendSpec):
+    """ExtendSpec -> backend object implementing the primitive contract."""
+    if spec.direction == "auto":
+        return AutoBackend(spec)
+    return _FIXED[spec.backend]
+
+
+def check_operands(spec: ExtendSpec, ops: GraphOperands) -> None:
+    """Raise when ``ops`` lacks a structure ``spec`` scans."""
+    missing = [
+        name for need, name in (
+            (spec.needs_rev, "rev"),
+            (spec.needs_binned, "rev_binned"),
+            (spec.needs_binned_pack, "rev_binned_pack"),
+            (spec.needs_blocks, "blocks"),
+        ) if need and getattr(ops, name) is None
+    ]
+    if missing:
+        raise ValueError(
+            f"extend={spec.backend}/{spec.direction}/{spec.pull} needs "
+            f"operands {missing}; build them with build_operands or "
+            "prepare_graph(..., extend=spec)"
+        )
+
+
+class BackendCostProbe:
+    """Measured per-slot extension cost (the ``cost="measured"`` lane):
+    times one ``reach_dense`` step per backend the bundle supports against
+    a half-full frontier and divides by the backend's full-scan slots.
+
+    Timing: CUDA events around ``reps`` launches on a CUDA device (median);
+    ``time.perf_counter`` medians on the CPU."""
+
+    def __init__(self, reps: int = 3):
+        self.reps = int(reps)
+
+    def measure_ms(self, fn, *args) -> float:
+        dev = args[0].device
+        fn(*args)  # warm: builds the kernels, fills caches
+        walls = []
+        for _ in range(self.reps):
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(*args)
+                end.record()
+                end.synchronize()
+                walls.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                fn(*args)
+                walls.append((time.perf_counter() - t0) * 1e3)
+        walls.sort()
+        return walls[len(walls) // 2]
+
+    def rates(self, ops, n_pad: int) -> dict:
+        """``{backend: {"ms_per_slot", "bytes_per_slot", "probe_ms",
+        "slots"}}`` for every backend ``ops`` can run."""
+        ops = as_operands(ops)
+        ctx = ExtendCtx(n_out=n_pad)
+        dev = ops.device
+        frontier = torch.arange(n_pad, device=dev) < max(n_pad // 2, 1)
+        visited = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+        probes = {"ell_push": (PushBackend, int(ops.fwd.indices.numel()))}
+        if ops.rev_binned is not None:
+            probes["pull_binned"] = (
+                BinnedPullBackend, ops.rev_binned.capacity_slots
+            )
+        if ops.rev_binned_pack is not None:
+            probes["pull_binned_fused"] = (
+                FusedBinnedPullBackend, ops.rev_binned_pack.capacity_slots
+            )
+        out = {}
+        for name, (be, slots) in probes.items():
+            ms = self.measure_ms(
+                lambda f, v, be=be: be.reach_dense(ops, f, v, ctx),
+                frontier, visited,
+            )
+            out[name] = {
+                "ms_per_slot": ms / max(slots, 1),
+                "bytes_per_slot": BYTES_PER_SLOT,
+                "probe_ms": ms,
+                "slots": slots,
+            }
+        return out

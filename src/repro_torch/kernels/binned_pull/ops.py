@@ -1,0 +1,155 @@
+"""Wrapper and host-side operand pack of the fused binned-pull kernel
+(port of ``repro.kernels.binned_pull.ops``).
+
+``binned_pull`` runs the plain PyTorch version for a CPU tensor and
+launches the CUDA kernel for a CUDA tensor; there is no fall back.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .binned_pull import (
+    OPS,
+    TilePlan,
+    fused_binned_pull,
+    make_plan,
+    slab_descriptors,
+    tile_rows,
+)
+from .ref import fused_binned_pull_ref
+
+
+@dataclasses.dataclass(frozen=True)
+class BinnedPullPack:
+    """Kernel-ready repack of ``graph.csr.BinnedRevEll``: the same edge set
+    and perm/inverse contract, every nonzero-width slab row-padded to a
+    multiple of its ``tile_rows`` (pad rows all-sentinel), and the
+    permutation pair re-indexed into the padded position space. ``K`` is
+    the graph shard count (1 on one device)."""
+
+    slabs: tuple  # of [K, rows_pad_b, width_b] int32 (nonzero-width)
+    inv_pad: torch.Tensor  # [K, rows_local] int32 (local row -> padded pos)
+    perm_pad: torch.Tensor  # [K, rbp] int32 (padded pos -> local row;
+    #                         sentinel rows_local at pad positions)
+    slab_weights: Optional[tuple] = None  # matching [K, rows_pad_b, w] f32
+
+    @property
+    def rows_local(self) -> int:
+        return int(self.inv_pad.shape[-1])
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.inv_pad.shape[0])
+
+    @property
+    def widths(self) -> tuple:
+        return tuple(int(s.shape[-1]) for s in self.slabs)
+
+    @property
+    def capacity_slots(self) -> int:
+        """One shard's full-scan slots including the row padding."""
+        return int(sum(s.shape[-2] * s.shape[-1] for s in self.slabs))
+
+
+def pack_plan(pack: BinnedPullPack) -> TilePlan:
+    """The static layout, rebuilt from the pack's shapes alone."""
+    rows_pad = tuple(int(s.shape[-2]) for s in pack.slabs)
+    return make_plan(
+        widths=tuple(int(s.shape[-1]) for s in pack.slabs),
+        rows_pad=rows_pad,
+        zero_rows=int(pack.perm_pad.shape[-1]) - sum(rows_pad),
+    )
+
+
+def build_pack(bn, n_pad: int) -> BinnedPullPack:
+    """Host-side (numpy, deterministic) repack of a ``BinnedRevEll``;
+    ``n_pad`` is the padded node count (the slab sentinel). Returns CPU
+    tensors."""
+    k = int(bn.inv.shape[0])
+    rows_local = bn.rows_local
+    widths = bn.widths
+    if widths[0] != 0 or not all(w > 0 for w in widths[1:]):
+        raise ValueError(f"unexpected binned slab widths: {widths}")
+    rows_raw = [int(s.shape[-2]) for s in bn.slabs]
+    rows_pad = [
+        -(-r // tile_rows(w)) * tile_rows(w)
+        for w, r in zip(widths[1:], rows_raw[1:])
+    ]
+    starts = np.concatenate([[0], np.cumsum(rows_raw)])[:-1]
+    seg = np.asarray([rows_raw[0]] + rows_pad, np.int64)
+    pstarts = np.concatenate([[0], np.cumsum(seg)])[:-1]
+    rbp = int(seg.sum())
+    bop = np.repeat(np.arange(len(widths)), rows_raw)
+    pp = pstarts[bop] + np.arange(int(np.sum(rows_raw))) - starts[bop]
+    inv_pad = pp[bn.inv.cpu().numpy()].astype(np.int32)
+    perm_pad = np.full((k, rbp), rows_local, np.int32)
+    perm_pad[:, pp] = bn.perm.cpu().numpy()
+    slabs, wslabs = [], []
+    for b in range(1, len(widths)):
+        s = bn.slabs[b].cpu().numpy()
+        pad = rows_pad[b - 1] - s.shape[1]
+        fill = np.full((k, pad, widths[b]), n_pad, np.int32)
+        slabs.append(torch.from_numpy(np.concatenate([s, fill], axis=1)))
+        if bn.slab_weights is not None:
+            wv = bn.slab_weights[b].cpu().numpy()
+            wfill = np.zeros((k, pad, widths[b]), np.float32)
+            wslabs.append(
+                torch.from_numpy(np.concatenate([wv, wfill], axis=1))
+            )
+    return BinnedPullPack(
+        slabs=tuple(slabs),
+        inv_pad=torch.from_numpy(np.ascontiguousarray(inv_pad)),
+        perm_pad=torch.from_numpy(perm_pad),
+        slab_weights=(
+            tuple(wslabs) if bn.slab_weights is not None else None
+        ),
+    )
+
+
+def _kernel_desc(pack: BinnedPullPack, plan: TilePlan, slabs, wslabs):
+    """The kernel's slab table for this pack, built once per weight mode
+    and kept on the pack (outside its dataclass fields)."""
+    cache = pack.__dict__.setdefault("_kernel_desc", {})
+    key = wslabs is not None
+    if key not in cache:
+        cache[key] = slab_descriptors(plan, slabs, wslabs)
+    return cache[key]
+
+
+def binned_pull(
+    pack: BinnedPullPack,
+    gsrc: torch.Tensor,  # [n_out](, L): uint8/bool mask or f32 distance
+    vloc: torch.Tensor | None = None,  # [rows_local](, L) visited
+    *,
+    op: str,
+    use_ref: bool = False,
+) -> torch.Tensor:
+    """Fused pull extension of shard 0 of ``pack``. Returns
+    ``[rows_local]`` (``[rows_local, L]`` for the lane ops): uint8 reach
+    mask, int32 min-parent or float32 distance. A CPU ``gsrc`` (or
+    ``use_ref``) runs the plain version; a CUDA ``gsrc`` launches the
+    kernel."""
+    if op not in OPS:
+        raise ValueError(f"unknown binned-pull op: {op}")
+    plan = pack_plan(pack)
+    slabs = [s[0] for s in pack.slabs]
+    wslabs = None
+    if op == "min_dist" and pack.slab_weights is not None:
+        wslabs = [w[0] for w in pack.slab_weights]
+    if gsrc.dtype == torch.bool:
+        gsrc = gsrc.to(torch.uint8)
+    vloc_u8 = None if vloc is None else vloc.to(torch.uint8)
+    if use_ref or gsrc.device.type == "cpu":
+        return fused_binned_pull_ref(
+            op, plan, slabs, wslabs, gsrc, pack.inv_pad[0], vloc_u8
+        )
+    desc = _kernel_desc(pack, plan, slabs, wslabs)
+    return fused_binned_pull(
+        op, plan, slabs, wslabs, gsrc.contiguous(), pack.perm_pad[0],
+        pack.rows_local, None if vloc_u8 is None else vloc_u8.contiguous(),
+        desc=desc,
+    )

@@ -1,0 +1,59 @@
+"""Device resolution and tensor-tree helpers shared by the port.
+
+The JAX package resolves ``interpret=None`` per kernel call; the port's
+rule is simpler and per tensor: a kernel wrapper runs its plain PyTorch
+version for a CPU tensor and launches its CUDA kernel for a CUDA tensor.
+Entry points pick the device once, here: ``cuda`` unless the caller asks
+for the CPU, and never a silent fall back to the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``. Raises when CUDA is asked for (explicitly
+    or by default) and this process has no usable GPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available in this process; pass device='cpu' "
+            "(--device cpu) to run the plain PyTorch path on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device: {dev}")
+    return dev
+
+
+def map_tensors(fn, obj):
+    """Apply ``fn`` to every tensor in a tree of dataclasses, tuples,
+    lists, dicts and NamedTuples; other leaves pass through."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: map_tensors(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+        })
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(fn, x) for x in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map_tensors(fn, x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
+    return obj
+
+
+def to_device(obj, device):
+    """Copy every tensor of a tree onto ``device``."""
+    dev = torch.device(device)
+    return map_tensors(lambda t: t.to(dev), obj)
+
+
+def synchronize(device) -> None:
+    """Wait for queued work on ``device`` (no-op on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

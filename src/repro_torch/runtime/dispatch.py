@@ -1,0 +1,932 @@
+"""Dispatch layer of the serving core: engine cache + two-phase hybrid
+(port of ``repro.runtime.dispatch`` on one ``torch.device``).
+
+``QueryDispatcher`` executes one batch of source nodes: the engine cache,
+the paper's two-phase hybrid (nTkS phase 1 under a learned budget,
+gang-scheduled phase-2 re-dispatch of the survivors), backend
+recommendation and the online learners (per-bucket budget model and
+in-flight direction-threshold refits). The split-phase surface is kept:
+
+- ``begin_batch`` plans the batch and runs phase 1 (or the static
+  engine). The port's engines read their loop condition on the host, so
+  phase 1 has finished on the device when ``begin_batch`` returns;
+- ``settle_batch`` takes the survivors, resumes them (phase 2), runs the
+  post-batch learning and returns a ``SettledBatch``;
+- ``finalize_batch`` stitches the phase-2 survivors back over the
+  phase-1 state.
+
+What differs from the JAX package:
+
+- ``compile_events`` counts first builds of an engine key and first
+  morsel counts per key: the port compiles no program per shape, but the
+  serving driver's warm/cold split keys off the same counter;
+- ``cost="auto"`` means "measured" (``BackendCostProbe`` with CUDA
+  events) on a CUDA device and "slots" on the CPU;
+- ``recommend_policy``'s memory bound reads the CUDA device's
+  ``total_memory`` (16 GiB, the JAX default, on the CPU);
+- graph mutation (``apply_delta``, operand epochs) and the sharded state
+  layout are not ported (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..core import (
+    POLICIES,
+    QUERY_KINDS,
+    BackendCostProbe,
+    BudgetModel,
+    DirectionThresholds,
+    ExtendSpec,
+    IFEResult,
+    MorselPolicy,
+    as_spec,
+    build_engine,
+    build_gang_resume_engine,
+    build_resume_engine,
+    count_budget_mispredicts,
+    degree_bucket,
+    fit_direction_thresholds,
+    gang_scatter_back,
+    hybrid_phases,
+    pad_sources,
+    pow2ceil as _pow2ceil,
+    prepare_graph,
+    recommend_backend,
+    recommend_k,
+    recommend_policy,
+)
+from ..core.extend import GraphOperands
+from ..graph.csr import CSRGraph
+from ..kernels.common import resolve_device, synchronize
+
+#: device memory ``recommend_policy`` assumes off the card (the JAX default)
+DEFAULT_HBM_BYTES = 16 * 2**30
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineKey:
+    """Cache identity of one engine: ``kind`` is "static", "phase1",
+    "resume" or "gang"; ``extend`` the backend and direction mode;
+    ``stats`` marks the sample-tapped flavor."""
+
+    kind: str
+    policy: MorselPolicy
+    edge_compute: str
+    n_nodes_padded: int
+    max_iters: int
+    state_layout: str
+    extend: ExtendSpec = ExtendSpec()
+    stats: bool = False
+
+
+class EngineCache:
+    """Engine cache: bounded LRU with hit/miss accounting per engine kind
+    and a ledger of the morsel counts each engine has run with.
+
+    ``compile_events`` = builds + first-seen (engine, morsel count) pairs:
+    the serving driver classifies a batch that raised it as cold."""
+
+    DEFAULT_MAX_ENTRIES = 128
+
+    def __init__(self, max_entries: int | None = DEFAULT_MAX_ENTRIES):
+        if max_entries is not None and max_entries < 1:
+            raise ValueError(f"max_entries must be >= 1: {max_entries}")
+        self.max_entries = max_entries
+        self._engines: collections.OrderedDict[EngineKey, Any] = (
+            collections.OrderedDict()
+        )
+        self.hits = 0
+        self.misses = 0
+        self.hits_by_kind: collections.Counter = collections.Counter()
+        self.misses_by_kind: collections.Counter = collections.Counter()
+        self._shapes: dict[EngineKey, set] = {}
+        self.shape_misses = 0
+        self.evictions = 0
+
+    @property
+    def compile_events(self) -> int:
+        return self.misses + self.shape_misses
+
+    def note_shape(self, key: EngineKey, shape) -> bool:
+        """Record that ``key``'s engine runs with input ``shape``; True
+        (and a ``shape_miss``) the first time the pair is seen."""
+        seen = self._shapes.setdefault(key, set())
+        if shape in seen:
+            return False
+        seen.add(shape)
+        self.shape_misses += 1
+        return True
+
+    def __len__(self) -> int:
+        return len(self._engines)
+
+    def get_or_build(self, key: EngineKey, builder: Callable[[], Any]):
+        kind = key.kind
+        eng = self._engines.get(key)
+        if eng is not None:
+            self.hits += 1
+            self.hits_by_kind[kind] += 1
+            self._engines.move_to_end(key)
+            return eng
+        self.misses += 1
+        self.misses_by_kind[kind] += 1
+        eng = builder()
+        self._engines[key] = eng
+        if (
+            self.max_entries is not None
+            and len(self._engines) > self.max_entries
+        ):
+            old_key, _ = self._engines.popitem(last=False)
+            self._shapes.pop(old_key, None)
+            self.evictions += 1
+        return eng
+
+
+@dataclasses.dataclass
+class QueryOutcome:
+    """One served batch: result plus how the runtime executed it
+    (``redispatched == resumed_ganged + resumed_serial``; the ``budget_*``
+    counters classify the real morsels against the phase-1 budget)."""
+
+    result: IFEResult
+    policy: str
+    hybrid: bool
+    redispatched: int
+    phase_ms: dict
+    phase1_budget: int
+    resumed_ganged: int = 0
+    resumed_serial: int = 0
+    gang_width: int = 0
+    budget_too_low: int = 0
+    budget_too_high: int = 0
+    budget_inert_slots: int = 0
+    budget_observed: int = 0
+
+
+@dataclasses.dataclass
+class SchedulerStats:
+    """Cumulative runtime counters across every served batch."""
+
+    queries: int = 0
+    hybrid_runs: int = 0
+    redispatched: int = 0
+    resumed_ganged: int = 0
+    resumed_serial: int = 0
+    gangs: int = 0
+    gang_slots: int = 0
+    phase1_ms: float = 0.0
+    phase2_ms: float = 0.0
+    budget_too_low: int = 0
+    budget_too_high: int = 0
+    budget_inert_slots: int = 0
+    budget_observed: int = 0
+    refits: int = 0
+
+    @property
+    def gang_occupancy(self) -> float:
+        return self.resumed_ganged / self.gang_slots if self.gang_slots else 0.0
+
+    @property
+    def budget_mispredict_rate(self) -> float:
+        if not self.budget_observed:
+            return 0.0
+        return (self.budget_too_low + self.budget_too_high) / (
+            self.budget_observed
+        )
+
+    def record(self, outcome: QueryOutcome) -> None:
+        self.queries += 1
+        if outcome.hybrid:
+            self.hybrid_runs += 1
+        self.redispatched += outcome.redispatched
+        self.resumed_ganged += outcome.resumed_ganged
+        self.resumed_serial += outcome.resumed_serial
+        self.phase1_ms += outcome.phase_ms.get("phase1", 0.0)
+        self.phase2_ms += outcome.phase_ms.get("phase2", 0.0)
+        self.budget_too_low += outcome.budget_too_low
+        self.budget_too_high += outcome.budget_too_high
+        self.budget_inert_slots += outcome.budget_inert_slots
+        self.budget_observed += outcome.budget_observed
+
+
+@dataclasses.dataclass
+class InflightBatch:
+    """A planned batch whose phase 1 (or static engine) has run;
+    ``kind`` routes ``settle_batch``: "hybrid", "static" or "chunked"
+    (an oversized batch run as a chunk loop at settle time)."""
+
+    kind: str
+    name: str
+    n_real: int
+    buckets: np.ndarray
+    payload: Any
+
+
+@dataclasses.dataclass
+class SettledBatch:
+    """A batch past its sync points and learning; ``finalize()``
+    (idempotent) runs the deferred state stitch."""
+
+    outcome: QueryOutcome
+    _materialize: Callable[[], IFEResult] | None = None
+
+    def finalize(self) -> QueryOutcome:
+        if self._materialize is not None:
+            self.outcome.result = self._materialize()
+            self._materialize = None
+        return self.outcome
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _take_padded(x: torch.Tensor, idx: torch.Tensor, rows: int):
+    """``x[idx]`` padded with all-zero rows to ``rows`` (inert members)."""
+    out = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[: idx.numel()] = x[idx]
+    return out
+
+
+class QueryDispatcher:
+    """Build-once, serve-many execution layer over one graph on one
+    device. The execution and learning contract is the JAX package's:
+    ``adaptive`` enables the two-phase hybrid for policies with source
+    morsels, ``gang_resume=False`` pins the serial phase-2 resume,
+    ``online_adapt`` turns on the per-bucket budget model and the
+    threshold refits, all bit-identical in result state."""
+
+    def __init__(
+        self,
+        device,
+        csr: CSRGraph,
+        max_deg: int | None = None,
+        max_iters: int = 64,
+        adaptive: bool = True,
+        phase1_iters: int | None = None,
+        max_inflight: int | None = None,
+        backend="recommend",
+        direction_thresholds: DirectionThresholds | str | Path | None = None,
+        family: str | None = None,
+        gang_resume: bool = True,
+        online_adapt: bool = True,
+        budget_model: BudgetModel | None = None,
+        refit_every: int = 16,
+        sample_window: int = 2048,
+        pad_pow2_morsels: bool = False,
+        cost: str = "auto",
+    ):
+        self.device = resolve_device(device)
+        self.csr = csr
+        self.max_deg = max_deg
+        self.max_iters = max_iters
+        self.adaptive = adaptive
+        self.phase1_iters = phase1_iters
+        self.max_inflight = max_inflight
+        self.backend = backend
+        if isinstance(direction_thresholds, (str, Path)):
+            direction_thresholds = fit_direction_thresholds(
+                direction_thresholds
+            )
+        self.direction_thresholds = direction_thresholds
+        self._thresholds_pinned = direction_thresholds is not None
+        self.family = family
+        self.gang_resume = gang_resume
+        self.online_adapt = online_adapt
+        self.budget_model = (
+            budget_model
+            if budget_model is not None
+            else (BudgetModel() if online_adapt else None)
+        )
+        self.refit_every = max(1, int(refit_every))
+        self.pad_pow2_morsels = pad_pow2_morsels
+        if cost == "auto":
+            cost = "measured" if self.device.type == "cuda" else "slots"
+        if cost not in ("slots", "measured"):
+            raise ValueError(f"unknown cost mode: {cost!r}")
+        self.cost_mode = cost
+        self.hbm_bytes = (
+            torch.cuda.get_device_properties(self.device).total_memory
+            if self.device.type == "cuda" else DEFAULT_HBM_BYTES
+        )
+        self.cost_probe = BackendCostProbe()
+        self._cost_rates: dict[int, dict] = {}
+        self.stats = SchedulerStats()
+        self.cache = EngineCache()
+        self._graphs: dict[tuple, tuple[GraphOperands, int]] = {}
+        self._iter_p90s: collections.deque = collections.deque(maxlen=32)
+        self._dir_samples: dict[int, collections.deque] = {}
+        self._sample_window = int(sample_window)
+        self._batches_since_refit = 0
+
+    # ------------------------------------------------------------- engines
+
+    @staticmethod
+    def _bundle_key(spec: ExtendSpec) -> tuple:
+        return (
+            spec.needs_rev,
+            spec.needs_binned,
+            spec.needs_binned_pack,
+            spec.needs_blocks,
+            spec.pad_block,
+        )
+
+    def _graph_for(
+        self, policy: MorselPolicy, spec: ExtendSpec = ExtendSpec()
+    ) -> tuple[GraphOperands, int]:
+        """The device-placed operand bundle ``spec`` scans, built once and
+        shared by every spec needing the same structures (on one device
+        the policy's graph axes do not change the layout)."""
+        key = self._bundle_key(spec)
+        if key not in self._graphs:
+            self._graphs[key] = prepare_graph(
+                self.csr, self.device, policy, self.max_deg, extend=spec
+            )
+        return self._graphs[key]
+
+    def engine(
+        self,
+        kind: str,
+        policy: MorselPolicy,
+        edge_compute: str,
+        n_pad: int,
+        max_iters: int | None = None,
+        state_layout: str = "replicated",
+        extend: ExtendSpec = ExtendSpec(),
+        collect_stats: bool = False,
+        morsel_shape=None,
+    ):
+        cap = int(max_iters if max_iters is not None else self.max_iters)
+        key = EngineKey(kind, policy, edge_compute, n_pad, cap, state_layout,
+                        extend, collect_stats)
+        dev = self.device
+        if kind == "static":
+            builder = lambda: build_engine(
+                dev, policy, edge_compute, n_pad, cap,
+                state_layout=state_layout, extend=extend,
+                collect_stats=collect_stats,
+            )
+        elif kind == "phase1":
+            builder = lambda: build_engine(
+                dev, policy, edge_compute, n_pad, cap,
+                state_layout=state_layout, sync="shard", extend=extend,
+                collect_stats=collect_stats,
+            )
+        elif kind == "resume":
+            builder = lambda: build_resume_engine(
+                dev, policy, edge_compute, n_pad, cap, extend=extend,
+                collect_stats=collect_stats,
+            )
+        elif kind == "gang":
+            builder = lambda: build_gang_resume_engine(
+                dev, policy, edge_compute, n_pad, cap, extend=extend,
+                state_layout=state_layout, collect_stats=collect_stats,
+            )
+        else:
+            raise ValueError(f"unknown engine kind: {kind}")
+        eng = self.cache.get_or_build(key, builder)
+        if morsel_shape is not None:
+            self.cache.note_shape(key, tuple(morsel_shape))
+        return eng
+
+    # ------------------------------------------------------------ dispatch
+
+    def _phase1_budget(self, buckets=()) -> int:
+        """Phase-1 iteration cap: a pinned ``phase1_iters``, else the
+        budget model's covering budget for ``buckets``, else the pow2 of
+        the recent global p90, else the cold budget."""
+        if self.phase1_iters is not None:
+            return max(1, min(self.phase1_iters, self.max_iters))
+        if self.budget_model is not None:
+            b = self.budget_model.budget_for(
+                self.family, buckets, self.max_iters
+            )
+            if b is not None:
+                return b
+        if self._iter_p90s:
+            b = _pow2ceil(int(np.median(self._iter_p90s)) + 1)
+        else:
+            b = (
+                self.budget_model.cold_budget
+                if self.budget_model is not None
+                else 8
+            )
+        return max(4, min(b, self.max_iters))
+
+    def _record_iters(self, iters: np.ndarray):
+        if iters.size:
+            self._iter_p90s.append(float(np.percentile(iters, 90)))
+
+    def _morsel_buckets(self, sources: np.ndarray, lanes: int) -> np.ndarray:
+        """pow2 source-degree bucket per real morsel (the budget model's
+        key)."""
+        if len(sources) == 0:
+            return np.zeros(0, np.int64)
+        deg = self.csr.degrees[
+            np.clip(sources, 0, self.csr.n_nodes - 1)
+        ].astype(np.float64)
+        n_m = -(-len(sources) // lanes)
+        pad = np.full(n_m * lanes - len(sources), np.nan)
+        mean = np.nanmean(
+            np.concatenate([deg, pad]).reshape(n_m, lanes), axis=1
+        )
+        return np.asarray([degree_bucket(float(m)) for m in mean], np.int64)
+
+    def depth_hint(self, sources, lanes: int = 1) -> int | None:
+        """Predicted convergence depth of a prospective batch (None before
+        anything was learned)."""
+        if self.budget_model is None or len(sources) == 0:
+            return None
+        buckets = self._morsel_buckets(
+            np.asarray(sources, np.int64).reshape(-1), lanes
+        )
+        return self.budget_model.budget_for(
+            self.family, buckets, self.max_iters
+        )
+
+    # ---------------------------------------------------- online adaptation
+
+    def _record_samples(self, stats: np.ndarray, trips: np.ndarray,
+                        n_pad: int, push_slots: int,
+                        start: np.ndarray | None = None,
+                        phase: int = 1) -> None:
+        """One fit-consumable record per (real morsel, iteration) of a
+        stats-tap buffer; ``start`` is each morsel's first recorded row."""
+        store = self._dir_samples.setdefault(
+            int(n_pad), collections.deque(maxlen=self._sample_window)
+        )
+        for i in range(stats.shape[0]):
+            j0 = int(start[i]) if start is not None else 0
+            for j in range(j0, int(trips[i])):
+                n_f, m_f, m_u, pull, _wall, pbytes = (
+                    float(v) for v in stats[i, j]
+                )
+                store.append({
+                    "it": j,
+                    "phase": phase,
+                    "frontier": n_f,
+                    "m_frontier": m_f,
+                    "m_unexplored": m_u,
+                    "push_slots": float(push_slots),
+                    "pull_slots_binned": None if pull < 0 else pull,
+                    "pull_bytes_binned": None if pbytes < 0 else pbytes,
+                })
+
+    def _rates_for(self, n_pad: int) -> dict:
+        """Measured per-backend ms/slot rates for ``n_pad``, probed on
+        first use and kept for the dispatcher's life."""
+        if n_pad in self._cost_rates:
+            return self._cost_rates[n_pad]
+        best = None
+        score = lambda o: (
+            (o.rev_binned is not None) + (o.rev_binned_pack is not None)
+        )
+        for ops, npad in self._graphs.values():
+            if int(npad) == int(n_pad) and (
+                best is None or score(ops) > score(best)
+            ):
+                best = ops
+        rates = (
+            {} if best is None else self.cost_probe.rates(best, int(n_pad))
+        )
+        self._cost_rates[n_pad] = rates
+        return rates
+
+    def online_trace(self, cost: str | None = None) -> dict:
+        """The accumulated live samples as a ``BENCH_direction_opt``-shaped
+        document, the input of ``fit_direction_thresholds``."""
+        c = self.cost_mode if cost is None else cost
+        workloads = []
+        for n_pad, recs in sorted(self._dir_samples.items()):
+            records = [dict(r) for r in recs]
+            if c == "measured":
+                rates = self._rates_for(n_pad)
+                pr = rates.get("ell_push", {}).get("ms_per_slot")
+                br = rates.get("pull_binned", {}).get("ms_per_slot")
+                fr = rates.get("pull_binned_fused", {}).get("ms_per_slot")
+                for r in records:
+                    ps = r.get("pull_slots_binned")
+                    r["push_wall_ms"] = (
+                        None if pr is None else pr * r["push_slots"]
+                    )
+                    r["pull_wall_ms_binned"] = (
+                        None if (br is None or ps is None) else br * ps
+                    )
+                    r["pull_wall_ms_fused"] = (
+                        None if (fr is None or ps is None) else fr * ps
+                    )
+            workloads.append({
+                "graph": f"online_npad{n_pad}",
+                "kind": self.family or "unknown",
+                "n": int(self.csr.n_nodes),
+                "n_pad": int(n_pad),
+                "n_edges": int(self.csr.n_edges),
+                "avg_degree": float(self.csr.avg_degree),
+                "backends": {"ell_push": {"iterations": records}},
+            })
+        return {"workloads": workloads}
+
+    def refit_thresholds(self, cost: str | None = None) -> (
+        DirectionThresholds | None
+    ):
+        """Refit ``direction_thresholds`` from the live samples (no-op
+        before any sample landed)."""
+        if not any(len(r) for r in self._dir_samples.values()):
+            return None
+        c = self.cost_mode if cost is None else cost
+        self.direction_thresholds = fit_direction_thresholds(
+            self.online_trace(cost=c), cost=c
+        )
+        self.stats.refits += 1
+        return self.direction_thresholds
+
+    def _learn(self, outcome: QueryOutcome, buckets: np.ndarray,
+               n_real: int) -> None:
+        """Post-batch learning over the real morsels, then the refit
+        cadence."""
+        iters = _host(outcome.result.iterations)[:n_real]
+        self._record_iters(iters)
+        if (
+            self.budget_model is not None
+            and self.phase1_iters is None
+            and n_real > 0
+        ):
+            self.budget_model.observe_batch(
+                self.family, buckets[:n_real], iters
+            )
+            if outcome.hybrid:
+                self.budget_model.mispredicts.count(
+                    outcome.budget_too_low, outcome.budget_too_high,
+                    outcome.budget_inert_slots, outcome.budget_observed,
+                )
+        if self.online_adapt and not self._thresholds_pinned:
+            self._batches_since_refit += 1
+            if self._batches_since_refit >= self.refit_every:
+                self._batches_since_refit = 0
+                self.refit_thresholds()
+
+    # ------------------------------------------ split-phase hybrid internals
+
+    def _begin_hybrid(self, pol, ec, g, n_pad, morsels, state_layout,
+                      extend=ExtendSpec(), n_real=0, buckets=()):
+        """Choose the budget and run phase 1; the phase-2 operands are
+        resolved here too."""
+        p1, p2 = hybrid_phases(
+            pol.source_axes, pol.graph_axes, lanes=pol.lanes,
+            or_impl=pol.or_impl,
+        )
+        budget = self._phase1_budget(buckets)
+        collect = bool(self.online_adapt)
+        eng1 = self.engine(
+            "phase1", p1, ec, n_pad, max_iters=budget,
+            state_layout=state_layout, extend=extend,
+            collect_stats=collect, morsel_shape=morsels.shape[:1],
+        )
+        g2, n_pad2 = self._graph_for(p2, extend)
+        t0 = time.perf_counter()
+        out1 = eng1(g, morsels)
+        return {
+            "pol": pol, "p2": p2, "ec": ec, "g": g, "n_pad": n_pad,
+            "state_layout": state_layout, "extend": extend,
+            "n_real": n_real, "budget": budget, "collect": collect,
+            "out1": out1, "t0": t0, "g2": g2, "n_pad2": n_pad2,
+        }
+
+    def _settle_hybrid(self, inf) -> SettledBatch:
+        """Read phase 1's survivors, resume them (phase 2) and defer the
+        state stitch into ``SettledBatch.finalize``."""
+        pol, p2, ec = inf["pol"], inf["p2"], inf["ec"]
+        g, n_pad = inf["g"], inf["n_pad"]
+        state_layout, extend = inf["state_layout"], inf["extend"]
+        n_real, budget, collect = inf["n_real"], inf["budget"], inf["collect"]
+        out1 = inf["out1"]
+        res1, stats1 = out1 if collect else (out1, None)
+        f1 = res1.state.frontier
+        active = _host((f1 != 0).reshape(f1.shape[0], -1).any(dim=1))
+        t1 = time.perf_counter()
+        idx = np.nonzero(active)[0]
+        phase_ms = {"phase1": (t1 - inf["t0"]) * 1e3, "phase2": 0.0}
+        iters1 = _host(res1.iterations)
+        n_real = int(min(n_real, iters1.shape[0]))
+        too_low, too_high, inert = count_budget_mispredicts(
+            budget, iters1[:n_real], active[:n_real],
+            floor=(
+                self.budget_model.floor
+                if self.budget_model is not None
+                else 4
+            ),
+        )
+        push_slots = int(g.fwd.indices.numel())
+        if stats1 is not None and n_real > 0:
+            self._record_samples(
+                _host(stats1)[:n_real], iters1[:n_real], n_pad,
+                push_slots=push_slots,
+            )
+        if idx.size == 0:
+            return SettledBatch(QueryOutcome(
+                result=res1, policy=pol.name, hybrid=True, redispatched=0,
+                phase_ms=phase_ms, phase1_budget=budget,
+                budget_too_low=too_low, budget_too_high=too_high,
+                budget_inert_slots=inert, budget_observed=n_real,
+            ))
+        use_gang = self.gang_resume and idx.size > 1
+
+        # survivors padded to a pow2 morsel count (all-zero pad members
+        # are inert: zero-trip loops)
+        kp = _pow2ceil(idx.size)
+        sub_it = np.zeros((kp,), iters1.dtype)
+        sub_it[: idx.size] = iters1[idx]
+        g2, n_pad2 = inf["g2"], inf["n_pad2"]
+        if n_pad2 != n_pad:
+            raise RuntimeError(f"phase graphs disagree: {n_pad2} != {n_pad}")
+        state1 = res1.state
+        idx_t = torch.as_tensor(idx, dtype=torch.long, device=f1.device)
+        sub_state = type(state1)(*(_take_padded(x, idx_t, kp) for x in state1))
+
+        if use_gang:
+            eng2 = self.engine(
+                "gang", p2, ec, n_pad, state_layout=state_layout,
+                extend=extend, collect_stats=collect, morsel_shape=(kp,),
+            )
+            self.stats.gangs += 1
+            self.stats.gang_slots += kp
+        else:
+            eng2 = self.engine(
+                "resume", p2, ec, n_pad, extend=extend,
+                collect_stats=collect,
+            )
+        out2 = eng2(g2, sub_state, torch.as_tensor(sub_it))
+        res2, stats2 = out2 if collect else (out2, None)
+        iters2 = _host(res2.iterations)
+        synchronize(self.device)
+        t2 = time.perf_counter()
+        phase_ms["phase2"] = (t2 - t1) * 1e3
+        if stats2 is not None:
+            self._record_samples(
+                _host(stats2)[: idx.size], iters2[: idx.size], n_pad,
+                push_slots=push_slots, start=sub_it[: idx.size], phase=2,
+            )
+
+        final_iters = iters1.copy()
+        final_iters[idx] = iters2[: idx.size]
+
+        def materialize() -> IFEResult:
+            return IFEResult(
+                state=gang_scatter_back(state1, res2.state, idx),
+                iterations=torch.as_tensor(final_iters),
+            )
+
+        outcome = QueryOutcome(
+            result=IFEResult(state=None,
+                             iterations=torch.as_tensor(final_iters)),
+            policy=pol.name, hybrid=True, redispatched=int(idx.size),
+            phase_ms=phase_ms, phase1_budget=budget,
+            resumed_ganged=int(idx.size) if use_gang else 0,
+            resumed_serial=0 if use_gang else int(idx.size),
+            gang_width=kp if use_gang else 0,
+            budget_too_low=too_low, budget_too_high=too_high,
+            budget_inert_slots=inert, budget_observed=n_real,
+        )
+        return SettledBatch(outcome, materialize)
+
+    def _run_hybrid(self, pol, ec, g, n_pad, morsels, state_layout,
+                    extend=ExtendSpec(), n_real=0, buckets=()):
+        """The two-phase hybrid on one morsel batch, synchronously."""
+        inf = self._begin_hybrid(
+            pol, ec, g, n_pad, morsels, state_layout, extend=extend,
+            n_real=n_real, buckets=buckets,
+        )
+        return self._settle_hybrid(inf).finalize()
+
+    def _begin_static(self, pol, ec, g, n_pad, morsels, state_layout,
+                      extend=ExtendSpec()):
+        eng = self.engine(
+            "static", pol, ec, n_pad, state_layout=state_layout,
+            extend=extend, morsel_shape=morsels.shape[:1],
+        )
+        t0 = time.perf_counter()
+        res = eng(g, morsels)
+        return {"pol": pol, "res": res, "t0": t0}
+
+    def _settle_static(self, inf) -> SettledBatch:
+        synchronize(self.device)
+        t1 = time.perf_counter()
+        return SettledBatch(QueryOutcome(
+            result=inf["res"], policy=inf["pol"].name, hybrid=False,
+            redispatched=0,
+            phase_ms={"phase1": (t1 - inf["t0"]) * 1e3, "phase2": 0.0},
+            phase1_budget=0,
+        ))
+
+    def _run_static(self, pol, ec, g, n_pad, morsels, state_layout,
+                    extend=ExtendSpec(), n_real=0, buckets=()):
+        inf = self._begin_static(
+            pol, ec, g, n_pad, morsels, state_layout, extend=extend,
+        )
+        return self._settle_static(inf).finalize()
+
+    # ------------------------------------------------------ batch planning
+
+    def _plan_query(self, sources, returns_paths, policy, backend,
+                    query_kind="reach"):
+        """Resolve policy, edge compute, extension spec, operands,
+        morsels, chunking and the budget model's bucket keys for one
+        source batch."""
+        kind = QUERY_KINDS.get(query_kind)
+        if kind is None:
+            raise NotImplementedError(
+                f"query_kind={query_kind!r} is not ported yet (ROADMAP "
+                "queue 1: the non-reach query kinds); the port serves "
+                f"{sorted(QUERY_KINDS)}"
+            )
+        sources = np.asarray(sources, np.int32).reshape(-1)
+        name = policy or recommend_policy(
+            len(sources),
+            1,
+            self.csr.avg_degree,
+            returns_paths=returns_paths,
+            n_nodes=self.csr.n_nodes,
+            hbm_bytes=self.hbm_bytes,
+        )
+        pol = POLICIES[name]()
+        if pol.is_multi_source:
+            ec = "msbfs_parents" if returns_paths else "msbfs_lengths"
+        else:
+            ec = "sp_parents" if returns_paths else "sp_lengths"
+        backend = backend if backend is not None else self.backend
+        if backend == "recommend":
+            backend = recommend_backend(
+                ec, self.csr.avg_degree, n_nodes=self.csr.n_nodes,
+                lanes=pol.lanes, family=self.family,
+                thresholds=self.direction_thresholds,
+            )
+        spec = as_spec(backend)
+        g, n_pad = self._graph_for(pol, spec)
+        morsels = pad_sources(sources, 1, pol.lanes, n_pad)
+        # paper Fig 13: dense graphs cap concurrent source morsels (k);
+        # oversized batches run in fixed-size chunks
+        k = (
+            self.max_inflight
+            if self.max_inflight is not None
+            else recommend_k(self.csr.avg_degree)
+        )
+        chunk = max(1, k)
+        if self.pad_pow2_morsels and 0 < morsels.shape[0] <= chunk:
+            m2 = min(_pow2ceil(morsels.shape[0]), chunk)
+            if m2 > morsels.shape[0]:
+                inert = np.full(
+                    (m2 - morsels.shape[0], pol.lanes), n_pad, np.int32
+                )
+                morsels = np.concatenate([morsels, inert], axis=0)
+        # learning sees only the real morsels
+        n_real = max(1, -(-len(sources) // pol.lanes))
+        buckets = (
+            self._morsel_buckets(sources, pol.lanes)
+            if self.budget_model is not None and self.phase1_iters is None
+            else np.zeros(0, np.int64)
+        )
+        return sources, name, pol, ec, spec, g, n_pad, morsels, chunk, \
+            n_real, buckets
+
+    def _hybrid_eligible(self, pol) -> bool:
+        return self.adaptive and bool(pol.source_axes)
+
+    # -------------------------------------------------- split-phase surface
+
+    def begin_batch(
+        self,
+        sources,
+        returns_paths: bool = False,
+        policy: str | None = None,
+        state_layout: str = "replicated",
+        backend=None,
+        query_kind: str = "reach",
+    ) -> InflightBatch:
+        """Plan one batch and run its phase 1 (or static engine). Settle
+        it with ``settle_batch`` before the next ``begin_batch``: learning
+        is host-serial."""
+        if state_layout != "replicated":
+            raise NotImplementedError(
+                f"state_layout={state_layout!r} is not ported yet (ROADMAP "
+                "queue 1: multi-device collectives and the sharded layout)"
+            )
+        (sources, name, pol, ec, spec, g, n_pad, morsels, chunk, n_real,
+         buckets) = self._plan_query(
+             sources, returns_paths, policy, backend, query_kind)
+        if morsels.shape[0] > chunk:
+            payload = {
+                "pol": pol, "ec": ec, "spec": spec, "g": g, "n_pad": n_pad,
+                "morsels": morsels, "chunk": chunk,
+                "state_layout": state_layout,
+            }
+            return InflightBatch("chunked", name, n_real, buckets, payload)
+        m = torch.as_tensor(morsels)
+        if self._hybrid_eligible(pol):
+            inf = self._begin_hybrid(
+                pol, ec, g, n_pad, m, state_layout, extend=spec,
+                n_real=n_real, buckets=buckets,
+            )
+            return InflightBatch("hybrid", name, n_real, buckets, inf)
+        inf = self._begin_static(pol, ec, g, n_pad, m, state_layout,
+                                 extend=spec)
+        return InflightBatch("static", name, n_real, buckets, inf)
+
+    def settle_batch(self, inflight: InflightBatch) -> SettledBatch:
+        """Resume survivors, run post-batch learning; the stitched state
+        may still be deferred to ``finalize_batch``."""
+        if inflight.kind == "chunked":
+            p = inflight.payload
+            outcome = self._run_chunked(
+                p["pol"], p["ec"], p["g"], p["n_pad"], p["morsels"],
+                p["chunk"], p["state_layout"], p["spec"],
+                inflight.n_real, inflight.buckets,
+            )
+            settled = SettledBatch(outcome)
+        elif inflight.kind == "hybrid":
+            settled = self._settle_hybrid(inflight.payload)
+        else:
+            settled = self._settle_static(inflight.payload)
+        settled.outcome.policy = inflight.name
+        self._learn(settled.outcome, inflight.buckets, inflight.n_real)
+        self.stats.record(settled.outcome)
+        return settled
+
+    def finalize_batch(self, settled: SettledBatch) -> QueryOutcome:
+        return settled.finalize()
+
+    def _run_chunked(self, pol, ec, g, n_pad, morsels, chunk, state_layout,
+                     spec, n_real, buckets) -> QueryOutcome:
+        """The in-flight-cap chunk loop: fixed-size chunks stitched into
+        one outcome."""
+        run_fn = (
+            self._run_hybrid if self._hybrid_eligible(pol)
+            else self._run_static
+        )
+        outcomes = []
+        for i in range(0, morsels.shape[0], chunk):
+            part = morsels[i : i + chunk]
+            if part.shape[0] < chunk:
+                pad = np.full(
+                    (chunk - part.shape[0], part.shape[1]), n_pad, np.int32
+                )
+                part = np.concatenate([part, pad], axis=0)
+            real_in = max(0, min(chunk, n_real - i))
+            outcomes.append(run_fn(
+                pol, ec, g, n_pad, torch.as_tensor(part), state_layout,
+                extend=spec, n_real=real_in,
+                buckets=buckets[i : i + real_in],
+            ))
+        result = IFEResult(
+            state=type(outcomes[0].result.state)(*(
+                torch.cat(xs) for xs in zip(
+                    *[o.result.state for o in outcomes])
+            )),
+            iterations=torch.cat(
+                [o.result.iterations for o in outcomes]
+            ),
+        )
+        return QueryOutcome(
+            result=result,
+            policy=pol.name,
+            hybrid=any(o.hybrid for o in outcomes),
+            redispatched=sum(o.redispatched for o in outcomes),
+            phase_ms={
+                "phase1": sum(o.phase_ms["phase1"] for o in outcomes),
+                "phase2": sum(o.phase_ms["phase2"] for o in outcomes),
+            },
+            phase1_budget=max(o.phase1_budget for o in outcomes),
+            resumed_ganged=sum(o.resumed_ganged for o in outcomes),
+            resumed_serial=sum(o.resumed_serial for o in outcomes),
+            gang_width=max(o.gang_width for o in outcomes),
+            budget_too_low=sum(o.budget_too_low for o in outcomes),
+            budget_too_high=sum(o.budget_too_high for o in outcomes),
+            budget_inert_slots=sum(o.budget_inert_slots for o in outcomes),
+            budget_observed=sum(o.budget_observed for o in outcomes),
+        )
+
+    def query(
+        self,
+        sources,
+        returns_paths: bool = False,
+        policy: str | None = None,
+        state_layout: str = "replicated",
+        backend=None,
+        query_kind: str = "reach",
+    ) -> QueryOutcome:
+        """Serve one request batch synchronously: ``begin_batch`` +
+        ``settle_batch`` + ``finalize_batch``."""
+        inflight = self.begin_batch(
+            sources, returns_paths=returns_paths, policy=policy,
+            state_layout=state_layout, backend=backend,
+            query_kind=query_kind,
+        )
+        return self.settle_batch(inflight).finalize()

@@ -14,3 +14,8 @@ def pytest_configure(config):
         "slow: subprocess / multi-device / multi-minute tests excluded from "
         "the fast CI lane (scripts/ci.sh runs them only with --full)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips (from a fixture) where "
+        "torch.cuda.is_available() is False",
+    )

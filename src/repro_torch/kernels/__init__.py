@@ -8,4 +8,6 @@ compiles them with ``nvcc`` on first use.
 - binned_pull  : fused degree-binned pull extension (bottom-up step behind
                  ``pull_binned_fused`` / ``dopt_fused``)
 - msbfs_extend : MS-BFS block extension (the ``block_mxu`` scan)
+- block_spmm   : block-sparse SpMM, GNN sum/mean aggregation (``spmm``)
+- flash_attention : online-softmax attention forward (``mha``)
 """

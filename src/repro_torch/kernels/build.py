@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("binned_pull", "msbfs_extend")
+KERNELS = ("binned_pull", "msbfs_extend", "block_spmm", "flash_attention")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

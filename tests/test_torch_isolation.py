@@ -6,7 +6,8 @@
   out of ``sys.modules``.
 - Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
   without a GPU they raise instead of carrying on on the CPU.
-- Kernel wrappers take their plain PyTorch version for CPU tensors without
+- Kernel wrappers (all four: ``binned_pull``, ``msbfs_extend``, ``spmm``,
+  ``mha``) take their plain PyTorch version for CPU tensors without
   touching the launch counters, and the launchers refuse CPU tensors.
 """
 import ast
@@ -23,7 +24,13 @@ from repro_torch.core import policy_ntks, run_recursive_query
 from repro_torch.graph.generators import erdos_renyi
 from repro_torch.kernels.binned_pull.binned_pull import fused_binned_pull
 from repro_torch.kernels.binned_pull.ops import binned_pull
+from repro_torch.kernels.block_spmm.block_spmm import block_spmm
+from repro_torch.kernels.block_spmm.ops import spmm, spmm_blocks_from_csr
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.kernels.msbfs_extend.msbfs_extend import msbfs_extend_blocks
 from repro_torch.kernels.msbfs_extend.ops import (
     kernel_blocks_from_csr,
@@ -109,7 +116,9 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
 def test_wrappers_take_plain_path_for_cpu_tensors():
     csr = erdos_renyi(200, 4.0, seed=1)
     ops, n_pad = build_operands(csr, "pull_binned_fused")
-    launches = (fused_binned_pull.launches, msbfs_extend_blocks.launches)
+    counters = (fused_binned_pull, msbfs_extend_blocks, block_spmm,
+                flash_attention)
+    launches = [f.launches for f in counters]
     g = torch.zeros(n_pad, dtype=torch.uint8)
     g[:10] = 1
     out = binned_pull(ops.rev_binned_pack, g, op="reach")
@@ -118,8 +127,12 @@ def test_wrappers_take_plain_path_for_cpu_tensors():
     lanes = torch.zeros((256, 64), dtype=torch.uint8)
     lanes[3, 0] = 1
     assert msbfs_extend(kb, lanes).shape == (256, 64)
-    assert (fused_binned_pull.launches,
-            msbfs_extend_blocks.launches) == launches
+    sb = spmm_blocks_from_csr(csr, device="cpu")
+    x = torch.ones((256, 64))
+    assert spmm(sb, x).device.type == "cpu"
+    q = torch.zeros((1, 2, 128, 32))
+    assert mha(q, q, q).shape == q.shape
+    assert [f.launches for f in counters] == launches
     # the launchers themselves take CUDA tensors only
     pack = ops.rev_binned_pack
     from repro_torch.kernels.binned_pull.ops import pack_plan
@@ -131,8 +144,12 @@ def test_wrappers_take_plain_path_for_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         msbfs_extend_blocks(kb.blocks, kb.block_rows, kb.block_cols,
                             lanes.reshape(2, 128, 64))
-    assert (fused_binned_pull.launches,
-            msbfs_extend_blocks.launches) == launches
+    with pytest.raises(ValueError, match="CUDA"):
+        block_spmm(sb.blocks, sb.block_rows, sb.col_ptr,
+                   x.reshape(2, 128, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    assert [f.launches for f in counters] == launches
 
 
 def test_single_device_merges_are_identity_and_axes_raise():

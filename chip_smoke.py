@@ -12,10 +12,12 @@ Phases (any failure exits non-zero and prints no result):
    ``msbfs_extend`` on the scale-10 ``ShardedBlocks`` and ``KernelBlocks``
    with 64-lane frontiers at several densities, empty stripes included,
    both with ``torch.equal``; ``block_spmm`` on ragged columns with empty
-   ones, F 64 and 256, float32 and bfloat16, and ``flash_attention`` at D
-   16, 128 and 256, causal and full, within the tolerances of
-   ``tests/test_torch_cuda.py`` (1e-5 for ``spmm``; 2e-5 in float32 and
-   2e-2 in bfloat16 for attention);
+   ones, F 64 and 256, float32 and bfloat16, and on a star into one node
+   (one destination split into many chunks), and ``flash_attention`` at D
+   16, 48, 64, 128 and 256, causal and full, within the tolerances of
+   ``tests/test_torch_cuda.py`` (1e-5 for ``spmm``; for attention 2e-5 in
+   float32, and rtol 2^-7 / atol 1e-3 of the float32 plain result in
+   bfloat16);
 3. serve the LDBC proxy at scale 10 through the closed-loop entry point
    (``repro_torch.launch.serve.main``) twice: ``--backend dopt_fused``
    with 8 sources per batch (nTkS, pulls through ``binned_pull``) and the
@@ -30,22 +32,31 @@ Phases (any failure exits non-zero and prints no result):
 5. drive the op entry points of the GNN/LM kernels at full width, each
    kernel's launch counter set to 0 just before and read just after:
    ``spmm_blocks_from_csr(ldbc scale 10, block 128, normalize="mean")``
-   and ``spmm`` on seeded float32 features ``[44928, 128]`` (122,958
-   tiles, 8.06 GB), checked against the plain version (1e-5) and against
+   (122,958 tiles, 8.06 GB, and their compacted nonzero view, whose
+   build is timed apart) and ``spmm`` on seeded float32 features
+   ``[44928, 128]``, checked against the plain version (1e-5) and against
    an independent scipy float64 ``A^T X`` (1e-4); ``mha`` at MiniCPM-2B's
-   width (B 1, H 36, S 4096, D 64, bfloat16, causal), checked against
-   the plain version (2e-2); prints the phase's peak device memory;
+   width (B 1, H 36, S 4096, D 64, bfloat16, causal) through the
+   tensor-core route, checked against the plain version (rtol 2^-7, atol
+   1e-3), and on the same inputs in float32 (2e-5); prints the phase's
+   peak device memory;
 6. time both at those shapes beside their plain versions, their bounds
    and a library yardstick: ``torch.sparse.mm`` on a CSR ``A^T`` of the
    same nonzeros (float32, TF32 off) and
-   ``F.scaled_dot_product_attention(is_causal=True)``.
+   ``F.scaled_dot_product_attention(is_causal=True)``; ``spmm``'s bound
+   counts the work's bytes (the nonzeros, offsets, X and Y), and its
+   L2 gather of source rows is printed beside it; two ``spmm`` launches
+   must give the same bits.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
-[...]}`` JSON line, the card's name and power limit, and as the last line
+[...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
+the kernel's design: ``csr_chunks`` for ``spmm``, ``wgmma`` for bf16
+attention), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -173,6 +184,7 @@ def main() -> int:
     )
     from repro_torch.kernels.block_spmm import block_spmm as bs_mod
     from repro_torch.kernels.block_spmm.ops import (
+        compact_blocks,
         spmm,
         spmm_blocks_from_csr,
         spmm_blocks_from_numpy,
@@ -304,14 +316,24 @@ def main() -> int:
         for dt in (torch.float32, torch.bfloat16):
             xs = torch.tensor(rng.standard_normal((sbp.g * 128, feat)),
                               dtype=torch.float32, device=dev).to(dt)
-            sbd = type(sbp)(sbp.blocks.to(dt), sbp.block_rows,
-                            sbp.block_cols, sbp.col_ptr)
+            sbd = dataclasses.replace(sbp, blocks=sbp.blocks.to(dt))
             got = spmm(sbd, xs)
             exp = spmm(sbd, xs, use_ref=True)
             torch.cuda.synchronize()
             check("block_spmm", got, exp, f"power-law/F {feat}/{dt}",
                   SPMM_TOL)
-    for d in (16, 64, 128, 256):
+    # a star into node 0: one destination split into 12 chunks
+    v_in = np.arange(1, 3000)
+    sbd = spmm_blocks_from_csr(
+        gcsr.csr_from_edges(3000, v_in, np.zeros_like(v_in)), 128, "mean",
+        device=dev)
+    xs = torch.tensor(rng.standard_normal((sbd.g * 128, 128)),
+                      dtype=torch.float32, device=dev)
+    got = spmm(sbd, xs)
+    check("block_spmm", got, spmm(sbd, xs, use_ref=True),
+          f"star-in/{sbd.nz.n_slots} chunks into node 0", SPMM_TOL)
+    check("block_spmm", spmm(sbd, xs), got, "star-in, second launch")
+    for d in (16, 48, 64, 128, 256):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (torch.tensor(rng.standard_normal((1, 4, 512, d)),
                                     dtype=torch.float32, device=dev).to(dt)
@@ -482,14 +504,27 @@ def main() -> int:
     sbs = spmm_blocks_from_csr(csr, 128, "mean", device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t1
+    # the compacted view alone (built once inside the call above)
+    t1 = time.perf_counter()
+    nz2 = compact_blocks(sbs.blocks, sbs.block_rows, sbs.block_cols, sbs.g)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t1
+    if not all(torch.equal(getattr(nz2, f), getattr(sbs.nz, f))
+               for f in ("nz_ptr", "nz_src", "nz_val", "items", "splits")):
+        fail("two builds of the compacted spmm view differ")
+    del nz2
+    fa_mod.flash_attention.route_launches["wgmma"] = 0
     y = spmm(sbs, x)
     o = mha(*qkv, causal=True)
     torch.cuda.synchronize()
     launches["block_spmm"] = bs_mod.block_spmm.launches
     launches["flash_attention"] = fa_mod.flash_attention.launches
+    wgmma_launches = fa_mod.flash_attention.route_launches["wgmma"]
     for kname in ("block_spmm", "flash_attention"):
         if launches[kname] <= 0:
             fail(f"the entry points never launched {kname}: {launches}")
+    if wgmma_launches <= 0:
+        fail("mha in bf16 never launched the tensor-core (wgmma) kernel")
     if y.shape != x.shape or not torch.isfinite(y).all():
         fail("spmm: output not finite or of the wrong shape")
     if o.shape != qkv[0].shape or not torch.isfinite(o).all():
@@ -499,10 +534,11 @@ def main() -> int:
     a_err = check("flash_attention", o, mha(*qkv, causal=True, use_ref=True),
                   f"MiniCPM {MHA_SHAPE} bf16 causal",
                   ATTN_TOL[torch.bfloat16])
-    # the same inputs in float32 (the kernel's tiling and masking are those
-    # of the bfloat16 run) held at the float32 band: a late row's output is
-    # a few hundredths, so a mis-weighted tile shows here and may not at
-    # the bfloat16 band
+    # the same inputs in float32, held at the float32 band: this holds the
+    # float32 FMA kernel (route f32_fma) at the MiniCPM shape, where a late
+    # row's output is a few hundredths, so a mis-weighted tile shows. The
+    # bfloat16 run above is another kernel (wgmma, 192-row CTAs, TMA), and
+    # the bfloat16 band is what holds it
     qkv32 = [t.float() for t in qkv]
     a32_err = check("flash_attention", mha(*qkv32, causal=True),
                     mha(*qkv32, causal=True, use_ref=True),
@@ -523,8 +559,13 @@ def main() -> int:
                        atol=ORACLE_TOL):
         fail(f"spmm differs from the scipy oracle (max abs err {o_err})")
     nb = int(sbs.blocks.shape[0])
+    nz = sbs.nz
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 5: spmm on {nb} tiles (blocks built in {build_s:.2f} s) "
+    print(f"phase 5: spmm on {nb} tiles (blocks built in {build_s:.2f} s, "
+          f"of which the compacted view {compact_s:.2f} s: "
+          f"{int(nz.items.shape[0])} chunks of at most {nz.chunk} nonzeros, "
+          f"{int(nz.splits.shape[0])} destinations split into "
+          f"{nz.n_slots} chunks) "
           f"and mha {MHA_SHAPE} bf16 causal: {launches['block_spmm']} and "
           f"{launches['flash_attention']} launches; max abs err from the "
           f"plain versions: spmm {s_err:.3g}, mha bf16 {a_err:.3g}, mha on "
@@ -534,13 +575,19 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # -- phase 6: timings of the GNN and LM kernels --------------------------
-    bsz = 128
-    nnz = sum(int(torch.count_nonzero(sbs.blocks[i: i + 8192]))
-              for i in range(0, nb, 8192))
-    # every tile, its row id, the column offsets, x in and y out
-    sp_bytes = (4 * nb * bsz * bsz + 4 * nb + 8 * (sbs.g + 1)
+    nnz = int(nz.nz_src.numel())
+    # the work's bytes: each nonzero's source id and weight, the offsets,
+    # x in and y out (the dense tiles, 4 * nb * 128^2 bytes, are the old
+    # operand's, not the work's)
+    sp_bytes = (nnz * (4 + nz.nz_val.element_size()) + 8 * (nz.n_dst + 1)
                 + 2 * 4 * n_pad * SPMM_FEAT)
     sp_ops = 2 * nnz * SPMM_FEAT  # one multiply-add per stored nonzero
+    # what the kernel pulls through L2: one source feature row a nonzero
+    gather_bytes = nnz * SPMM_FEAT * x.element_size()
+    y2 = spmm(sbs, x)
+    if not torch.equal(y2, y):
+        fail("two spmm launches give different bits")
+    del y2
     crow = np.zeros(n_pad + 1, np.int64)
     crow[1:] = np.cumsum(np.bincount(dst, minlength=n_pad))
     order = np.argsort(dst, kind="stable")
@@ -551,20 +598,30 @@ def main() -> int:
     if not torch.allclose(torch.sparse.mm(at_t, x), y, rtol=ORACLE_TOL,
                           atol=ORACLE_TOL):
         fail("the torch.sparse.mm yardstick computes another function")
+    # 20 back-to-back calls, as for binned_pull: with 5, the host time of
+    # each round's first call (the wrapper's checks and allocations) falls
+    # inside the events of a kernel this short; kernel and library alike.
+    # The 5-call reading is printed too, to set the two methods side by side
+    sp5 = (time_ms(lambda: spmm(sbs, x), reps=5),
+           time_ms(lambda: torch.sparse.mm(at_t, x), reps=5))
+    print(f"timed: block_spmm with 5 calls a round: {sp5[0]:.4f} ms, "
+          f"library {sp5[1]:.4f} ms", flush=True)
     sp = {
-        "ms": time_ms(lambda: spmm(sbs, x), reps=5),
+        "ms": time_ms(lambda: spmm(sbs, x)),
         "plain_ms": time_ms(lambda: spmm(sbs, x, use_ref=True), reps=2,
                             rounds=3),
         "bound_ms": max(sp_bytes / HBM_BYTES_PER_S,
                         sp_ops / F32_OPS_PER_S) * 1e3,
         "bound_by": ("bytes" if sp_bytes / HBM_BYTES_PER_S
                      >= sp_ops / F32_OPS_PER_S else "operations"),
-        "library_ms": time_ms(lambda: torch.sparse.mm(at_t, x), reps=5),
-        "shape": f"{nb} tiles of 128x128 f32 ({nnz} nonzeros), x "
-                 f"[{n_pad}, {SPMM_FEAT}] f32; library torch.sparse.mm on "
-                 f"a CSR A^T, TF32 off",
+        "library_ms": time_ms(lambda: torch.sparse.mm(at_t, x)),
+        "shape": f"{nnz} nonzeros of {nb} tiles of 128x128 f32 in "
+                 f"{int(nz.items.shape[0])} chunks, x [{n_pad}, {SPMM_FEAT}] "
+                 f"f32; bound from {sp_bytes} work bytes, L2 gather "
+                 f"{gather_bytes} bytes; library torch.sparse.mm on a CSR "
+                 "A^T, TF32 off",
     }
-    del at_t, sbs, x, y
+    del at_t, sbs, nz, x, y
     torch.cuda.empty_cache()
     b, h, s_len, d = MHA_SHAPE
     pairs = s_len * (s_len + 1) // 2  # causal (query, key) pairs
@@ -581,27 +638,29 @@ def main() -> int:
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 *qkv, is_causal=True), reps=5),
-        "shape": f"q, k, v {list(MHA_SHAPE)} bf16, causal; library "
-                 "F.scaled_dot_product_attention",
+        "shape": f"q, k, v {list(MHA_SHAPE)} bf16, causal, "
+                 f"{wgmma_launches} wgmma launch(es) on the main path; "
+                 "library F.scaled_dot_product_attention",
     }
     del qkv, o
     kernels = [
-        {"name": "binned_pull", "route": "cuda",
+        {"name": "binned_pull", "route": "cuda", "design": "binned_slabs",
          "source": "src/repro_torch/kernels/csrc/binned_pull.cu",
          "replaces": "src/repro/kernels/binned_pull/binned_pull.py:198",
          "launches": launches["binned_pull"],
          "max_abs_err": err["binned_pull"], **bp},
-        {"name": "msbfs_extend", "route": "cuda",
+        {"name": "msbfs_extend", "route": "cuda", "design": "bit_tiles",
          "source": "src/repro_torch/kernels/csrc/msbfs_extend.cu",
          "replaces": "src/repro/kernels/msbfs_extend/msbfs_extend.py:73",
          "launches": launches["msbfs_extend"],
          "max_abs_err": err["msbfs_extend"], **mx},
-        {"name": "block_spmm", "route": "cuda",
+        {"name": "block_spmm", "route": "cuda", "design": bs_mod.ROUTE,
          "source": "src/repro_torch/kernels/csrc/block_spmm.cu",
          "replaces": "src/repro/kernels/block_spmm/block_spmm.py:48",
          "launches": launches["block_spmm"],
          "max_abs_err": err["block_spmm"], **sp},
         {"name": "flash_attention", "route": "cuda",
+         "design": fa_mod.ROUTES[torch.bfloat16],
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:77",
          "launches": launches["flash_attention"],

@@ -1,12 +1,16 @@
 """CUDA launcher for the block-sparse SpMM (``csrc/block_spmm.cu``).
 
-Port of ``repro.kernels.block_spmm.block_spmm``. One CTA per (destination
-column block, feature tile) walks that column's blocks in order, skips
-zero entries and writes its float32 sum once; see the source's header for
-the design and for what skipping zeros means for non-finite features. The
-block size is a power of two from 8 to 256 (the plain version takes any).
+Port of ``repro.kernels.block_spmm.block_spmm``. The kernel reads the
+blocks' compacted view (``ops.SpmmNonzeros``: nonzeros by destination and
+a list of chunks of at most ``chunk`` nonzeros): one warp per chunk gathers
+the chunk's source feature rows and writes its float32 sum, and a second
+pass adds the partial sums of destinations split into several chunks, in
+chunk order. No atomics: the same bits every run. Zero entries are not in
+the view, so they are skipped; see the source's header for what that means
+for non-finite features.
 
-``block_spmm.launches`` counts kernel launches (one per call).
+``block_spmm.launches`` counts calls that launch the kernels (one per
+call; the two passes are one C entry point).
 """
 from __future__ import annotations
 
@@ -17,12 +21,14 @@ import torch
 from .. import build
 
 SOURCE = "src/repro_torch/kernels/csrc/block_spmm.cu"
+ROUTE = "csr_chunks"
 DTYPES = (torch.float32, torch.bfloat16)
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
@@ -35,53 +41,40 @@ def _library():
     return lib
 
 
-def block_spmm(
-    blocks: torch.Tensor,  # [nb, B, B] f32/bf16, sorted by col block
-    block_rows: torch.Tensor,  # [nb] int32 source row-block ids (< G)
-    col_ptr: torch.Tensor,  # [g + 1] int64 column offsets, g <= G
-    x: torch.Tensor,  # [G, B, F] features by source block, blocks' dtype
-) -> torch.Tensor:
-    """Launch the SpMM on ``x``'s CUDA device and stream. Returns
-    ``[G, B, F]`` float32; columns ``>= g`` are zero."""
-    nb, bsz, bsz2 = blocks.shape
-    g, b_x, feat = x.shape
-    g_sb = int(col_ptr.shape[0]) - 1
+def block_spmm(nz, x: torch.Tensor) -> torch.Tensor:
+    """Launch the SpMM over the compacted view ``nz`` (an
+    ``ops.SpmmNonzeros``) on ``x``'s CUDA device and stream. ``x`` is
+    ``[n, F]`` in the view's dtype with ``n >= nz.n_dst`` and ``F % min(F,
+    128) == 0``; returns ``[n, F]`` float32, rows ``>= nz.n_dst`` zero."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be [n, F], got {tuple(x.shape)}")
+    n, feat = x.shape
     ft = min(feat, 128)
-    if (bsz != bsz2 or b_x != bsz or not 8 <= bsz <= 256
-            or bsz & (bsz - 1)):
-        raise ValueError(f"block/feature mismatch: {tuple(blocks.shape)} "
-                         f"vs {tuple(x.shape)} (B a power of two, 8..256)")
-    if ft == 0 or feat % ft or g_sb > g or g_sb < 0:
-        raise ValueError(f"x {tuple(x.shape)} with {g_sb} column blocks: "
-                         "need F % min(F, 128) == 0 and G >= g")
+    if ft == 0 or feat % ft or n < nz.n_dst:
+        raise ValueError(f"x {tuple(x.shape)} for {nz.n_dst} destinations: "
+                         "need F % min(F, 128) == 0 and n >= destinations")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError("block_spmm launches on CUDA tensors only")
-    for name, t in (("blocks", blocks), ("x", x)):
-        if (t.device != dev or t.dtype not in DTYPES
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous f32/bf16 on "
-                             "x's device")
-    if blocks.dtype != x.dtype:
-        raise ValueError(f"blocks {blocks.dtype} and x {x.dtype} must have "
-                         "one dtype")
-    if (block_rows.device != dev or block_rows.dtype != torch.int32
-            or tuple(block_rows.shape) != (nb,)
-            or not block_rows.is_contiguous()):
-        raise ValueError(f"block_rows must be contiguous int32 [{nb}]")
-    if (col_ptr.device != dev or col_ptr.dtype != torch.int64
-            or not col_ptr.is_contiguous()):
-        raise ValueError("col_ptr must be contiguous int64 [g + 1]")
-    out = torch.empty((g, bsz, feat), dtype=torch.float32, device=dev)
-    if g == 0:
+    if x.dtype not in DTYPES or not x.is_contiguous():
+        raise ValueError("x must be contiguous f32/bf16")
+    if nz.nz_val.dtype != x.dtype:
+        raise ValueError(f"blocks {nz.nz_val.dtype} and x {x.dtype} must "
+                         "have one dtype")
+    if nz.nz_src.device != dev:
+        raise ValueError("the blocks must lie on x's device")
+    out = torch.empty((n, feat), dtype=torch.float32, device=dev)
+    if n == 0:
         return out
+    part = torch.empty((nz.n_slots, feat), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.block_spmm_launch(
-            blocks.data_ptr(), block_rows.data_ptr(), col_ptr.data_ptr(),
-            g_sb, x.data_ptr(), int(x.dtype == torch.bfloat16), g, bsz,
-            feat, out.data_ptr(), stream,
+            nz.nz_src.data_ptr(), nz.nz_val.data_ptr(), nz.items.data_ptr(),
+            nz.items.shape[0], nz.splits.data_ptr(), nz.splits.shape[0],
+            nz.n_dst, x.data_ptr(), int(x.dtype == torch.bfloat16), n, feat,
+            out.data_ptr(), part.data_ptr(), stream,
         )
     build.check(lib, "block_spmm", code)
     block_spmm.launches += 1

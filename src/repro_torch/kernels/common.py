@@ -33,9 +33,10 @@ def map_tensors(fn, obj):
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        # fields with init=False are derived: __post_init__ rebuilds them
         return dataclasses.replace(obj, **{
             f.name: map_tensors(fn, getattr(obj, f.name))
-            for f in dataclasses.fields(obj)
+            for f in dataclasses.fields(obj) if f.init
         })
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*(map_tensors(fn, x) for x in obj))

@@ -1,47 +1,63 @@
-// Block-sparse SpMM for Hopper (sm_90a): Y = A^T . X over stored blocks.
+// Block-sparse SpMM for Hopper (sm_90a): Y = A^T . X over the nonzeros of
+// the stored blocks.
 //
 // Replaces the TPU kernel src/repro/kernels/block_spmm/block_spmm.py:48
 // (block_spmm, body _kernel :26, pallas_call :63). For every destination
-// column block c and every feature f:
+// v = c*B + j and every feature f:
 //
-//   Y[c*B + v][f] = sum over blocks i of column c, sum over u of
-//                   blocks[i][u][v] * X[rows[i]*B + u][f]
+//   Y[v][f] = sum over blocks i of column c, sum over k of
+//             blocks[i][k][j] * X[rows[i]*B + k][f]
 //
 // with blocks and X both in float32 or both in bfloat16, and a float32
 // sum.
 //
-// What bounds it on an H100: bytes. Every stored B x B tile is read once
-// (128 x 128 float32 = 64 KB; 122,958 tiles = 8.06 GB for the LDBC proxy
-// at scale 10, 2.42 ms at 3.35 TB/s), but the tiles are sparse: about 12
-// nonzeros in 16,384 entries. A dense per-tile product would do 5.2e11
-// float32 operations (7.7 ms at 67 TFLOP/s, above the bytes bound), so
-// this kernel SKIPS ZERO ENTRIES: it reads each tile once, finds its
-// nonzeros with warp ballots and does F fused multiply-adds per nonzero.
-// Consequence: an entry equal to 0 (or -0) contributes nothing even where
-// X holds inf or NaN, while the dense plain version and the TPU kernel give
-// 0 * inf = NaN there. A NaN stored in a tile counts as nonzero.
+// The operand. The TPU kernel multiplies dense B x B tiles on its matrix
+// unit. On the LDBC proxy at scale 10 the 122,958 tiles of 128 x 128 hold
+// about 12 nonzeros in 16,384 entries (8.06 GB of tiles for 1.47M
+// nonzeros), so streaming tiles cannot come near a sparse library. This
+// kernel reads a view compacted once from the tiles (ops.SpmmNonzeros): the
+// nonzeros by destination (int32 source id and weight, in (block, k)
+// order, which is ascending source id) and a work list of chunks of at
+// most `chunk` nonzeros (v, lo, hi, slot).
 //
-// The TPU kernel carries each output tile in VMEM across a sequential grid
-// of blocks. Hopper runs blocks in no order, so instead one CTA owns one
-// (column block, feature tile of min(F, 128)) output: the blocks of column
-// c are col_ptr[c]..col_ptr[c+1] (block_cols is sorted), the CTA walks them
-// in order, keeps the B x FT float32 sum in shared memory and writes it
-// once. No atomics: the result is the same bits run to run, and a column
-// with no block is written as zeros. Each of the 8 warps owns a strip of
-// B/8 destination columns v of every tile, so no two warps touch the same
-// row of the sum. B is a power of two (8..256), so a lane's place in the
-// strip is shifts and masks, not divisions. A warp streams its strip with
-// 32 loads in flight per lane, requested one step ahead of their use and
-// marked evict-first (__ldcs: the tiles are read once, the features again
-// and again, so the features keep the L2); for each nonzero (u, v, a), in
-// (u, v) order, its 32 lanes add a * X[row*B + u][f0:f0+FT] into row v,
-// two nonzeros' feature rows fetched together. Plain float32 FMAs, never
-// TF32. Besides the tile stream, each nonzero costs a shuffle, a feature
-// row gather and FT shared-memory adds; an operand that stores only the
-// nonzeros (CSR-like), or a tensor-core design, is later work.
+// What bounds it on an H100: the gather of source rows. The work's own
+// bytes are the nonzeros (4 + 4 bytes each in float32), the offsets, X and
+// Y: about 58 MB at scale 10, F 128, 0.0174 ms at 3.35 TB/s. But each
+// nonzero gathers its source's feature row: 1.47M x 512 B = 754 MB pulled
+// through L2, from a 23 MB X that stays resident in the 50 MB L2. That L2
+// gather is the realistic limit, and the design keeps it the only large
+// stream: one warp per chunk; for F = 128 float32 each lane holds 4
+// features, so a source row is one 512-byte coalesced load (16 bytes a
+// lane); the warp reads 32 (source, weight) pairs at a time, coalesced and
+// evict-first (read once), and broadcasts them by shuffle; each lane keeps
+// kInFlight rows requested before it adds the first, in nonzero order,
+// with float32 FMAs (never TF32). X is read under an evict-last L2 policy
+// and Y written with streaming stores, so that X keeps the L2. Features
+// are tiled by FT = min(F, 128) (grid y); FT 128 on a 16-byte aligned X
+// takes 4 features a lane, any other FT a strided, masked form (the same
+// per-feature order of sums, so the same bits). The work list comes
+// longest chunk first (the build sorts it): a chunk of 256 nonzeros is
+// 64 dependent rounds of gathers, so one that started last would hold the
+// whole grid; 4 rows in flight and 4-warp CTAs keep registers at about 40
+// a thread and the SMs full of warps. Both measured on the card
+// (scripts/spmm_chunk_sweep.py, PERF.md).
+//
+// Long destinations are split: the scale-10 graph's largest in-degree is
+// 23,917 against a median of 12, so one warp per destination would wait on
+// its longest row. A destination with one chunk writes Y directly. The
+// chunks of a longer one write float32 partial sums to rows of a scratch
+// buffer (the wrapper allocates it), and a second pass in the same entry
+// point adds them in chunk order. No float atomics: the same bits every
+// run. Destinations with no nonzero have one empty chunk and are written
+// as zeros, as are rows of Y past the adjacency.
+//
+// Zero entries are not in the view: an entry equal to 0 (or -0)
+// contributes nothing even where X holds inf or NaN, while the dense plain
+// version and the TPU kernel give 0 * inf = NaN there. A NaN stored in a
+// tile is a nonzero.
 //
 // Launches on the caller's stream, allocates nothing, writes every element
-// of Y, and returns cudaGetLastError() after the launch.
+// of Y, and returns cudaGetLastError() after the launches.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -49,166 +65,247 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kUnroll = 32;  // tile loads in flight per lane
-constexpr int kBatch = 2;  // nonzeros whose feature rows load together
-constexpr int kMinBlocks = 2;  // CTAs per SM the register budget allows
+constexpr int kInFlight = 4;  // source rows a lane has requested at once
 constexpr int kMaxFeatTile = 128;
-constexpr int kFeatLoads = kMaxFeatTile / 32;  // feature loads per lane
+constexpr int V = kMaxFeatTile / 32;  // features a lane holds
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// A tile entry, read once: streamed past the caches (evict first) so that
-// the features, which every tile reads again, stay in L2.
-__device__ __forceinline__ float tile_load(const float* p) {
-  return __ldcs(p);
-}
-__device__ __forceinline__ float tile_load(const __nv_bfloat16* p) {
+// A nonzero's weight, read once: evict first, so that X keeps the L2.
+__device__ __forceinline__ float weight(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float weight(const __nv_bfloat16* p) {
   const unsigned short bits =
       __ldcs(reinterpret_cast<const unsigned short*>(p));
   return __bfloat162float(__ushort_as_bfloat16(bits));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    spmm_kernel(const T* __restrict__ blocks,
-                const int32_t* __restrict__ rows,
-                const long long* __restrict__ col_ptr, long long g_sb,
-                const T* __restrict__ x, int B, int F, int FT,
-                float* __restrict__ y) {
-  extern __shared__ float acc[];  // [B][FT]
-  const long long c = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int warp = threadIdx.x >> 5;
+// An L2 policy that keeps lines (evict last): for X, which every chunk
+// gathers from, while the nonzeros stream past and Y is written once.
+__device__ __forceinline__ uint64_t keep_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+// N 32-bit words of X at p (16- or 8-byte aligned), read-only, under the
+// evict-last policy.
+template <int N>
+__device__ __forceinline__ void load_words(const void* p, uint64_t pol,
+                                           uint32_t (&w)[N]) {
+  static_assert(N == 4 || N == 2, "a 16- or 8-byte load");
+  if constexpr (N == 4) {
+    asm volatile(
+        "ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+        : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+        : "l"(p), "l"(pol));
+  } else {
+    asm volatile("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;\n"
+                 : "=r"(w[0]), "=r"(w[1])
+                 : "l"(p), "l"(pol));
+  }
+}
+
+// V consecutive features of a source row into floats, one load a lane.
+__device__ __forceinline__ void load_row(const float* p, uint64_t pol,
+                                         float (&v)[V]) {
+  uint32_t w[V];
+  load_words<V>(p, pol, w);
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = __uint_as_float(w[j]);
+}
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
+                                         uint64_t pol, float (&v)[V]) {
+  uint32_t w[V / 2];
+  load_words<V / 2>(p, pol, w);
+#pragma unroll
+  for (int j = 0; j < V / 2; ++j) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// The features of a row that lane `lane` owns: V consecutive ones at
+// lane*V (STRIDED false, FT 128), or lane + 32*j for j < V, below ft
+// (true).
+template <typename T, bool STRIDED>
+__device__ __forceinline__ void gather(const T* row, int lane, int ft,
+                                       uint64_t pol, float (&v)[V]) {
+  if constexpr (STRIDED) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int f = lane + 32 * j;
+      v[j] = f < ft ? to_f32(row[f]) : 0.f;
+    }
+  } else {
+    load_row(row + lane * V, pol, v);
+  }
+}
+
+// Written once and not read again here: streaming stores (evict first).
+template <bool STRIDED>
+__device__ __forceinline__ void store(float* row, int lane, int ft,
+                                      const float (&v)[V]) {
+  if constexpr (STRIDED) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int f = lane + 32 * j;
+      if (f < ft) __stcs(row + f, v[j]);
+    }
+  } else {
+    __stcs(reinterpret_cast<float4*>(row + lane * V),
+           make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
+// Pass 1: warp w < n_items sums item w = (v, lo, hi, slot) into Y[v] (slot
+// -1) or into partial row `slot`; warps past the items zero the rows of Y
+// from n_dst on. Feature tile blockIdx.y.
+template <typename T, bool STRIDED>
+__global__ void __launch_bounds__(kThreads)
+    spmm_chunks(const int32_t* __restrict__ src, const T* __restrict__ val,
+                const int4* __restrict__ items, long long n_items,
+                long long n_dst, long long n_rows, const T* __restrict__ x,
+                int F, int FT, float* __restrict__ y,
+                float* __restrict__ part) {
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < B * FT; i += kThreads) acc[i] = 0.f;
-  __syncthreads();
-  // B is a power of two in [8, 256]: warp w owns the cw = B / 8 columns
-  // v0..v0+cw-1; a load instruction covers 32 / cw rows of that strip
-  const int cw = B / kWarps;
-  const int log_cw = __ffs(cw) - 1;
-  const int v0 = warp * cw;
-  const int du = lane >> log_cw;         // row of this lane in a load
-  const int dv = lane & (cw - 1);        // column of this lane
-  const int rows_per_load = 32 >> log_cw;
-  const int rows_per_step = kUnroll * rows_per_load;
-  const int steps = (B + rows_per_step - 1) / rows_per_step;
-  const long long lo = c < g_sb ? col_ptr[c] : 0;
-  const long long hi = c < g_sb ? col_ptr[c + 1] : 0;
-  float cur[kUnroll], nxt[kUnroll];
-  auto fetch = [&](long long i, int s, float* v) {
-    const T* a = blocks + i * B * B + v0 + dv;
+  const int f0 = blockIdx.y * FT;
+  const uint64_t pol = keep_policy();
+  float acc[V];
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int u = s * rows_per_step + k * rows_per_load + du;
-      v[k] = u < B ? tile_load(a + u * B) : 0.f;
-    }
-  };
-  if (lo < hi) fetch(lo, 0, cur);
-  long long i = lo;
-  int s = 0;
-  while (i < hi) {
-    long long ni = i;
-    int ns = s + 1;
-    if (ns == steps) {
-      ns = 0;
-      ++ni;
-    }
-    if (ni < hi) fetch(ni, ns, nxt);  // in flight while cur is used
-    const T* xs = x + (long long)rows[i] * B * F + f0;
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  float* out;
+  if (w < n_items) {
+    const int4 it = __ldcs(items + w);
+    for (int base = it.y; base < it.z; base += 32) {
+      const int n = min(32, it.z - base);
+      int s = 0;
+      float a = 0.f;
+      if (lane < n) {
+        s = __ldcs(src + base + lane);
+        a = weight(val + base + lane);
+      }
+      for (int t = 0; t < n; t += kInFlight) {
+        float xv[kInFlight][V];
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int ub = s * rows_per_step + k * rows_per_load;
-      unsigned mask = __ballot_sync(0xffffffffu, cur[k] != 0.f);
-      while (mask) {
-        // up to kBatch nonzeros in (u, v) order: their feature rows are
-        // fetched together, then added in that order
-        int src[kBatch];
-        float w[kBatch], xv[kBatch][kFeatLoads];
+        for (int u = 0; u < kInFlight; ++u) {
+          const int su = __shfl_sync(kFull, s, t + u);
+          if (t + u < n) {
+            gather<T, STRIDED>(x + (long long)su * F + f0, lane, FT,
+                                  pol, xv[u]);
+          } else {
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          src[b] = mask ? __ffs(mask) - 1 : -1;
-          mask &= mask - 1;
-          w[b] = __shfl_sync(0xffffffffu, cur[k], src[b] < 0 ? 0 : src[b]);
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const T* xr = xs + (long long)(ub + (src[b] >> log_cw)) * F;
-#pragma unroll
-          for (int j = 0; j < kFeatLoads; ++j) {
-            const int f = lane + 32 * j;
-            xv[b][j] = src[b] >= 0 && f < FT ? to_f32(xr[f]) : 0.f;
+            for (int j = 0; j < V; ++j) xv[u][j] = 0.f;
           }
         }
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          if (src[b] < 0) break;
-          float* yr = acc + (v0 + (src[b] & (cw - 1))) * FT;
+        for (int u = 0; u < kInFlight; ++u) {
+          const float au = __shfl_sync(kFull, a, t + u);
+          if (t + u < n) {
 #pragma unroll
-          for (int j = 0; j < kFeatLoads; ++j) {
-            const int f = lane + 32 * j;
-            if (f < FT) yr[f] = fmaf(w[b], xv[b][j], yr[f]);
+            for (int j = 0; j < V; ++j) acc[j] = fmaf(au, xv[u][j], acc[j]);
           }
         }
       }
     }
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) cur[k] = nxt[k];
-    i = ni;
-    s = ns;
+    out = it.w < 0 ? y + (long long)it.x * F : part + (long long)it.w * F;
+  } else {
+    const long long row = n_dst + (w - n_items);
+    if (row >= n_rows) return;
+    out = y + row * F;
   }
-  __syncthreads();
-  float* out = y + c * B * F + f0;
-  for (int i = threadIdx.x; i < B * FT; i += kThreads)
-    out[(long long)(i / FT) * F + i % FT] = acc[i];
+  store<STRIDED>(out + f0, lane, FT, acc);
+}
+
+// Pass 2: warp w adds the partial rows slot_lo..slot_hi of split w =
+// (v, slot_lo, slot_hi) in chunk order into Y[v].
+__global__ void __launch_bounds__(kThreads)
+    spmm_splits(const int32_t* __restrict__ splits, long long n_split,
+                const float* __restrict__ part, int F, int FT,
+                float* __restrict__ y) {
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= n_split) return;
+  const int lane = threadIdx.x & 31;
+  const int v = splits[3 * w];
+  const int lo = splits[3 * w + 1];
+  const int hi = splits[3 * w + 2];
+  for (int f = blockIdx.y * FT + lane; f < (blockIdx.y + 1) * FT; f += 32) {
+    float s = 0.f;
+    for (int p = lo; p < hi; ++p) s += part[(long long)p * F + f];
+    y[(long long)v * F + f] = s;
+  }
+}
+
+template <typename T, bool STRIDED>
+int launch(const void* src, const void* val, const void* items,
+           long long n_items, const void* splits, long long n_split,
+           long long n_dst, const void* x, long long n_rows, int F, int ft,
+           void* y, void* part, cudaStream_t stream) {
+  const long long warps = n_items + (n_rows - n_dst);
+  dim3 grid((unsigned)((warps + kWarps - 1) / kWarps), (unsigned)(F / ft));
+  spmm_chunks<T, STRIDED><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(src), static_cast<const T*>(val),
+      static_cast<const int4*>(items), n_items, n_dst, n_rows,
+      static_cast<const T*>(x), F, ft, static_cast<float*>(y),
+      static_cast<float*>(part));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return (int)err;
+  dim3 grid2((unsigned)((n_split + kWarps - 1) / kWarps),
+             (unsigned)(F / ft));
+  spmm_splits<<<grid2, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(splits), n_split,
+      static_cast<const float*>(part), F, ft, static_cast<float*>(y));
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* blocks, const void* rows, const void* col_ptr,
-           long long g_sb, const void* x, long long g, int B, int F,
-           void* y, cudaStream_t stream) {
+int launch_t(const void* src, const void* val, const void* items,
+             long long n_items, const void* splits, long long n_split,
+             long long n_dst, const void* x, long long n_rows, int F,
+             void* y, void* part, cudaStream_t s) {
   const int ft = F < kMaxFeatTile ? F : kMaxFeatTile;
-  const size_t smem = sizeof(float) * B * ft;
-  auto kern = spmm_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((unsigned)g, (unsigned)(F / ft));
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(blocks), static_cast<const int32_t*>(rows),
-      static_cast<const long long*>(col_ptr), g_sb,
-      static_cast<const T*>(x), B, F, ft, static_cast<float*>(y));
-  return (int)cudaGetLastError();
+  const uintptr_t at = reinterpret_cast<uintptr_t>(x);
+  if (ft == kMaxFeatTile && at % (V * sizeof(T)) == 0)
+    return launch<T, false>(src, val, items, n_items, splits, n_split,
+                            n_dst, x, n_rows, F, ft, y, part, s);
+  return launch<T, true>(src, val, items, n_items, splits, n_split, n_dst,
+                         x, n_rows, F, ft, y, part, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// blocks [nb, B, B] and x [g, B, F], both float32 or both bfloat16 (when
-// bf16), rows [nb] int32, col_ptr [g_sb + 1] int64 (column c's blocks are
-// col_ptr[c]..col_ptr[c+1]), y [g, B, F] float32. Needs g >= g_sb, every
-// row id < g, B a power of two in [8, 256] and F % min(F, 128) == 0.
-int block_spmm_launch(const void* blocks, const void* rows,
-                      const void* col_ptr, long long g_sb, const void* x,
-                      int bf16, long long g, int B, int F, void* y,
+// src [nnz] int32, val [nnz] and x [n_rows, F] both float32 or both
+// bfloat16 (when bf16), items [n_items] int4 (v, lo, hi, slot), splits
+// [n_split, 3] int32 (v, slot_lo, slot_hi), y [n_rows, F] and part [slots,
+// F] float32. Needs n_rows >= n_dst, every source id < n_rows, every v <
+// n_dst and F % min(F, 128) == 0.
+int block_spmm_launch(const void* src, const void* val, const void* items,
+                      long long n_items, const void* splits,
+                      long long n_split, long long n_dst, const void* x,
+                      int bf16, long long n_rows, int F, void* y, void* part,
                       void* stream) {
-  if (g <= 0 || F <= 0) return (int)cudaGetLastError();
+  if (n_rows <= 0 || F <= 0) return (int)cudaGetLastError();
   const int ft = F < kMaxFeatTile ? F : kMaxFeatTile;
-  if (B < 8 || B > 256 || (B & (B - 1)) || F % ft != 0 || g_sb > g ||
-      g > 0x7fffffffLL || F / ft > 65535)
+  if (F % ft != 0 || F / ft > 65535 || n_rows < n_dst ||
+      (n_items + (n_rows - n_dst) + kWarps - 1) / kWarps > 0x7fffffffLL ||
+      (n_split + kWarps - 1) / kWarps > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(blocks, rows, col_ptr, g_sb, x, g, B, F, y,
-                                 s);
-  return launch<float>(blocks, rows, col_ptr, g_sb, x, g, B, F, y, s);
+    return launch_t<__nv_bfloat16>(src, val, items, n_items, splits,
+                                   n_split, n_dst, x, n_rows, F, y, part, s);
+  return launch_t<float>(src, val, items, n_items, splits, n_split, n_dst,
+                         x, n_rows, F, y, part, s);
 }
 
 const char* block_spmm_error_string(int code) {

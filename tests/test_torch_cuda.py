@@ -13,12 +13,16 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   at several densities with empty stripes, on the row-sorted
   ``ShardedBlocks`` (sentinel column) and the col-sorted
   ``KernelBlocks``; bitwise equal.
-- ``block_spmm``: F in {64, 128, 256}, float32 and bfloat16, on ragged
+- ``block_spmm``: F in {16, 32, 64, 96, 128, 256} (the strided and the
+  4-features-a-lane instances), float32 and bfloat16, on ragged
   columns with two columns left empty, and tiles of 8, 32 and 256,
   within rtol = atol = 1e-5 (the kernel adds the float32 products in
   another order than the plain version's batched product; bfloat16
   products are exact in float32, so the same bound holds); run-to-run
-  bitwise equal; and the kernel's choice
+  bitwise equal; a star into one node and a hub, whose one destination
+  spans many chunks of 32 or 256 (the two-pass sum, through views built
+  with ``compact_blocks``), within 1e-5 and bitwise equal
+  across two launches; and the kernel's choice
   to skip zero entries: inf/NaN features reach exactly the destinations
   with a stored nonzero from their row.
 - ``flash_attention``: D in {16, 64, 128, 256}, causal and full, float32
@@ -27,7 +31,9 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   rescaling) and rtol = 2^-7, atol = 1e-3 in bfloat16 (float32 outputs
   that close may round once to neighbouring bfloat16 values, 2^-7 of the
   value apart at most; the floor covers tiny outputs); each call launches
-  the kernel exactly once.
+  the kernel exactly once; bfloat16 at D 36 (zero-padded to 40 for TMA's
+  16-byte strides), D 48 and MiniCPM-2B's head width (36 heads of 64) runs the tensor-core instance (route ``wgmma``)
+  and float32 the FMA one (route ``f32_fma``), by their launch counts.
 """
 import dataclasses
 
@@ -46,6 +52,7 @@ from repro_torch.kernels.binned_pull.binned_pull import (
 from repro_torch.kernels.binned_pull.ops import binned_pull
 from repro_torch.kernels.block_spmm.block_spmm import block_spmm
 from repro_torch.kernels.block_spmm.ops import (
+    compact_blocks,
     spmm,
     spmm_blocks_from_csr,
     spmm_blocks_from_numpy,
@@ -214,8 +221,10 @@ def ragged_spmm_blocks(device, bsz=64, empty=(1, 4)):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("feat", [64, 128, 256])
+@pytest.mark.parametrize("feat", [16, 32, 64, 96, 128, 256])
 def test_block_spmm_kernel_matches_plain(feat, dtype, cuda_device):
+    """F 128 and its multiples take the 4-features-a-lane instance, every
+    other F the strided one."""
     _, sb = ragged_spmm_blocks(cuda_device)
     sb = dataclasses.replace(sb, blocks=sb.blocks.to(dtype))
     bsz = int(sb.blocks.shape[1])
@@ -259,6 +268,39 @@ def test_block_spmm_kernel_block_sizes(bsz, cuda_device):
     got = spmm(sb, x)
     exp = spmm(sb, x, use_ref=True)
     torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["star_in", "hub"])
+def test_block_spmm_kernel_split_destinations(kind, dtype, chunk,
+                                              cuda_device):
+    """Node 0 takes an edge from (nearly) every node: its nonzeros span
+    many chunks, whose partial sums the second pass adds in order."""
+    n = 3000
+    if kind == "star_in":
+        v = np.arange(1, n)
+        csr = csr_from_edges(n, v, np.zeros_like(v))
+    else:
+        csr = fixture_csr("hub", n=n)
+    csr = with_weights(csr, seed=9)
+    sb = spmm_blocks_from_csr(csr, block=128, normalize="mean",
+                              device=cuda_device)
+    sb = dataclasses.replace(sb, blocks=sb.blocks.to(dtype))
+    nz = compact_blocks(sb.blocks, sb.block_rows, sb.block_cols, sb.g,
+                        chunk=chunk)
+    node0 = int(nz.nz_ptr[1] - nz.nz_ptr[0])
+    assert node0 > 4 * chunk and nz.n_slots >= -(-node0 // chunk)
+    rng = np.random.default_rng(chunk)
+    x = torch.from_numpy(rng.standard_normal((sb.g * 128, 128))
+                         .astype(np.float32)).to(cuda_device, dtype)
+    before = block_spmm.launches
+    got = block_spmm(nz, x)
+    torch.cuda.synchronize()
+    assert block_spmm.launches == before + 1
+    exp = spmm(sb, x, use_ref=True)
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(block_spmm(nz, x), got)  # no atomics: same bits
 
 
 def test_block_spmm_kernel_skips_zero_entries(cuda_device):
@@ -329,3 +371,25 @@ def test_flash_attention_kernel_ragged_and_long(shape, block, cuda_device):
             rtol, atol = ATTN_TOL[dtype]
             torch.testing.assert_close(got.float(), exp.float(), rtol=rtol,
                                        atol=atol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 4, 512, 36), (1, 4, 512, 48),
+                                   (1, 36, 512, 64)])
+def test_flash_attention_routes_by_dtype(shape, causal, cuda_device):
+    """bfloat16 launches the tensor-core (wgmma) instance, float32 the FMA
+    one; each within its band of the plain version. D 36 has rows of 72
+    bytes, so the wrapper zero-pads it to 40 for TMA."""
+    for dtype, route in ((torch.bfloat16, "wgmma"),
+                         (torch.float32, "f32_fma")):
+        q, k, v = attention_inputs(shape, dtype, cuda_device, seed=2)
+        before = dict(flash_attention.route_launches)
+        got = mha(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        after = flash_attention.route_launches
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}
+        exp = mha(q, k, v, causal=causal, use_ref=True)
+        rtol, atol = ATTN_TOL[dtype]
+        torch.testing.assert_close(got.float(), exp.float(), rtol=rtol,
+                                   atol=atol)

@@ -145,8 +145,7 @@ def test_wrappers_take_plain_path_for_cpu_tensors():
         msbfs_extend_blocks(kb.blocks, kb.block_rows, kb.block_cols,
                             lanes.reshape(2, 128, 64))
     with pytest.raises(ValueError, match="CUDA"):
-        block_spmm(sb.blocks, sb.block_rows, sb.col_ptr,
-                   x.reshape(2, 128, 64))
+        block_spmm(sb.nz, x)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
     assert [f.launches for f in counters] == launches

@@ -11,9 +11,18 @@
 - The chunked plain version gives the same bits as the one-shot one, and
   non-finite features give the same non-finite outputs as JAX's dense
   reference (0 * inf = NaN).
+- The kernel's compacted view (``SpmmBlocks.nz``), from JAX's leaves
+  carried across and from the port's own builder, equals a numpy listing
+  of the tiles' nonzeros bitwise (ER, gapped, a star into one node,
+  repeated edges; bfloat16 blocks; stored 0, -0 and NaN); its chunk list
+  covers every nonzero once, in order, no chunk longer than the limit; a
+  plain evaluation of the kernel's chunked two-pass sum equals the plain
+  version and JAX's kernel (interpret mode) within 1e-5.
 - The kernel itself is held against the plain version on the card by
   ``test_torch_cuda.py``.
 """
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -28,6 +37,7 @@ from repro.kernels.block_spmm.ref import block_spmm_ref as j_block_spmm_ref
 
 from repro_torch.kernels.block_spmm.block_spmm import block_spmm
 from repro_torch.kernels.block_spmm.ops import (
+    compact_blocks,
     spmm,
     spmm_blocks_from_csr,
     spmm_blocks_from_numpy,
@@ -192,9 +202,13 @@ def test_spmm_checks_shapes_and_block_lists():
         spmm(sb, torch.zeros((256, 64)))
     with pytest.raises(ValueError, match="unknown normalize"):
         spmm_blocks_from_csr(to_port(csr), normalize="max", device="cpu")
-    with pytest.raises(ValueError, match="power of two"):
-        block_spmm(torch.zeros((1, 12, 12)), torch.zeros(1, dtype=torch.int32),
-                   torch.zeros(2, dtype=torch.int64), torch.zeros((1, 12, 8)))
+    # the launcher checks shapes before it looks at the device
+    with pytest.raises(ValueError, match="n >= destinations"):
+        block_spmm(sb.nz, torch.zeros((256, 64)))
+    with pytest.raises(ValueError, match="F % min"):
+        block_spmm(sb.nz, torch.zeros((384, 192)))
+    with pytest.raises(ValueError, match="CUDA"):
+        block_spmm(sb.nz, torch.zeros((384, 64)))
     blocks = np.zeros((2, 8, 8), np.float32)
     with pytest.raises(ValueError, match="sorted"):
         spmm_blocks_from_numpy(blocks, [0, 0], [1, 0], "cpu")
@@ -203,3 +217,182 @@ def test_spmm_checks_shapes_and_block_lists():
     # a list that leaves column 1 empty: g counts the largest id
     sb2 = spmm_blocks_from_numpy(blocks, [0, 2], [0, 2], "cpu")
     assert sb2.g == 3 and sb2.col_ptr.tolist() == [0, 1, 1, 2]
+
+
+def star_into_one_csr(n=600, seed=16):
+    """Every node points at node 0 (one destination with n - 1 sources),
+    plus an ER sprinkle: node 0's nonzeros span many chunks."""
+    rng = np.random.default_rng(seed)
+    v = np.arange(1, n)
+    src = np.concatenate([v, rng.integers(0, n, 900)])
+    dst = np.concatenate([np.zeros_like(v), rng.integers(0, n, 900)])
+    return jcsr.csr_from_edges(n, src, dst)
+
+
+def repeated_edges_csr(n=200, seed=5):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, 600)
+    dst = rng.integers(0, n, 600)
+    rep = rng.integers(0, 600, 150)
+    src = np.concatenate([src, src[rep], src[rep[:40]]])
+    dst = np.concatenate([dst, dst[rep], dst[rep[:40]]])
+    w = rng.uniform(0.1, 2.0, len(src)).astype(np.float32)
+    return jcsr.csr_from_edges(n, src, dst, weights=w, dedup=False)
+
+
+VIEW_GRAPHS = {
+    "er": lambda: with_weights(fixture_csr("er", n=300, seed=2), seed=3),
+    "gapped": gapped_csr,
+    "star": star_into_one_csr,
+    "repeated": repeated_edges_csr,
+}
+
+
+def numpy_listing(blocks, rows, cols, g):
+    """(nz_ptr, src, dst, val) of the tiles' nonzeros by destination, in
+    (block, k) order within one: a loop over numpy's own nonzero."""
+    blocks = np.asarray(blocks)
+    bsz = blocks.shape[1]
+    i, k, j = np.nonzero(blocks)  # row-major: (i, k, j) order
+    src = rows[i].astype(np.int64) * bsz + k
+    dst = cols[i].astype(np.int64) * bsz + j
+    val = blocks[i, k, j]
+    order = np.argsort(dst, kind="stable")
+    ptr = np.searchsorted(dst[order], np.arange(g * bsz + 1), side="left")
+    return ptr, src[order], dst[order], val[order]
+
+
+def assert_view_matches_listing(sb, msg):
+    nz = sb.nz
+    rows = np_of(sb.block_rows)
+    cols = np_of(sb.block_cols)
+    blocks = sb.blocks.float().numpy()
+    ptr, src, _, val = numpy_listing(blocks, rows, cols, sb.g)
+    np.testing.assert_array_equal(np_of(nz.nz_ptr), ptr, err_msg=msg)
+    assert nz.nz_ptr.dtype == torch.int64 and nz.nz_src.dtype == torch.int32
+    np.testing.assert_array_equal(np_of(nz.nz_src), src, err_msg=msg)
+    assert nz.nz_val.dtype == sb.blocks.dtype, msg
+    got = nz.nz_val.float().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), val.view(np.uint32),
+                                  err_msg=msg)
+
+
+@pytest.mark.parametrize("source", ["jax_leaves", "port_builder"])
+@pytest.mark.parametrize("graph", sorted(VIEW_GRAPHS))
+def test_compacted_view_matches_numpy_listing(graph, source):
+    csr = VIEW_GRAPHS[graph]()
+    block = 128 if graph in ("er", "gapped") else 64
+    if source == "jax_leaves":
+        jsb = j_spmm_blocks_from_csr(csr, block=block, normalize="mean")
+        sb = spmm_blocks_from_numpy(np.asarray(jsb.blocks),
+                                    np.asarray(jsb.block_rows),
+                                    np.asarray(jsb.block_cols), "cpu")
+    else:
+        sb = spmm_blocks_from_csr(to_port(csr), block=block,
+                                  normalize="mean", device="cpu")
+    assert int(sb.nz.nz_src.shape[0]) > 0
+    assert_view_matches_listing(sb, f"{graph}/{source}")
+    # bfloat16 blocks: the view keeps their weights exactly
+    sb16 = dataclasses.replace(sb, blocks=sb.blocks.to(torch.bfloat16))
+    assert_view_matches_listing(sb16, f"{graph}/{source}/bf16")
+
+
+def test_compacted_view_skips_stored_zeros_keeps_nan():
+    """A stored 0 or -0 is left out; a stored NaN is a nonzero."""
+    blocks = np.zeros((3, 8, 8), np.float32)
+    blocks[0, 1, 2] = 1.5
+    blocks[0, 3, 2] = -0.0
+    blocks[1, 0, 2] = np.nan
+    blocks[1, 5, 7] = 0.0
+    blocks[2, 6, 0] = -2.0
+    sb = spmm_blocks_from_numpy(blocks, [0, 1, 0], [0, 0, 2], "cpu")
+    nz = sb.nz
+    assert nz.nz_src.tolist() == [1, 8, 6]  # (block, k) order into v 2
+    assert nz.nz_ptr[3].item() == 2 and nz.n_dst == 24
+    val = nz.nz_val.numpy()
+    assert val[0] == 1.5 and np.isnan(val[1]) and val[2] == -2.0
+    assert_view_matches_listing(sb, "hand-made")
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, 256])
+@pytest.mark.parametrize("graph", ["star", "repeated"])
+def test_chunk_list_covers_every_nonzero_in_order(graph, chunk):
+    csr = VIEW_GRAPHS[graph]()
+    sb = spmm_blocks_from_csr(to_port(csr), block=64, normalize="sym",
+                              device="cpu")
+    nz = compact_blocks(sb.blocks, sb.block_rows, sb.block_cols, sb.g,
+                        chunk=chunk)
+    assert nz.chunk == chunk
+    ptr = np_of(nz.nz_ptr)
+    items = np_of(nz.items).astype(np.int64)
+    # launched longest first; stable, so equal lengths keep list order
+    lens = items[:, 2] - items[:, 1]
+    assert np.all(np.diff(lens) <= 0)
+    items = items[np.lexsort((items[:, 1], items[:, 0]))]
+    dst, lo, hi, slot = items.T
+    # destination then chunk order, every destination at least once
+    assert np.all(np.diff(dst) >= 0)
+    np.testing.assert_array_equal(np.unique(dst), np.arange(nz.n_dst))
+    # contiguous ranges inside each destination's nonzeros, none too long
+    assert np.all(hi - lo <= chunk) and np.all(hi >= lo)
+    np.testing.assert_array_equal(lo[1:], hi[:-1])
+    assert lo[0] == 0 and hi[-1] == ptr[-1]
+    np.testing.assert_array_equal(lo[np.r_[True, dst[1:] != dst[:-1]]],
+                                  ptr[:-1])
+    assert np.all((hi - lo > 0) | (ptr[dst] == ptr[dst + 1]))
+    # a partial-sum slot exactly for the destinations with several chunks
+    n_of = np.bincount(dst, minlength=nz.n_dst)
+    split = n_of[dst] > 1
+    np.testing.assert_array_equal(slot[~split], -1)
+    np.testing.assert_array_equal(slot[split], np.arange(split.sum()))
+    assert nz.n_slots == split.sum()
+    spl = np_of(nz.splits).astype(np.int64)
+    np.testing.assert_array_equal(spl[:, 0], np.flatnonzero(n_of > 1))
+    np.testing.assert_array_equal(spl[:, 2] - spl[:, 1], n_of[n_of > 1])
+    if graph == "star" and chunk < 256:  # node 0 spans many chunks
+        assert n_of[0] == -(-(ptr[1] - ptr[0]) // chunk) > 1
+
+
+def two_pass_sum(nz, x):
+    """Plain evaluation of the kernel's work list: each item's float32 sum
+    in nonzero order, into Y or its partial row, then the partial rows of
+    each split destination added in chunk order."""
+    n, feat = x.shape
+    items = nz.items.long()
+    by_start = torch.argsort(items[:, 1], stable=True)  # nonzero order
+    owner = torch.repeat_interleave(
+        by_start, (items[:, 2] - items[:, 1])[by_start])
+    prod = nz.nz_val.float()[:, None] * x[nz.nz_src.long()].float()
+    sums = torch.zeros((len(items), feat)).index_add_(0, owner, prod)
+    y = torch.zeros((n, feat))
+    direct = items[:, 3] < 0
+    y[items[direct, 0]] = sums[direct]
+    part = torch.zeros((nz.n_slots, feat))
+    part[items[~direct, 3]] = sums[~direct]
+    for v, lo, hi in nz.splits.tolist():
+        acc = torch.zeros(feat)
+        for p in range(lo, hi):
+            acc = acc + part[p]
+        y[v] = acc
+    return y
+
+
+@pytest.mark.parametrize("chunk", [4, 32, 256])
+@pytest.mark.parametrize("graph", ["star", "gapped"])
+def test_chunked_two_pass_sum_matches_plain_and_jax(graph, chunk):
+    csr = VIEW_GRAPHS[graph]()
+    block = 128
+    n_pad = -(-csr.n_nodes // block) * block
+    x = features(n_pad, 64, csr.n_nodes, seed=chunk)
+    jsb = j_spmm_blocks_from_csr(csr, block=block, normalize="mean")
+    j_kernel = np.asarray(j_spmm(jsb, jnp.asarray(x)))
+    sb = spmm_blocks_from_csr(to_port(csr), block=block, normalize="mean",
+                              device="cpu")
+    nz = compact_blocks(sb.blocks, sb.block_rows, sb.block_cols, sb.g,
+                        chunk=chunk)
+    got = two_pass_sum(nz, torch.from_numpy(x))
+    plain = spmm(sb, torch.from_numpy(x))
+    torch.testing.assert_close(got, plain, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), j_kernel, rtol=TOL, atol=TOL)
+    if graph == "star":
+        assert nz.n_slots > 0

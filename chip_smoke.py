@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result):
 1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card:
-   ``binned_pull`` for all five ops x visited none / partial / all, on the
-   LDBC proxy's scale-10 pack and on a star and a hub fixture, and
+   ``binned_pull`` for all five ops x visited none / partial / all (lane
+   ops at 1, 3, 64 and 130 lanes), on the LDBC proxy's scale-10 pack, a
+   star, a hub and a hub whose row spans several hub chunks, and
    ``msbfs_extend`` on the scale-10 ``ShardedBlocks`` and ``KernelBlocks``
    with 64-lane frontiers at several densities, empty stripes included,
    both with ``torch.equal``; ``block_spmm`` on ragged columns with empty
@@ -27,8 +28,14 @@ Phases (any failure exits non-zero and prints no result):
    counter is set to 0 before its run and must be above 0 after it;
 4. time ``binned_pull`` and ``msbfs_extend``, their plain versions and a
    one-call PyTorch yardstick (CUDA events) at the shapes the serve runs
-   give them, and compute each bound from those inputs; then release
-   every serve-run operand;
+   give them, and compute each bound from those inputs; for
+   ``binned_pull`` (the level-2 input of the first served batch) also
+   the device time per call from a CUDA graph of 20 captured calls and
+   the kernel's own duration from ``torch.profiler``, a replayed call
+   checked bitwise against an eager one, and the same for a full pass
+   (no visited rows) beside its bound and ``torch.sparse.mm`` of the
+   reverse CSR with the frontier as a float32 column (the gather without
+   the visited skip); then release every serve-run operand;
 5. drive the op entry points of the GNN/LM kernels at full width, each
    kernel's launch counter set to 0 just before and read just after:
    ``spmm_blocks_from_csr(ldbc scale 10, block 128, normalize="mean")``
@@ -50,8 +57,10 @@ Phases (any failure exits non-zero and prints no result):
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
-the kernel's design: ``csr_chunks`` for ``spmm``, ``wgmma`` for bf16
-attention), the card's name and power limit, and as the last line
+the kernel's design: ``row_classes`` for ``binned_pull``, ``csr_chunks``
+for ``spmm``, ``wgmma`` for bf16 attention; ``binned_pull`` also carries
+``graph_ms``, ``device_us`` and a ``full_pass`` object), the card's name
+and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -106,6 +115,48 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end) / reps)
     return float(np.median(out))
+
+
+def graph_ms(fn, calls: int = 20, rounds: int = 5):
+    """Device time per call with the host out of the way: ``calls`` calls
+    captured in one CUDA graph, replayed ``rounds`` times (median, CUDA
+    events). Returns (ms per call, the last captured call's output)."""
+    fn()  # the launch record and the library, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / calls)
+    return float(np.median(ms)), out
+
+
+def kernel_us(fn, name: str, calls: int = 20):
+    """Mean duration of the device kernels whose name holds ``name`` over
+    ``calls`` calls, from ``torch.profiler``; None if it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if name in e.name
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return float(np.mean(durs)) if durs else None
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -180,7 +231,7 @@ def main() -> int:
     from repro_torch.kernels.binned_pull.ops import (
         binned_pull,
         build_pack,
-        pack_plan,
+        launch_record,
     )
     from repro_torch.kernels.block_spmm import block_spmm as bs_mod
     from repro_torch.kernels.block_spmm.ops import (
@@ -243,6 +294,7 @@ def main() -> int:
         ("ldbc-10", csr),
         ("star", star_csr(5000, gcsr.csr_from_edges)),
         ("hub", hub_csr(3000, gcsr.csr_from_edges)),
+        ("hub-chunks", hub_csr(4 * bp_mod.CHUNK, gcsr.csr_from_edges)),
     ]
     ldbc_pack = None
     for fname, g in fixtures:
@@ -255,7 +307,7 @@ def main() -> int:
             ldbc_pack = pack
         rows = pack.rows_local
         for op in OPS:
-            for lanes in ((64, 3) if op in LANE_OPS else (1,)):
+            for lanes in ((1, 3, 64, 130) if op in LANE_OPS else (1,)):
                 shape = (n_pad, lanes) if op in LANE_OPS else (n_pad,)
                 vshape = (rows, lanes) if op in LANE_OPS else (rows,)
                 if op == "min_dist":
@@ -424,7 +476,8 @@ def main() -> int:
     vis[:n] = (lv1[0] >= 0) & (lv1[0] <= level)
     gsrc = torch.tensor(front, device=dev)
     vloc = torch.tensor(vis, device=dev)
-    plan = pack_plan(ldbc_pack)
+    rec = launch_record(ldbc_pack)
+    plan = rec.plan
     wpos = np.zeros(plan.rbp, np.int64)
     for b, w in enumerate(plan.widths):
         wpos[plan.astarts[b]: plan.astarts[b] + plan.rows_pad[b]] = w
@@ -435,8 +488,46 @@ def main() -> int:
     bp_bytes = (4 * need_slots + gsrc.numel() + vloc.numel()
                 + 4 * plan.rbp + rows)
     bp_ops = need_slots  # one compare per slot
+    # the full pass (no visited rows): every live row's slots
+    full_bytes = 4 * int(widths.sum()) + gsrc.numel() + 4 * plan.rbp + rows
+    full_ops = int(widths.sum())
+    level2 = lambda: binned_pull(ldbc_pack, gsrc, vloc, op="reach")
+    full = lambda: binned_pull(ldbc_pack, gsrc, op="reach")
+    eager = {"level-2": level2(), "full pass": full()}
+    replay = {k: graph_ms(f) for k, f in (("level-2", level2),
+                                           ("full pass", full))}
+    for k, (g_ms, got) in replay.items():
+        check("binned_pull", got, eager[k], f"ldbc-10 {k}, CUDA graph replay")
+    device_us = {k: kernel_us(f, "binned_pull_kernel")
+                 for k, f in (("level-2", level2), ("full pass", full))}
+    # the library yardstick of the full pass: the reverse CSR times the
+    # frontier as a float32 column (a sum where the kernel takes a max, and
+    # no visited skip)
+    src_e, dst_e = csr.edge_list()
+    order = np.argsort(dst_e, kind="stable")
+    crow = np.zeros(rows + 1, np.int64)
+    crow[1:] = np.cumsum(np.bincount(dst_e, minlength=rows))
+    a_rev = torch.sparse_csr_tensor(
+        torch.from_numpy(crow),
+        torch.from_numpy(src_e[order].astype(np.int64)),
+        torch.ones(len(order)), size=(rows, gsrc.numel())).to(dev)
+    col = gsrc.float()[:, None]
+    if not torch.equal((torch.sparse.mm(a_rev, col)[:, 0] > 0).to(torch.uint8),
+                       eager["full pass"]):
+        fail("the torch.sparse.mm yardstick computes another reach")
+    full_pass = {
+        "ms": time_ms(full),
+        "graph_ms": replay["full pass"][0],
+        "device_us": device_us["full pass"],
+        "bound_ms": max(full_bytes / HBM_BYTES_PER_S,
+                        full_ops / INT8_OPS_PER_S) * 1e3,
+        "library_ms": time_ms(lambda: torch.sparse.mm(a_rev, col)),
+        "library": "torch.sparse.mm(reverse CSR f32, frontier column), "
+                   "TF32 off: the gather without the visited skip",
+    }
+    del a_rev, col, eager
     bp = {
-        "ms": time_ms(lambda: binned_pull(ldbc_pack, gsrc, vloc, op="reach")),
+        "ms": time_ms(level2),
         "plain_ms": time_ms(lambda: binned_pull(
             ldbc_pack, gsrc, vloc, op="reach", use_ref=True), reps=5),
         "bound_ms": max(bp_bytes / HBM_BYTES_PER_S,
@@ -444,10 +535,21 @@ def main() -> int:
         "bound_by": ("bytes" if bp_bytes / HBM_BYTES_PER_S
                      >= bp_ops / INT8_OPS_PER_S else "operations"),
         "library_ms": None,
+        "graph_ms": replay["level-2"][0],
+        "device_us": device_us["level-2"],
+        "full_pass": full_pass,
         "shape": f"op reach, gsrc [{gsrc.numel()}] u8, vloc [{rows}] u8, "
                  f"{len(plan.widths)} slabs, {int(widths.sum())} slots "
-                 f"({need_slots} of unvisited rows)",
+                 f"({need_slots} of unvisited rows), "
+                 f"{rec.tasks[False, False][1]} blocks "
+                 f"({rec.n_parts} hub chunks)",
     }
+    print(f"timed: binned_pull level-2: wrapper {bp['ms']:.4f} ms, CUDA "
+          f"graph {bp['graph_ms']:.4f} ms a call, kernel "
+          f"{bp['device_us']} us; full pass: wrapper {full_pass['ms']:.4f} "
+          f"ms, graph {full_pass['graph_ms']:.4f} ms, kernel "
+          f"{full_pass['device_us']} us, bound {full_pass['bound_ms']:.6f} "
+          f"ms, library {full_pass['library_ms']:.4f} ms", flush=True)
 
     # msbfs_extend: the 64-lane frontier of the first nTkMS batch at level 2
     src2, lv2 = main_inputs["msbfs_extend"]
@@ -481,7 +583,7 @@ def main() -> int:
                  f"active stripe), lanes [{g_blk}, 128, 64] u8",
     }
     del stripes, a_t, lanes_t, blocks, brows, bcols, act, valid, sb
-    del ldbc_pack, gsrc, vloc, main_inputs
+    del ldbc_pack, rec, gsrc, vloc, main_inputs
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 4: serve operands released, "
@@ -644,7 +746,7 @@ def main() -> int:
     }
     del qkv, o
     kernels = [
-        {"name": "binned_pull", "route": "cuda", "design": "binned_slabs",
+        {"name": "binned_pull", "route": "cuda", "design": "row_classes",
          "source": "src/repro_torch/kernels/csrc/binned_pull.cu",
          "replaces": "src/repro/kernels/binned_pull/binned_pull.py:198",
          "launches": launches["binned_pull"],

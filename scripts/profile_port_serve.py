@@ -29,7 +29,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_KERNELS = {
-    "binned_pull": ("narrow_kernel", "wide_kernel"),
+    "binned_pull": ("binned_pull_kernel",),
     "msbfs_extend": ("extend_kernel",),
 }
 

@@ -13,11 +13,12 @@ import numpy as np
 import torch
 
 from .binned_pull import (
-    OPS,
+    LaunchRecord,
     TilePlan,
+    check_call,
     fused_binned_pull,
     make_plan,
-    slab_descriptors,
+    make_record,
     tile_rows,
 )
 from .ref import fused_binned_pull_ref
@@ -110,20 +111,28 @@ def build_pack(bn, n_pad: int) -> BinnedPullPack:
     )
 
 
-def _kernel_desc(pack: BinnedPullPack, plan: TilePlan, slabs, wslabs):
-    """The kernel's slab table for this pack, built once per weight mode
-    and kept on the pack (outside its dataclass fields)."""
-    cache = pack.__dict__.setdefault("_kernel_desc", {})
-    key = wslabs is not None
-    if key not in cache:
-        cache[key] = slab_descriptors(plan, slabs, wslabs)
-    return cache[key]
+def launch_record(pack: BinnedPullPack) -> LaunchRecord:
+    """The pack's ``LaunchRecord``, built on first use and kept on the
+    pack (outside its dataclass fields, so ``map_tensors``/``to_device``
+    make a new pack that builds its own). An in-place fold of graph deltas
+    into the pack's tensors must drop it (``pack.__dict__.pop("_record")``)
+    so that the next call rebuilds it."""
+    rec = pack.__dict__.get("_record")
+    if rec is None:
+        rec = make_record(
+            pack_plan(pack), [s[0] for s in pack.slabs],
+            None if pack.slab_weights is None
+            else [w[0] for w in pack.slab_weights],
+            pack.perm_pad[0], pack.inv_pad[0],
+        )
+        pack.__dict__["_record"] = rec
+    return rec
 
 
 def binned_pull(
     pack: BinnedPullPack,
     gsrc: torch.Tensor,  # [n_out](, L): uint8/bool mask or f32 distance
-    vloc: torch.Tensor | None = None,  # [rows_local](, L) visited
+    vloc: torch.Tensor | None = None,  # [rows_local](, L) uint8/bool
     *,
     op: str,
     use_ref: bool = False,
@@ -132,24 +141,18 @@ def binned_pull(
     ``[rows_local]`` (``[rows_local, L]`` for the lane ops): uint8 reach
     mask, int32 min-parent or float32 distance. A CPU ``gsrc`` (or
     ``use_ref``) runs the plain version; a CUDA ``gsrc`` launches the
-    kernel."""
-    if op not in OPS:
-        raise ValueError(f"unknown binned-pull op: {op}")
-    plan = pack_plan(pack)
-    slabs = [s[0] for s in pack.slabs]
-    wslabs = None
-    if op == "min_dist" and pack.slab_weights is not None:
-        wslabs = [w[0] for w in pack.slab_weights]
+    kernel (one C call, one launch). A bool mask is passed as a uint8
+    view of the same memory."""
+    rec = launch_record(pack)
     if gsrc.dtype == torch.bool:
-        gsrc = gsrc.to(torch.uint8)
-    vloc_u8 = None if vloc is None else vloc.to(torch.uint8)
+        gsrc = gsrc.view(torch.uint8)
+    if vloc is not None and vloc.dtype == torch.bool:
+        vloc = vloc.view(torch.uint8)
     if use_ref or gsrc.device.type == "cpu":
+        check_call(rec, op, gsrc, vloc)
         return fused_binned_pull_ref(
-            op, plan, slabs, wslabs, gsrc, pack.inv_pad[0], vloc_u8
+            op, rec.plan, rec.slabs,
+            rec.wslabs if op == "min_dist" else None, gsrc, rec.inv_pad,
+            vloc,
         )
-    desc = _kernel_desc(pack, plan, slabs, wslabs)
-    return fused_binned_pull(
-        op, plan, slabs, wslabs, gsrc.contiguous(), pack.perm_pad[0],
-        pack.rows_local, None if vloc_u8 is None else vloc_u8.contiguous(),
-        desc=desc,
-    )
+    return fused_binned_pull(rec, op, gsrc, vloc)

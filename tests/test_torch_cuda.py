@@ -6,9 +6,12 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-- ``binned_pull``: all five ops, 64/3 lanes, visited none / partial / all,
-  on ER, power-law, hub, star and edgeless fixtures; bitwise equal, and
-  each call launches the kernel exactly once.
+- ``binned_pull``: all five ops, 1/3/64/130 lanes, visited none /
+  partial / all, on ER, power-law, hub, star and edgeless fixtures and on
+  a star into one node whose row spans at least three hub chunks;
+  bitwise equal to the plain version and across two launches, and each
+  call launches the kernel exactly once; a call replayed from a CUDA
+  graph gives the eager call's bits.
 - ``msbfs_extend``: 64, 1 and 130 lanes (one, one and three packed words)
   at several densities with empty stripes, on the row-sorted
   ``ShardedBlocks`` (sentinel column) and the col-sorted
@@ -45,11 +48,12 @@ from repro_torch.core import build_operands
 from repro_torch.graph.csr import csr_from_edges, truncate_csr
 from repro_torch.graph.generators import erdos_renyi, powerlaw
 from repro_torch.kernels.binned_pull.binned_pull import (
+    CHUNK,
     LANE_OPS,
     OPS,
     fused_binned_pull,
 )
-from repro_torch.kernels.binned_pull.ops import binned_pull
+from repro_torch.kernels.binned_pull.ops import binned_pull, launch_record
 from repro_torch.kernels.block_spmm.block_spmm import block_spmm
 from repro_torch.kernels.block_spmm.ops import (
     compact_blocks,
@@ -94,6 +98,11 @@ def fixture_csr(kind: str, n: int = 300, seed: int = 3):
     if kind == "star":  # node 0 fans out; 8 isolated nodes at the end
         d = np.arange(1, n - 8)
         return csr_from_edges(n, np.zeros_like(d), d)
+    if kind == "hub_chunks":  # node 0's in-row spans three hub chunks
+        v = np.arange(1, 3 * CHUNK + 2)
+        ring = np.arange(1, 200)
+        return csr_from_edges(3 * CHUNK + 10, np.concatenate([v, ring]),
+                              np.concatenate([np.zeros_like(v), ring + 1]))
     return truncate_csr(erdos_renyi(n, 3.0, seed=seed), 0)
 
 
@@ -103,15 +112,18 @@ def with_weights(csr, seed: int):
     return type(csr)(indptr=csr.indptr, indices=csr.indices, weights=w)
 
 
-@pytest.mark.parametrize("kind", ["er", "pl", "hub", "star", "edgeless"])
+@pytest.mark.parametrize("kind", ["er", "pl", "hub", "star", "edgeless",
+                                  "hub_chunks"])
 def test_binned_pull_kernel_matches_plain(kind, cuda_device):
     csr = with_weights(fixture_csr(kind), seed=4)
     ops, n_pad = build_operands(csr, "pull_binned_fused")
     pack = to_device(ops.rev_binned_pack, cuda_device)
     rows = pack.rows_local
+    if kind == "hub_chunks":
+        assert max(pack.widths) > 2 * CHUNK
     rng = np.random.default_rng(7)
     for op in OPS:
-        for lanes in ((64, 3) if op in LANE_OPS else (1,)):
+        for lanes in ((1, 3, 64, 130) if op in LANE_OPS else (1,)):
             shape = (n_pad, lanes) if op in LANE_OPS else (n_pad,)
             vshape = (rows, lanes) if op in LANE_OPS else (rows,)
             if op == "min_dist":
@@ -133,6 +145,41 @@ def test_binned_pull_kernel_matches_plain(kind, cuda_device):
                 assert fused_binned_pull.launches == before + 1
                 exp = binned_pull(pack, gd, vd, op=op, use_ref=True)
                 assert torch.equal(got, exp), f"{kind}/{op}/{lanes}"
+                again = binned_pull(pack, gd, vd, op=op)
+                assert torch.equal(again, got), f"{kind}/{op}/{lanes} rerun"
+
+
+@pytest.mark.parametrize("op", ["reach", "min_parent_lanes", "min_dist"])
+def test_binned_pull_graph_replay_matches_eager(op, cuda_device):
+    csr = with_weights(fixture_csr("hub_chunks"), seed=4)
+    ops, n_pad = build_operands(csr, "pull_binned_fused")
+    pack = to_device(ops.rev_binned_pack, cuda_device)
+    rng = np.random.default_rng(9)
+    shape = (n_pad, 64) if op in LANE_OPS else (n_pad,)
+    if op == "min_dist":
+        g = np.where(rng.random(n_pad) < 0.3, rng.uniform(0, 9, n_pad),
+                     np.inf).astype(np.float32)
+        vd = None
+    else:
+        g = (rng.random(shape) < 0.3).astype(np.uint8)
+        vshape = (pack.rows_local,) + shape[1:]
+        vd = torch.from_numpy(
+            (rng.random(vshape) < 0.4).astype(np.uint8)).to(cuda_device)
+    gd = torch.from_numpy(g).to(cuda_device)
+    launch_record(pack)  # built outside the capture (one host copy)
+    eager = binned_pull(pack, gd, vd, op=op)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        binned_pull(pack, gd, vd, op=op)  # warm the capture stream
+        with torch.cuda.graph(graph, stream=stream):
+            captured = binned_pull(pack, gd, vd, op=op)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager), op
 
 
 @pytest.mark.parametrize("lanes", [64, 1, 130])

@@ -135,12 +135,10 @@ def test_wrappers_take_plain_path_for_cpu_tensors():
     assert [f.launches for f in counters] == launches
     # the launchers themselves take CUDA tensors only
     pack = ops.rev_binned_pack
-    from repro_torch.kernels.binned_pull.ops import pack_plan
+    from repro_torch.kernels.binned_pull.ops import launch_record
 
     with pytest.raises(ValueError, match="CUDA"):
-        fused_binned_pull("reach", pack_plan(pack),
-                          [s[0] for s in pack.slabs], None, g,
-                          pack.perm_pad[0], pack.rows_local, None)
+        fused_binned_pull(launch_record(pack), "reach", g)
     with pytest.raises(ValueError, match="CUDA"):
         msbfs_extend_blocks(kb.blocks, kb.block_rows, kb.block_cols,
                             lanes.reshape(2, 128, 64))

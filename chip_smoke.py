@@ -12,7 +12,12 @@ Phases (any failure exits non-zero and prints no result):
    star, a hub and a hub whose row spans several hub chunks, and
    ``msbfs_extend`` on the scale-10 ``ShardedBlocks`` and ``KernelBlocks``
    with 64-lane frontiers at several densities, empty stripes included,
-   both with ``torch.equal``; ``block_spmm`` on ragged columns with empty
+   both with ``torch.equal``, and each on operands a graph delta folded on
+   the card (``QueryDispatcher.apply_delta``): ``binned_pull``, all five
+   ops, on a pack whose rows moved between degree buckets (a rewritten
+   ``perm_pad`` and a rebuilt launch record), ``msbfs_extend`` on
+   ``ShardedBlocks`` where one tile's slot was freed and claimed by
+   another; ``block_spmm`` on ragged columns with empty
    ones, F 64 and 256, float32 and bfloat16, and on a star into one node
    (one destination split into many chunks), and ``flash_attention`` at D
    16, 48, 64, 128 and 256, causal and full, within the tolerances of
@@ -26,6 +31,20 @@ Phases (any failure exits non-zero and prints no result):
    ``block_mxu``, through ``msbfs_extend``). Every source's levels are
    checked against a BFS written here with scipy; each kernel's launch
    counter is set to 0 before its run and must be above 0 after it;
+3b. serve the same graph through the open-loop entry point (the default
+   path of ``serve.main``: a seeded Poisson stream from two tenants
+   through ``ServingLoop``) twice, with seeded edge deltas folded into
+   the resident operands mid-stream: ``--backend dopt_fused``, 8 sources
+   a query, 120 arrivals and 4 deltas (``binned_pull`` on folded packs),
+   and the default ``recommend`` with 64 sources a query, 40 arrivals and
+   2 deltas (nTkMS on ``block_mxu``, ``msbfs_extend`` on folded tiles),
+   both at 20 queries/s with deltas of 64 inserts and 64 deletes. Every
+   query's levels are checked against the BFS of the graph version it was
+   admitted under (the initial graph plus every earlier delta); launch
+   counters as in phase 3; one JSON line per run with the warm and
+   all-in p50/p99, cold ms, batches and their mean size in sources,
+   overlap occupancy, shed, deadline misses and each delta's report and
+   ``apply_delta`` ms;
 4. time ``binned_pull`` and ``msbfs_extend``, their plain versions and a
    one-call PyTorch yardstick (CUDA events) at the shapes the serve runs
    give them, and compute each bound from those inputs; for
@@ -68,9 +87,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -159,6 +180,10 @@ def kernel_us(fn, name: str, calls: int = 20):
     return float(np.mean(durs)) if durs else None
 
 
+def finite(x: float):
+    return x if np.isfinite(x) else None
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if torch.equal(a, b):
         return 0.0
@@ -200,6 +225,17 @@ class BFSOracle:
             f = new.astype(np.float32)
         return lv.T.copy()
 
+    def levels_of(self, queries) -> list:
+        """Levels of many source arrays, the sources batched into columns
+        of 64 and the batches spread over threads (scipy's products
+        release the GIL)."""
+        flat = np.concatenate([np.asarray(q, np.int64) for q in queries])
+        parts = [flat[i : i + 64] for i in range(0, len(flat), 64)]
+        with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+            lv = np.concatenate(list(ex.map(self.levels, parts)))
+        bounds = np.cumsum([0] + [len(q) for q in queries])
+        return [lv[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
 
 def star_csr(n, csr_from_edges):
     dsts = np.arange(1, n - 8)
@@ -216,6 +252,34 @@ def hub_csr(n, csr_from_edges, seed=0):
     return csr_from_edges(n, srcs, dsts)
 
 
+def swap_graph(csr_from_edges, GraphDelta):
+    """Targets 0-9 have in-degree 3, targets 10-19 in-degree 5 (two degree
+    buckets, no free slot); the delta gives node 0 two in-edges and takes
+    two from node 10, so the two rows swap buckets. Weighted, for
+    ``min_dist``."""
+    src = np.array([20 + (t * 5 + j) % 20 for t in range(20)
+                    for j in range(3 if t < 10 else 5)])
+    dst = np.array([t for t in range(20) for _ in range(3 if t < 10 else 5)])
+    w = np.random.default_rng(5).uniform(0.1, 2.0, len(src))
+    csr = csr_from_edges(40, src, dst, weights=w.astype(np.float32))
+    new_src = [s for s in range(20, 40) if s not in set(src[dst == 0])][:2]
+    return csr, GraphDelta(add_src=new_src, add_dst=[0, 0],
+                           del_src=src[dst == 10][:2], del_dst=[10, 10],
+                           add_weights=[0.5, 1.5])
+
+
+def tile_swap_graph(csr_from_edges, GraphDelta, erdos_renyi):
+    """A lone edge in tile (0, 2) and none in tile (2, 2) of a 300-node
+    graph (3x3 tiles of 128): the delta empties the first, freeing its
+    slot, and the second claims it."""
+    base = erdos_renyi(120, 3.0, seed=2)
+    s, t = base.edge_list()
+    csr = csr_from_edges(300, np.concatenate([s, [5, 130]]),
+                         np.concatenate([t, [290, 10]]))
+    return csr, GraphDelta(add_src=[260], add_dst=[270], del_src=[5],
+                           del_dst=[290])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
@@ -223,7 +287,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.graph import csr as gcsr
-    from repro_torch.graph.generators import PAPER_DATASETS, powerlaw
+    from repro_torch.graph.delta import GraphDelta, apply_delta_csr
+    from repro_torch.graph.generators import (
+        PAPER_DATASETS,
+        erdos_renyi,
+        powerlaw,
+    )
     from repro_torch.graph.partition import padded_n
     from repro_torch.kernels import build
     from repro_torch.kernels.binned_pull import binned_pull as bp_mod
@@ -249,6 +318,7 @@ def main() -> int:
         prepare_kernel_blocks,
     )
     from repro_torch.launch import serve
+    from repro_torch.runtime.dispatch import QueryDispatcher
     from repro_torch.runtime.service import unpack_levels
 
     dev = torch.device(DEVICE, 0)
@@ -355,6 +425,64 @@ def main() -> int:
             torch.cuda.synchronize()
             check("msbfs_extend", got, exp, f"{bname}/density {density}")
     del kb
+    # both reach kernels on operands a graph delta folded on the card
+    g_sw, d_sw = swap_graph(gcsr.csr_from_edges, GraphDelta)
+    disp = QueryDispatcher(dev, g_sw, max_iters=16)
+    disp.query(np.array([20, 25], np.int32), backend="pull_binned_fused")
+    (bundle,) = disp._graphs.values()
+    old_pack = bundle.ops.rev_binned_pack
+    old_rec = launch_record(old_pack)
+    rep = disp.apply_delta(d_sw)
+    pack = bundle.ops.rev_binned_pack
+    if (not rep.same_shape or rep.binned_moves <= 0
+            or torch.equal(pack.perm_pad, old_pack.perm_pad)):
+        fail(f"the swap delta moved no row between buckets: {rep}")
+    rec = launch_record(pack)
+    if rec is old_rec or not torch.equal(rec.perm_pad, pack.perm_pad[0]):
+        fail("the folded pack's launch record was not rebuilt")
+    n_sw, rows = int(bundle.n_pad), pack.rows_local
+    for op in OPS:
+        for lanes in ((1, 64, 130) if op in LANE_OPS else (1,)):
+            shape = (n_sw, lanes) if op in LANE_OPS else (n_sw,)
+            if op == "min_dist":
+                gsrc = torch.tensor(np.where(
+                    rng.random(n_sw) < 0.4, rng.uniform(0, 9, n_sw),
+                    np.inf).astype(np.float32), device=dev)
+                v = None
+            else:
+                gsrc = torch.tensor((rng.random(shape) < 0.3).astype(
+                    np.uint8), device=dev)
+                v = torch.tensor((rng.random((rows,) + shape[1:]) < 0.3)
+                                 .astype(np.uint8), device=dev)
+            got = binned_pull(pack, gsrc, v, op=op)
+            exp = binned_pull(pack, gsrc, v, op=op, use_ref=True)
+            torch.cuda.synchronize()
+            check("binned_pull", got, exp,
+                  f"pack folded by a delta ({rep.binned_moves} rows moved)"
+                  f"/{op}/L{lanes}")
+    g_ts, d_ts = tile_swap_graph(gcsr.csr_from_edges, GraphDelta,
+                                 erdos_renyi)
+    disp = QueryDispatcher(dev, g_ts, max_iters=16)
+    disp.query(np.arange(4, dtype=np.int32), backend="block_mxu")
+    (bundle,) = disp._graphs.values()
+    rows0 = bundle.ops.blocks.block_rows[0].cpu()
+    rep = disp.apply_delta(d_ts)
+    fb = bundle.ops.blocks
+    rows1 = fb.block_rows[0].cpu()
+    if (not rep.same_shape or rows1.shape != rows0.shape
+            or int((rows1 != rows0).sum()) != 1):
+        fail(f"the tile delta did not move one tile into a freed slot: {rep}")
+    g_t = int(bundle.n_pad) // 128
+    for density in (0.02, 0.3):
+        fl = torch.tensor((rng.random((g_t, 128, 64)) < density).astype(
+            np.uint8), device=dev)
+        tiles = (fb.blocks[0], fb.block_rows[0], fb.block_cols[0])
+        got = extend_blocks(*tiles, fl, g_out=g_t)
+        exp = extend_blocks(*tiles, fl, g_out=g_t, use_ref=True)
+        torch.cuda.synchronize()
+        check("msbfs_extend", got, exp,
+              f"ShardedBlocks folded by a delta/density {density}")
+    del disp, bundle, old_pack, old_rec, pack, rec, fb
     # block_spmm: a power-law graph's mean blocks without zero pads and
     # without columns 1 and 4, so columns are ragged and some are empty
     pl = powerlaw(3000, 6.0, seed=5)
@@ -461,6 +589,95 @@ def main() -> int:
             "seconds": time.perf_counter() - t0,
         }
         print(f"phase 3: {rname}: " + json.dumps(served[rname]), flush=True)
+        torch.cuda.empty_cache()
+
+    # -- phase 3b: the open loop, with graph deltas mid-stream --------------
+    open_runs = {
+        "open dopt_fused x8": (["--backend", "dopt_fused",
+                                "--sources-per-batch", "8", "--tenants", "2",
+                                "--rate", "20", "--arrivals", "120",
+                                "--mutate-stream", "4", "--delta-edges",
+                                "64"], "binned_pull"),
+        "open recommend x64": (["--sources-per-batch", "64", "--rate", "20",
+                                "--arrivals", "40", "--mutate-stream", "2",
+                                "--delta-edges", "64"], "msbfs_extend"),
+    }
+    for rname, (extra, kernel) in open_runs.items():
+        t0 = time.perf_counter()
+        streams = []
+        bp_mod.fused_binned_pull.launches = 0
+        mx_mod.msbfs_extend_blocks.launches = 0
+        rc = serve.main(["--device", str(dev), "--dataset", "ldbc",
+                         "--scale", str(SCALE), *extra],
+                        on_stream=streams.append)
+        counts = {"binned_pull": bp_mod.fused_binned_pull.launches,
+                  "msbfs_extend": mx_mod.msbfs_extend_blocks.launches}
+        torch.cuda.synchronize()
+        if rc != 0 or len(streams) != 1:
+            fail(f"open-loop run {rname} exited {rc}")
+        if counts[kernel] <= 0:
+            fail(f"open-loop run {rname} never launched {kernel}: {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        t1 = time.perf_counter()
+        loop, arrivals = streams[0].loop, streams[0].arrivals
+        # each query against the graph version it was admitted under: the
+        # schedule is in time order and qids count the submissions
+        graphs, by_version = [csr], [[]]
+        for a in arrivals:
+            if "delta" in a:
+                graphs.append(apply_delta_csr(graphs[-1], a["delta"]))
+                by_version.append([])
+            else:
+                qid = f"q{sum(len(q) for q in by_version)}"
+                by_version[-1].append((qid, a["sources"]))
+        st = loop.stats
+        n_queries = sum(len(q) for q in by_version)
+        if st.completed != n_queries or len(loop.results) != n_queries:
+            fail(f"{rname}: {st.completed} of {n_queries} queries served")
+        for v, queries in enumerate(by_version):
+            if not queries:
+                continue
+            orc = oracle if v == 0 else BFSOracle(graphs[v])
+            refs = orc.levels_of([src for _, src in queries])
+            for (qid, src), ref in zip(queries, refs):
+                if not np.array_equal(loop.results[qid], ref):
+                    bad = int((loop.results[qid] != ref).any(axis=1).sum())
+                    fail(f"{rname} {qid} (graph version {v}): levels of "
+                         f"{bad} source(s) differ from the BFS oracle")
+        reps = loop.delta_reports
+        if len(reps) != len(graphs) - 1 or (
+                loop.dispatcher.csr.n_edges != graphs[-1].n_edges):
+            fail(f"{rname}: {len(reps)} deltas applied of "
+                 f"{len(graphs) - 1}")
+        served[rname] = {
+            "queries": n_queries,
+            "batches": st.batches,
+            "cold_batches": st.cold_batches,
+            # None where no query was served by a warm batch
+            "warm_p50_ms": finite(st.p50()),
+            "warm_p99_ms": finite(st.p99()),
+            "cold_ms": st.cold_ms,
+            "all_p50_ms": finite(st.p50(warm=False)),
+            "all_p99_ms": finite(st.p99(warm=False)),
+            "sources_per_batch": sum(len(src) for q in by_version
+                                     for _, src in q) / max(st.batches, 1),
+            "overlap_occupancy": st.overlap_occupancy,
+            "shed": st.shed,
+            "deadline_misses": st.deadline_misses,
+            "deltas": len(reps),
+            "deltas_same_shape": sum(r.same_shape for r in reps),
+            "engines_invalidated": sum(r.engines_invalidated for r in reps),
+            "apply_delta_ms": [r.ms for r in reps],
+            "delta_reports": [dataclasses.asdict(r) for r in reps],
+            "stream_s": streams[0].wall_s,
+            "launches": counts,
+            "oracle_s": time.perf_counter() - t1,
+            "seconds": time.perf_counter() - t0,
+        }
+        print(f"phase 3b: {rname}: " + json.dumps(served[rname]), flush=True)
+        del loop, arrivals, streams, graphs, by_version
+        gc.collect()
         torch.cuda.empty_cache()
 
     # -- phase 4: timings at the main path's shapes --------------------------
@@ -775,8 +992,12 @@ def main() -> int:
               flush=True)
     for rname, s in served.items():
         print(f"serve {rname}: warm p50 {s['warm_p50_ms']} ms, warm p99 "
-              f"{s['warm_p99_ms']} ms over {s['warm_batches']} warm "
-              f"batch(es)")
+              f"{s['warm_p99_ms']} ms over "
+              + (f"{s['warm_batches']} warm batch(es)" if "warm_batches" in s
+                 else f"{s['queries']} queries (all-in p50 "
+                 f"{s['all_p50_ms']} ms, p99 {s['all_p99_ms']} ms; "
+                 f"{s['cold_batches']} of {s['batches']} batches cold), "
+                 f"apply_delta ms {s['apply_delta_ms']}"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -148,7 +148,11 @@ def _bfs_depth_at_least(csr: CSRGraph, src: int, depth: int) -> bool:
     seen[src] = True
     frontier = np.asarray([src], dtype=np.int64)
     indptr, indices = csr.indptr, csr.indices
-    for _ in range(depth):
+    for level in range(depth):
+        if level == depth - 1:
+            # the last level needs one unseen neighbor, not the whole set:
+            # scan the frontier in slices and stop at the first
+            return _any_unseen_neighbor(indptr, indices, frontier, seen)
         starts = indptr[frontier]
         counts = indptr[frontier + 1] - starts
         total = int(counts.sum())
@@ -165,3 +169,23 @@ def _bfs_depth_at_least(csr: CSRGraph, src: int, depth: int) -> bool:
         seen[new] = True
         frontier = new
     return True
+
+
+def _any_unseen_neighbor(indptr, indices, frontier, seen,
+                         slots: int = 1 << 14) -> bool:
+    """Whether some out-neighbor of ``frontier`` is not ``seen``, reading
+    about ``slots`` adjacency entries at a time."""
+    counts = indptr[frontier + 1] - indptr[frontier]
+    ends = np.cumsum(counts)
+    lo = 0
+    while lo < len(frontier):
+        base = int(ends[lo] - counts[lo])
+        hi = max(int(np.searchsorted(ends, base + slots, side="right")),
+                 lo + 1)
+        starts, cnt = indptr[frontier[lo:hi]], counts[lo:hi]
+        total = int(cnt.sum())
+        offs = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        if not seen[indices[np.repeat(starts, cnt) + offs]].all():
+            return True
+        lo = hi
+    return False

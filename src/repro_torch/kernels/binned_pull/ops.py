@@ -111,12 +111,20 @@ def build_pack(bn, n_pad: int) -> BinnedPullPack:
     )
 
 
+def drop_record(pack: BinnedPullPack) -> None:
+    """Forget the pack's launch record; the next call rebuilds it. A fold
+    that writes a graph delta into the pack's tensors in place
+    (``graph.delta``) calls this: the record's work list was built from
+    the old ``perm_pad``."""
+    pack.__dict__.pop("_record", None)
+
+
 def launch_record(pack: BinnedPullPack) -> LaunchRecord:
     """The pack's ``LaunchRecord``, built on first use and kept on the
     pack (outside its dataclass fields, so ``map_tensors``/``to_device``
     make a new pack that builds its own). An in-place fold of graph deltas
-    into the pack's tensors must drop it (``pack.__dict__.pop("_record")``)
-    so that the next call rebuilds it."""
+    into the pack's tensors drops it (``drop_record``) so that the next
+    call rebuilds it."""
     rec = pack.__dict__.get("_record")
     if rec is None:
         rec = make_record(

@@ -8,13 +8,24 @@ a learned budget, phase 2 re-dispatches the stragglers), with policy and
 scan layout picked per batch and the online learners fed by the served
 stream.
 
-The port has the closed-loop driver (``--closed-loop``, implied by
-``--paths``): one batch at a time through ``AdaptiveScheduler.query``.
-It reports warm latency percentiles: batches that built a new engine or
-ran a new morsel count are cold and reported apart. The open-loop
-``ServingLoop``, ``--mutate-stream`` and the non-reach ``--query-kind``
-values are not ported yet and raise ``NotImplementedError``.
+Two drivers share that core:
 
+- **Open loop** (the default): a ``runtime.service.ServingLoop`` serves a
+  seeded Poisson arrival stream from several tenants, optionally with
+  per-query deadlines (``--deadline-ms``) and tenant quotas (``--quota``);
+  ``--no-overlap`` pins the strictly serial pipeline. ``--mutate-stream
+  N`` interleaves N seeded edge deltas of ``--delta-edges`` inserts and
+  deletes, each applied through the loop's version fence.
+- **Closed loop** (``--closed-loop``, implied by ``--paths``): one batch at
+  a time through ``AdaptiveScheduler.query``.
+
+Both report warm latency percentiles: batches that built a new engine or
+ran a new morsel count are cold and reported apart. The non-reach
+``--query-kind`` values are not ported yet and raise
+``NotImplementedError``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset ldbc \\
+        --scale 10 --rate 20 --arrivals 60 --mutate-stream 2
     PYTHONPATH=src python -m repro_torch.launch.serve --closed-loop \\
         --dataset ldbc --scale 10 --sources-per-batch 8 --batches 20
 
@@ -31,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core import histogram_lengths, reconstruct_paths
+from ..graph.delta import apply_delta_csr, random_delta
 from ..graph.generators import (
     PAPER_DATASET_FAMILIES,
     PAPER_DATASETS,
@@ -38,6 +50,7 @@ from ..graph.generators import (
 )
 from ..kernels.common import resolve_device, synchronize
 from ..runtime.scheduler import AdaptiveScheduler
+from ..runtime.service import ServingLoop
 
 
 class QueryService:
@@ -85,8 +98,42 @@ class BatchRecord:
     cold: bool  # the batch built an engine or ran a new morsel count
 
 
+@dataclasses.dataclass
+class StreamRecord:
+    """One served open-loop stream, as handed to ``on_stream``: the
+    drained loop (results, telemetry, delta reports) and the arrival
+    schedule it served, deltas included, in time order."""
+
+    loop: ServingLoop
+    arrivals: list
+    wall_s: float
+
+
 def _pct(values, p):
     return np.percentile(np.asarray(values), p) if len(values) else float("nan")
+
+
+def poisson_arrivals(csr, rate_qps: float, n_arrivals: int,
+                     sources_per_query: int, tenants: int = 1,
+                     deadline_ms: float | None = None, seed: int = 0,
+                     query_kind: str = "reach"):
+    """Seeded open-loop Poisson schedule for ``ServingLoop.run_stream``:
+    exponential inter-arrival gaps at ``rate_qps``, tenants round-robin,
+    each query's sources drawn by the closed-loop driver's
+    ``pick_sources`` rule."""
+    rng = np.random.default_rng(seed)
+    gaps_ms = rng.exponential(1e3 / rate_qps, size=n_arrivals)
+    t_ms = np.cumsum(gaps_ms)
+    return [
+        {
+            "t_ms": float(t_ms[i]),
+            "sources": pick_sources(csr, sources_per_query, seed=100 + i),
+            "tenant": f"t{i % tenants}",
+            "deadline_ms": deadline_ms,
+            "query_kind": query_kind,
+        }
+        for i in range(n_arrivals)
+    ]
 
 
 def _report_core(sched, used=None) -> None:
@@ -120,6 +167,83 @@ def _report_core(sched, used=None) -> None:
             f"(rate {stats.budget_mispredict_rate:.3f}, "
             f"{stats.budget_inert_slots} inert budget slots)"
         )
+
+
+def run_open_loop(args, csr, device, family,
+                  on_stream: Callable[[StreamRecord], None] | None = None
+                  ) -> int:
+    loop = ServingLoop(
+        device, csr, adaptive=not args.static, backend=args.backend,
+        direction_thresholds=args.thresholds, family=family,
+        online_adapt=args.online_adapt, refit_every=args.refit_every,
+        overlap=args.overlap, tenant_quota=args.quota,
+        max_batch_sources=args.max_batch_sources, cost=args.cost_mode,
+    )
+    arrivals = poisson_arrivals(
+        csr, args.rate, args.arrivals, args.sources_per_batch,
+        tenants=args.tenants, deadline_ms=args.deadline_ms, seed=1,
+        query_kind=args.query_kind,
+    )
+    if args.mutate_stream:
+        # seeded edge-edit batches spread evenly through the schedule;
+        # run_stream applies each through the serving fence
+        span = arrivals[-1]["t_ms"] if arrivals else 0.0
+        cur = csr
+        for i in range(args.mutate_stream):
+            t_ms = span * (i + 1) / (args.mutate_stream + 1)
+            d = random_delta(cur, args.delta_edges, args.delta_edges,
+                             seed=500 + i)
+            cur = apply_delta_csr(cur, d)  # deletes sample the live graph
+            arrivals.append({"t_ms": float(t_ms), "delta": d})
+        arrivals.sort(key=lambda a: a["t_ms"])
+    print(
+        f"open loop: {args.arrivals} Poisson arrivals at {args.rate:.1f} "
+        f"q/s across {args.tenants} tenant(s)"
+        + (f", deadline {args.deadline_ms:.0f} ms" if args.deadline_ms else "")
+        + (f", {args.mutate_stream} interleaved graph delta(s) of "
+           f"±{args.delta_edges} edges" if args.mutate_stream else "")
+    )
+    t0 = time.perf_counter()
+    loop.run_stream(arrivals)
+    wall_s = time.perf_counter() - t0
+    st = loop.stats
+    print(
+        f"served {st.completed} queries in {wall_s:.2f} s over "
+        f"{st.batches} batches ({st.cold_batches} cold); "
+        f"warm p50 {st.p50():.1f} ms, p99 {st.p99():.1f} ms "
+        f"(all-in p50 {st.p50(warm=False):.1f} ms, "
+        f"p99 {st.p99(warm=False):.1f} ms); "
+        f"cold-start {st.cold_ms:.0f} ms excluded from warm percentiles"
+    )
+    print(
+        f"overlap occupancy {st.overlap_occupancy:.2f} "
+        f"({st.overlapped_finalizes}/{st.finalizes} finalizes after the "
+        f"next batch began); shed {st.shed}, "
+        f"deadline misses {st.deadline_misses}, "
+        f"evictions {loop.admission.stats.evictions}"
+    )
+    for name in sorted(st.tenants):
+        ts = st.tenants[name]
+        print(
+            f"  tenant {name}: {ts.completed}/{ts.submitted} served, "
+            f"warm p50 {ts.p50():.1f} ms p99 {ts.p99():.1f} ms, "
+            f"shed {ts.shed}, misses {ts.deadline_misses}"
+        )
+    if st.deltas_applied:
+        reps = loop.delta_reports
+        same = sum(1 for r in reps if r.same_shape)
+        inval = sum(r.engines_invalidated for r in reps)
+        print(
+            f"graph deltas: {st.deltas_applied} applied "
+            f"(now version {loop.graph_version}); {same} kept every "
+            f"operand shape, {inval} engine(s) invalidated by reshapes; "
+            f"apply_delta ms {[round(r.ms, 1) for r in reps]}; final graph "
+            f"{loop.dispatcher.csr.n_edges} edges"
+        )
+    _report_core(loop.dispatcher)
+    if on_stream is not None:
+        on_stream(StreamRecord(loop, arrivals, wall_s))
+    return 0
 
 
 def run_closed_loop(args, csr, device, family,
@@ -198,7 +322,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "'cpu' runs the plain PyTorch path)")
     ap.add_argument("--closed-loop", action="store_true",
                     help="one-batch-at-a-time driver (implied by --paths); "
-                         "the open-loop ServingLoop is not ported yet")
+                         "default is the open-loop ServingLoop")
     ap.add_argument("--batches", type=int, default=20,
                     help="closed-loop request batches")
     ap.add_argument("--arrivals", type=int, default=60,
@@ -220,7 +344,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="open loop: bound one batch's pooled sources")
     ap.add_argument("--mutate-stream", type=int, default=0, metavar="N",
                     help="open loop: interleave N seeded graph deltas "
-                         "(not ported yet)")
+                         "evenly through the arrivals, each applied through "
+                         "the serving fence")
     ap.add_argument("--delta-edges", type=int, default=64, metavar="M",
                     help="edges added and deleted per --mutate-stream delta")
     ap.add_argument("--query-kind", default="reach",
@@ -257,22 +382,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None,
-         on_batch: Callable[[BatchRecord], None] | None = None) -> int:
+         on_batch: Callable[[BatchRecord], None] | None = None,
+         on_stream: Callable[[StreamRecord], None] | None = None) -> int:
+    """Serve from the command line. ``on_batch`` receives each closed-loop
+    batch, ``on_stream`` the drained open-loop stream."""
     args = build_parser().parse_args(argv)
     if args.query_kind != "reach":
         raise NotImplementedError(
             f"--query-kind {args.query_kind} is not ported yet (ROADMAP "
             "queue 1: the non-reach query kinds)"
-        )
-    if args.mutate_stream:
-        raise NotImplementedError(
-            "--mutate-stream is not ported yet (ROADMAP queue 1: the "
-            "open-loop ServingLoop and graph/delta.py)"
-        )
-    if not (args.closed_loop or args.paths):
-        raise NotImplementedError(
-            "the open-loop ServingLoop is not ported yet (ROADMAP queue 1); "
-            "pass --closed-loop"
         )
     device = resolve_device(args.device)
     csr = PAPER_DATASETS[args.dataset](args.scale)
@@ -283,7 +401,9 @@ def main(argv=None,
         f"serving {args.dataset} proxy on {name}: {csr.n_nodes} nodes, "
         f"{csr.n_edges} edges, avg degree {csr.avg_degree:.0f}"
     )
-    return run_closed_loop(args, csr, device, family, on_batch=on_batch)
+    if args.closed_loop or args.paths:
+        return run_closed_loop(args, csr, device, family, on_batch=on_batch)
+    return run_open_loop(args, csr, device, family, on_stream=on_stream)
 
 
 if __name__ == "__main__":

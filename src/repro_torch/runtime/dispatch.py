@@ -24,8 +24,20 @@ What differs from the JAX package:
   events) on a CUDA device and "slots" on the CPU;
 - ``recommend_policy``'s memory bound reads the CUDA device's
   ``total_memory`` (16 GiB, the JAX default, on the CPU);
-- graph mutation (``apply_delta``, operand epochs) and the sharded state
-  layout are not ported (ROADMAP queue 1).
+- operand bundles are keyed on the extension spec alone (one device: the
+  policy's graph axes do not change the layout), so a dispatcher may hold
+  fewer bundles than JAX's and fold a delta into fewer of them;
+- ``apply_delta`` places each changed structure as new tensors (a copy,
+  also on the CPU) and times itself (``DeltaReport.ms``);
+- the sharded state layout is not ported (ROADMAP queue 1).
+
+Graph mutation: ``apply_delta`` folds a ``GraphDelta`` into a writable
+host mirror of every cached bundle (``graph.delta.fold_operands``) and
+re-places only the structures whose content changed. ``EngineKey`` carries
+the shape epoch of the structures an engine scans, so a same-shape delta
+leaves the cache warm and a reshaping one invalidates exactly the stale
+keys. A batch pins its operands and epochs when it begins, so a delta that
+lands while it is in flight never tears it across graph versions.
 """
 from __future__ import annotations
 
@@ -63,9 +75,17 @@ from ..core import (
     recommend_k,
     recommend_policy,
 )
-from ..core.extend import GraphOperands
+from ..core.extend import GraphOperands, effective_csr
 from ..graph.csr import CSRGraph
-from ..kernels.common import resolve_device, synchronize
+from ..graph.delta import (
+    STRUCTURES,
+    DeltaReport,
+    GraphDelta,
+    apply_delta_csr,
+    diff_effective,
+    fold_operands,
+)
+from ..kernels.common import map_tensors, resolve_device, synchronize
 
 #: device memory ``recommend_policy`` assumes off the card (the JAX default)
 DEFAULT_HBM_BYTES = 16 * 2**30
@@ -75,7 +95,14 @@ DEFAULT_HBM_BYTES = 16 * 2**30
 class EngineKey:
     """Cache identity of one engine: ``kind`` is "static", "phase1",
     "resume" or "gang"; ``extend`` the backend and direction mode;
-    ``stats`` marks the sample-tapped flavor."""
+    ``stats`` marks the sample-tapped flavor.
+
+    ``operands_epoch`` is the shape generation of the structures the
+    engine scans: a delta folded in place leaves it alone (the engine
+    stays warm and is handed the new tensors at call time), a delta that
+    rebuilds a structure with new shapes bumps it, so stale keys are
+    invalidated. It is deliberately not the ``operands_version``: keying
+    on the version would make every delta cold."""
 
     kind: str
     policy: MorselPolicy
@@ -85,6 +112,7 @@ class EngineKey:
     state_layout: str
     extend: ExtendSpec = ExtendSpec()
     stats: bool = False
+    operands_epoch: int = 0
 
 
 class EngineCache:
@@ -92,7 +120,10 @@ class EngineCache:
     and a ledger of the morsel counts each engine has run with.
 
     ``compile_events`` = builds + first-seen (engine, morsel count) pairs:
-    the serving driver classifies a batch that raised it as cold."""
+    the serving driver classifies a batch that raised it as cold. The
+    mapping surface (``len``, ``iter``, ``in``, ``keys``, ``items``,
+    ``get``, ``count_by_kind``) is public; ``invalidate`` drops the keys a
+    reshaping graph delta made stale."""
 
     DEFAULT_MAX_ENTRIES = 128
 
@@ -110,6 +141,7 @@ class EngineCache:
         self._shapes: dict[EngineKey, set] = {}
         self.shape_misses = 0
         self.evictions = 0
+        self.invalidations = 0  # entries dropped by invalidate()
 
     @property
     def compile_events(self) -> int:
@@ -127,6 +159,28 @@ class EngineCache:
 
     def __len__(self) -> int:
         return len(self._engines)
+
+    def __iter__(self):
+        return iter(self._engines)
+
+    def __contains__(self, key: EngineKey) -> bool:
+        return key in self._engines
+
+    def keys(self):
+        """The cached ``EngineKey``s, in build order."""
+        return self._engines.keys()
+
+    def items(self):
+        """(EngineKey, engine) pairs, in build order."""
+        return self._engines.items()
+
+    def get(self, key: EngineKey, default=None):
+        """Cached engine for ``key`` (no hit/miss accounting, no build)."""
+        return self._engines.get(key, default)
+
+    def count_by_kind(self, kind: str) -> int:
+        """How many engines of one ``EngineKey.kind`` are cached."""
+        return sum(1 for k in self._engines if k.kind == kind)
 
     def get_or_build(self, key: EngineKey, builder: Callable[[], Any]):
         kind = key.kind
@@ -148,6 +202,17 @@ class EngineCache:
             self._shapes.pop(old_key, None)
             self.evictions += 1
         return eng
+
+    def invalidate(self, predicate: Callable[[EngineKey], bool]) -> int:
+        """Drop every cached engine whose key matches ``predicate`` (and
+        its shape ledger); returns how many went. A later request for one
+        of them is a fresh miss with fresh shape misses."""
+        stale = [k for k in self._engines if predicate(k)]
+        for k in stale:
+            del self._engines[k]
+            self._shapes.pop(k, None)
+        self.invalidations += len(stale)
+        return len(stale)
 
 
 @dataclasses.dataclass
@@ -189,6 +254,7 @@ class SchedulerStats:
     budget_inert_slots: int = 0
     budget_observed: int = 0
     refits: int = 0
+    deltas: int = 0  # GraphDeltas applied (apply_delta calls)
 
     @property
     def gang_occupancy(self) -> float:
@@ -218,6 +284,27 @@ class SchedulerStats:
 
 
 @dataclasses.dataclass
+class OperandBundle:
+    """One device-placed operand bundle and its mutation bookkeeping.
+
+    ``version`` is the ``operands_version`` the tensors hold; ``epochs``
+    counts, per structure slot, the deltas that rebuilt it with new shapes
+    (``EngineKey.operands_epoch`` derives from them); ``host`` is the
+    writable CPU mirror deltas fold into, made by the first delta (a copy
+    of the device tensors, never the tensors themselves). Iterates as
+    ``(ops, n_pad)``."""
+
+    ops: GraphOperands
+    n_pad: int
+    version: int = 0
+    epochs: dict = dataclasses.field(default_factory=dict)
+    host: Any = None
+
+    def __iter__(self):
+        return iter((self.ops, self.n_pad))
+
+
+@dataclasses.dataclass
 class InflightBatch:
     """A planned batch whose phase 1 (or static engine) has run;
     ``kind`` routes ``settle_batch``: "hybrid", "static" or "chunked"
@@ -243,6 +330,16 @@ class SettledBatch:
             self.outcome.result = self._materialize()
             self._materialize = None
         return self.outcome
+
+
+def check_query_kind(query_kind: str) -> None:
+    """Raise for a query kind the port does not serve yet."""
+    if query_kind not in QUERY_KINDS:
+        raise NotImplementedError(
+            f"query_kind={query_kind!r} is not ported yet (ROADMAP "
+            "queue 1: the non-reach query kinds); the port serves "
+            f"{sorted(QUERY_KINDS)}"
+        )
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -322,7 +419,9 @@ class QueryDispatcher:
         self._cost_rates: dict[int, dict] = {}
         self.stats = SchedulerStats()
         self.cache = EngineCache()
-        self._graphs: dict[tuple, tuple[GraphOperands, int]] = {}
+        self._graphs: dict[tuple, OperandBundle] = {}
+        # graph-mutation counter, bumped by every apply_delta
+        self.operands_version = 0
         self._iter_p90s: collections.deque = collections.deque(maxlen=32)
         self._dir_samples: dict[int, collections.deque] = {}
         self._sample_window = int(sample_window)
@@ -342,16 +441,140 @@ class QueryDispatcher:
 
     def _graph_for(
         self, policy: MorselPolicy, spec: ExtendSpec = ExtendSpec()
-    ) -> tuple[GraphOperands, int]:
+    ) -> OperandBundle:
         """The device-placed operand bundle ``spec`` scans, built once and
         shared by every spec needing the same structures (on one device
-        the policy's graph axes do not change the layout)."""
+        the policy's graph axes do not change the layout). A delta folds
+        into the shared bundle once; a batch in flight keeps the
+        ``(ops, epoch)`` it resolved at begin time."""
         key = self._bundle_key(spec)
         if key not in self._graphs:
-            self._graphs[key] = prepare_graph(
+            ops, n_pad = prepare_graph(
                 self.csr, self.device, policy, self.max_deg, extend=spec
             )
+            self._graphs[key] = OperandBundle(
+                ops=ops, n_pad=n_pad, version=self.operands_version,
+            )
         return self._graphs[key]
+
+    def _spec_epoch(self, bundle: OperandBundle, spec: ExtendSpec) -> int:
+        """The shape generation of the structures ``spec`` scans out of
+        ``bundle``: the max epoch over exactly those structures, so a
+        rebuild of the blocks does not invalidate push engines sharing the
+        bundle."""
+        e = bundle.epochs
+        v = e.get("fwd", 0)
+        if spec.needs_rev:
+            v = max(v, e.get("rev", 0))
+        if spec.needs_binned:
+            v = max(v, e.get("rev_binned", 0))
+        if spec.needs_binned_pack:
+            v = max(v, e.get("rev_binned_pack", 0))
+        if spec.needs_blocks:
+            v = max(v, e.get("blocks", 0))
+        return v
+
+    # ------------------------------------------------------- graph mutation
+
+    def apply_delta(self, delta: GraphDelta) -> DeltaReport:
+        """Mutate the served graph: fold ``delta`` into every cached
+        operand bundle instead of rebuilding it.
+
+        Per bundle only the structures whose content changed are placed
+        anew (untouched device tensors are kept), and only structures
+        whose shapes changed (a row overflowed its ELL width, a degree left
+        every bucket's range, a new tile found no free slot) bump their
+        epoch: a same-shape delta leaves every engine warm and
+        ``cache.compile_events`` flat, a reshaping one invalidates exactly
+        the keys of engines scanning a rebuilt structure. Batches planned
+        after this call see the new graph; batches in flight keep the
+        tensors they pinned at begin time."""
+        t0 = time.perf_counter()
+        new_csr = apply_delta_csr(self.csr, delta)
+        old_eff = effective_csr(self.csr, self.max_deg)
+        new_eff = effective_csr(new_csr, self.max_deg)
+        diff = diff_effective(old_eff, new_eff, delta)
+        self.operands_version += 1
+        n_changed = n_rebuilt = moves = 0
+        for bundle in self._graphs.values():
+            if bundle.host is None:
+                # the first delta against this bundle: one copy to the
+                # host, reused by every later fold
+                bundle.host = map_tensors(
+                    lambda t: t.detach().to("cpu", copy=True), bundle.ops
+                )
+            structs, rep = fold_operands(bundle.host, old_eff, new_eff, diff)
+            bundle.host = GraphOperands(**structs)
+            bundle.ops = self._place_structures(bundle, rep)
+            bundle.version = self.operands_version
+            for s, r in rep.reshaped.items():
+                if r:
+                    bundle.epochs[s] = bundle.epochs.get(s, 0) + 1
+            n_changed += rep.n_changed
+            n_rebuilt += rep.n_reshaped
+            moves += rep.binned_moves
+        self.csr = new_csr
+        # stale-state sweep: measured cost rates were taken on the old
+        # operands, and the learners are keyed to the old degree buckets
+        self._cost_rates.clear()
+        self.invalidate_learned_state()
+        invalidated = self.cache.invalidate(self._engine_stale)
+        self.stats.deltas += 1
+        synchronize(self.device)
+        return DeltaReport(
+            version=self.operands_version,
+            n_adds=delta.n_adds,
+            n_dels=delta.n_dels,
+            changed_edges=diff.n_changed_edges,
+            dirty_fwd_rows=int(len(diff.fwd_dirty)),
+            dirty_rev_rows=int(len(diff.rev_dirty)),
+            bundles=len(self._graphs),
+            structures_changed=n_changed,
+            structures_rebuilt=n_rebuilt,
+            binned_moves=moves,
+            engines_invalidated=invalidated,
+            ms=(time.perf_counter() - t0) * 1e3,
+        )
+
+    def invalidate_learned_state(self) -> None:
+        """Reset the online learners whose keys or samples embed the old
+        degree distribution: the per-bucket budget windows, the global-p90
+        fallback, the direction samples and the refitted threshold table
+        (a table the caller pinned stays). Part of ``apply_delta``'s
+        fence."""
+        if self.budget_model is not None:
+            self.budget_model.reset()
+        self._iter_p90s.clear()
+        self._dir_samples.clear()
+        self._batches_since_refit = 0
+        if not self._thresholds_pinned:
+            self.direction_thresholds = None
+
+    def _place_structures(self, bundle: OperandBundle, rep) -> GraphOperands:
+        """Place exactly the structures a fold changed, each as new
+        tensors copied from the host mirror (also on the CPU: the next
+        fold writes the mirror, and a batch in flight may still read the
+        old tensors); unchanged structures keep their tensors. A new
+        ``BinnedPullPack`` builds its own launch record."""
+        dev = self.device
+        old, host = bundle.ops, bundle.host
+        pick = {
+            name: (
+                map_tensors(lambda t: t.to(dev, copy=True),
+                            getattr(host, name))
+                if rep.changed[name] else getattr(old, name)
+            )
+            for name in STRUCTURES
+        }
+        return GraphOperands(**pick)
+
+    def _engine_stale(self, key: EngineKey) -> bool:
+        """True when ``key`` was keyed on shapes an applied delta has
+        since rebuilt."""
+        bundle = self._graphs.get(self._bundle_key(key.extend))
+        if bundle is None:
+            return False
+        return key.operands_epoch != self._spec_epoch(bundle, key.extend)
 
     def engine(
         self,
@@ -364,10 +587,13 @@ class QueryDispatcher:
         extend: ExtendSpec = ExtendSpec(),
         collect_stats: bool = False,
         morsel_shape=None,
+        epoch: int = 0,
     ):
+        """The cached engine of one key; ``epoch`` is the shape epoch of
+        the operands the caller resolved for it (``_spec_epoch``)."""
         cap = int(max_iters if max_iters is not None else self.max_iters)
         key = EngineKey(kind, policy, edge_compute, n_pad, cap, state_layout,
-                        extend, collect_stats)
+                        extend, collect_stats, int(epoch))
         dev = self.device
         if kind == "static":
             builder = lambda: build_engine(
@@ -577,9 +803,10 @@ class QueryDispatcher:
     # ------------------------------------------ split-phase hybrid internals
 
     def _begin_hybrid(self, pol, ec, g, n_pad, morsels, state_layout,
-                      extend=ExtendSpec(), n_real=0, buckets=()):
-        """Choose the budget and run phase 1; the phase-2 operands are
-        resolved here too."""
+                      extend=ExtendSpec(), n_real=0, buckets=(), epoch=0):
+        """Choose the budget and run phase 1. The phase-2 operands and
+        their epoch are resolved and pinned here too, so a delta applied
+        before ``_settle_hybrid`` cannot run phase 2 on another graph."""
         p1, p2 = hybrid_phases(
             pol.source_axes, pol.graph_axes, lanes=pol.lanes,
             or_impl=pol.or_impl,
@@ -590,15 +817,17 @@ class QueryDispatcher:
             "phase1", p1, ec, n_pad, max_iters=budget,
             state_layout=state_layout, extend=extend,
             collect_stats=collect, morsel_shape=morsels.shape[:1],
+            epoch=epoch,
         )
-        g2, n_pad2 = self._graph_for(p2, extend)
+        b2 = self._graph_for(p2, extend)
         t0 = time.perf_counter()
         out1 = eng1(g, morsels)
         return {
             "pol": pol, "p2": p2, "ec": ec, "g": g, "n_pad": n_pad,
             "state_layout": state_layout, "extend": extend,
             "n_real": n_real, "budget": budget, "collect": collect,
-            "out1": out1, "t0": t0, "g2": g2, "n_pad2": n_pad2,
+            "out1": out1, "t0": t0, "g2": b2.ops,
+            "n_pad2": b2.n_pad, "epoch2": self._spec_epoch(b2, extend),
         }
 
     def _settle_hybrid(self, inf) -> SettledBatch:
@@ -656,13 +885,14 @@ class QueryDispatcher:
             eng2 = self.engine(
                 "gang", p2, ec, n_pad, state_layout=state_layout,
                 extend=extend, collect_stats=collect, morsel_shape=(kp,),
+                epoch=inf["epoch2"],
             )
             self.stats.gangs += 1
             self.stats.gang_slots += kp
         else:
             eng2 = self.engine(
                 "resume", p2, ec, n_pad, extend=extend,
-                collect_stats=collect,
+                collect_stats=collect, epoch=inf["epoch2"],
             )
         out2 = eng2(g2, sub_state, torch.as_tensor(sub_it))
         res2, stats2 = out2 if collect else (out2, None)
@@ -699,19 +929,19 @@ class QueryDispatcher:
         return SettledBatch(outcome, materialize)
 
     def _run_hybrid(self, pol, ec, g, n_pad, morsels, state_layout,
-                    extend=ExtendSpec(), n_real=0, buckets=()):
+                    extend=ExtendSpec(), n_real=0, buckets=(), epoch=0):
         """The two-phase hybrid on one morsel batch, synchronously."""
         inf = self._begin_hybrid(
             pol, ec, g, n_pad, morsels, state_layout, extend=extend,
-            n_real=n_real, buckets=buckets,
+            n_real=n_real, buckets=buckets, epoch=epoch,
         )
         return self._settle_hybrid(inf).finalize()
 
     def _begin_static(self, pol, ec, g, n_pad, morsels, state_layout,
-                      extend=ExtendSpec()):
+                      extend=ExtendSpec(), epoch=0):
         eng = self.engine(
             "static", pol, ec, n_pad, state_layout=state_layout,
-            extend=extend, morsel_shape=morsels.shape[:1],
+            extend=extend, morsel_shape=morsels.shape[:1], epoch=epoch,
         )
         t0 = time.perf_counter()
         res = eng(g, morsels)
@@ -728,9 +958,10 @@ class QueryDispatcher:
         ))
 
     def _run_static(self, pol, ec, g, n_pad, morsels, state_layout,
-                    extend=ExtendSpec(), n_real=0, buckets=()):
+                    extend=ExtendSpec(), n_real=0, buckets=(), epoch=0):
         inf = self._begin_static(
             pol, ec, g, n_pad, morsels, state_layout, extend=extend,
+            epoch=epoch,
         )
         return self._settle_static(inf).finalize()
 
@@ -741,13 +972,7 @@ class QueryDispatcher:
         """Resolve policy, edge compute, extension spec, operands,
         morsels, chunking and the budget model's bucket keys for one
         source batch."""
-        kind = QUERY_KINDS.get(query_kind)
-        if kind is None:
-            raise NotImplementedError(
-                f"query_kind={query_kind!r} is not ported yet (ROADMAP "
-                "queue 1: the non-reach query kinds); the port serves "
-                f"{sorted(QUERY_KINDS)}"
-            )
+        check_query_kind(query_kind)
         sources = np.asarray(sources, np.int32).reshape(-1)
         name = policy or recommend_policy(
             len(sources),
@@ -770,7 +995,11 @@ class QueryDispatcher:
                 thresholds=self.direction_thresholds,
             )
         spec = as_spec(backend)
-        g, n_pad = self._graph_for(pol, spec)
+        bundle = self._graph_for(pol, spec)
+        g, n_pad = bundle.ops, bundle.n_pad
+        # the shape epoch of the tensors resolved here keys every engine
+        # this batch runs (phase 1, static, each chunk)
+        epoch = self._spec_epoch(bundle, spec)
         morsels = pad_sources(sources, 1, pol.lanes, n_pad)
         # paper Fig 13: dense graphs cap concurrent source morsels (k);
         # oversized batches run in fixed-size chunks
@@ -795,7 +1024,7 @@ class QueryDispatcher:
             else np.zeros(0, np.int64)
         )
         return sources, name, pol, ec, spec, g, n_pad, morsels, chunk, \
-            n_real, buckets
+            n_real, buckets, epoch
 
     def _hybrid_eligible(self, pol) -> bool:
         return self.adaptive and bool(pol.source_axes)
@@ -820,24 +1049,24 @@ class QueryDispatcher:
                 "queue 1: multi-device collectives and the sharded layout)"
             )
         (sources, name, pol, ec, spec, g, n_pad, morsels, chunk, n_real,
-         buckets) = self._plan_query(
+         buckets, epoch) = self._plan_query(
              sources, returns_paths, policy, backend, query_kind)
         if morsels.shape[0] > chunk:
             payload = {
                 "pol": pol, "ec": ec, "spec": spec, "g": g, "n_pad": n_pad,
                 "morsels": morsels, "chunk": chunk,
-                "state_layout": state_layout,
+                "state_layout": state_layout, "epoch": epoch,
             }
             return InflightBatch("chunked", name, n_real, buckets, payload)
         m = torch.as_tensor(morsels)
         if self._hybrid_eligible(pol):
             inf = self._begin_hybrid(
                 pol, ec, g, n_pad, m, state_layout, extend=spec,
-                n_real=n_real, buckets=buckets,
+                n_real=n_real, buckets=buckets, epoch=epoch,
             )
             return InflightBatch("hybrid", name, n_real, buckets, inf)
         inf = self._begin_static(pol, ec, g, n_pad, m, state_layout,
-                                 extend=spec)
+                                 extend=spec, epoch=epoch)
         return InflightBatch("static", name, n_real, buckets, inf)
 
     def settle_batch(self, inflight: InflightBatch) -> SettledBatch:
@@ -848,7 +1077,7 @@ class QueryDispatcher:
             outcome = self._run_chunked(
                 p["pol"], p["ec"], p["g"], p["n_pad"], p["morsels"],
                 p["chunk"], p["state_layout"], p["spec"],
-                inflight.n_real, inflight.buckets,
+                inflight.n_real, inflight.buckets, p["epoch"],
             )
             settled = SettledBatch(outcome)
         elif inflight.kind == "hybrid":
@@ -864,7 +1093,7 @@ class QueryDispatcher:
         return settled.finalize()
 
     def _run_chunked(self, pol, ec, g, n_pad, morsels, chunk, state_layout,
-                     spec, n_real, buckets) -> QueryOutcome:
+                     spec, n_real, buckets, epoch=0) -> QueryOutcome:
         """The in-flight-cap chunk loop: fixed-size chunks stitched into
         one outcome."""
         run_fn = (
@@ -883,7 +1112,7 @@ class QueryDispatcher:
             outcomes.append(run_fn(
                 pol, ec, g, n_pad, torch.as_tensor(part), state_layout,
                 extend=spec, n_real=real_in,
-                buckets=buckets[i : i + real_in],
+                buckets=buckets[i : i + real_in], epoch=epoch,
             ))
         result = IFEResult(
             state=type(outcomes[0].result.state)(*(

@@ -4,7 +4,9 @@
 ``AdaptiveScheduler`` is the dispatch layer (``QueryDispatcher``: engine
 cache, two-phase hybrid, learners) plus the synchronous
 ``submit``/``flush`` admission surface, which runs the admission planner
-with no quotas and no deadlines: the legacy pooled batching.
+with no quotas and no deadlines: the legacy pooled batching. For the
+always-on overlapped loop with tenant telemetry, drive a dispatcher
+through ``runtime.service.ServingLoop``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,14 @@ class AdaptiveScheduler(QueryDispatcher):
             avg_degree=self.csr.avg_degree,
         )
         self.admissions = {"ntkms": 0, "per_query": 0}
+
+    def apply_delta(self, delta):
+        """Graph mutation through the dispatcher, plus the façade's own
+        refresh: its admission queue keyed its pooled-policy decision on
+        the ``avg_degree`` of the graph it was built with."""
+        report = super().apply_delta(delta)
+        self._admission.avg_degree = float(self.csr.avg_degree)
+        return report
 
     def submit(self, sources, qid: str | None = None) -> str:
         """Queue one tenant's query for the next ``flush``."""

@@ -37,6 +37,13 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   the kernel exactly once; bfloat16 at D 36 (zero-padded to 40 for TMA's
   16-byte strides), D 48 and MiniCPM-2B's head width (36 heads of 64) runs the tensor-core instance (route ``wgmma``)
   and float32 the FMA one (route ``f32_fma``), by their launch counts.
+- Kernels on operands a graph delta folded (``QueryDispatcher.apply_delta``
+  on the card): ``binned_pull`` on a pack whose rows moved between
+  buckets (a rewritten ``perm_pad``, a rebuilt launch record), all five
+  ops, bitwise; ``msbfs_extend`` on ``ShardedBlocks`` where one tile's
+  slot was freed and claimed by another, bitwise; and a short
+  ``ServingLoop`` stream with one delta, per query equal to the same
+  stream on the CPU.
 """
 import dataclasses
 
@@ -440,3 +447,135 @@ def test_flash_attention_routes_by_dtype(shape, causal, cuda_device):
         rtol, atol = ATTN_TOL[dtype]
         torch.testing.assert_close(got.float(), exp.float(), rtol=rtol,
                                    atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Kernels on operands that a graph delta folded in place
+# ---------------------------------------------------------------------------
+
+
+def swap_graph():
+    """Targets 0-9 have in-degree 3, targets 10-19 in-degree 5, so the
+    reverse slabs hold two buckets with no free slot; the delta gives node
+    0 two in-edges and takes two from node 10, swapping their buckets."""
+    from repro_torch.graph.delta import GraphDelta
+
+    src = np.array([20 + (t * 5 + j) % 20 for t in range(20)
+                    for j in range(3 if t < 10 else 5)])
+    dst = np.array([t for t in range(20) for _ in range(3 if t < 10 else 5)])
+    csr = with_weights(csr_from_edges(40, src, dst), seed=5)
+    new_src = [s for s in range(20, 40) if s not in set(src[dst == 0])][:2]
+    delta = GraphDelta(add_src=new_src, add_dst=[0, 0],
+                       del_src=src[dst == 10][:2], del_dst=[10, 10],
+                       add_weights=[0.5, 1.5])
+    return csr, delta
+
+
+def tile_swap_graph():
+    """A lone edge in tile (0, 2) and none in tile (2, 2) of a 300-node
+    graph (3x3 tiles of 128): the delta empties the first, freeing its
+    slot, and the second claims it."""
+    from repro_torch.graph.delta import GraphDelta
+
+    base = erdos_renyi(120, 3.0, seed=2)
+    s, t = base.edge_list()
+    csr = csr_from_edges(300, np.concatenate([s, [5, 130]]),
+                         np.concatenate([t, [290, 10]]))
+    return csr, GraphDelta(add_src=[260], add_dst=[270], del_src=[5],
+                           del_dst=[290])
+
+
+def test_binned_pull_on_folded_pack_matches_plain(cuda_device):
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    csr, delta = swap_graph()
+    d = QueryDispatcher(cuda_device, csr, max_iters=16)
+    d.query(np.array([20, 25], np.int32), backend="pull_binned_fused")
+    (bundle,) = d._graphs.values()
+    old = bundle.ops.rev_binned_pack
+    launch_record(old)
+    rep = d.apply_delta(delta)
+    assert rep.same_shape and rep.binned_moves == 2
+    pack = bundle.ops.rev_binned_pack
+    assert pack is not old and "_record" not in pack.__dict__
+    assert not torch.equal(pack.perm_pad, old.perm_pad)
+    rec = launch_record(pack)
+    assert torch.equal(rec.perm_pad.cpu(), bundle.host.rev_binned_pack
+                       .perm_pad[0])
+    n_pad, rows = int(bundle.n_pad), pack.rows_local
+    rng = np.random.default_rng(11)
+    for op in OPS:
+        for lanes in ((1, 64, 130) if op in LANE_OPS else (1,)):
+            shape = (n_pad, lanes) if op in LANE_OPS else (n_pad,)
+            if op == "min_dist":
+                g = np.where(rng.random(n_pad) < 0.4,
+                             rng.uniform(0, 9, n_pad), np.inf)
+                g, v = g.astype(np.float32), None
+            else:
+                g = (rng.random(shape) < 0.3).astype(np.uint8)
+                v = (rng.random((rows,) + shape[1:]) < 0.3).astype(np.uint8)
+            gd = torch.from_numpy(g).to(cuda_device)
+            vd = None if v is None else torch.from_numpy(v).to(cuda_device)
+            before = fused_binned_pull.launches
+            got = binned_pull(pack, gd, vd, op=op)
+            torch.cuda.synchronize()
+            assert fused_binned_pull.launches == before + 1
+            exp = binned_pull(pack, gd, vd, op=op, use_ref=True)
+            assert torch.equal(got, exp), f"{op}/{lanes}"
+
+
+def test_msbfs_extend_on_folded_blocks_matches_plain(cuda_device):
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    csr, delta = tile_swap_graph()
+    d = QueryDispatcher(cuda_device, csr, max_iters=16)
+    d.query(np.arange(4, dtype=np.int32), backend="block_mxu")
+    (bundle,) = d._graphs.values()
+    rows0 = bundle.ops.blocks.block_rows[0].cpu().clone()
+    rep = d.apply_delta(delta)
+    assert rep.same_shape and rep.structures_changed > 0
+    sb = bundle.ops.blocks
+    rows = sb.block_rows[0].cpu()
+    # the freed slot was claimed in place: same slot count, and the slot
+    # of tile (0, 2) now holds tile (2, 2)
+    assert rows.shape == rows0.shape
+    assert int((rows != rows0).sum()) == 1 and int(rows.max()) == 2
+    b = sb.block_size
+    g = int(bundle.n_pad) // b
+    rng = np.random.default_rng(12)
+    for density in (0.02, 0.3):
+        f = (rng.random((g, b, 64)) < density).astype(np.uint8)
+        fd = torch.from_numpy(f).to(cuda_device)
+        tiles = (sb.blocks[0], sb.block_rows[0], sb.block_cols[0])
+        got = extend_blocks(*tiles, fd, g_out=g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, extend_blocks(*tiles, fd, g_out=g,
+                                              use_ref=True)), density
+
+
+@pytest.mark.parametrize("backend,per_query", [("dopt_fused", 4),
+                                               ("block_mxu", 40)])
+def test_serving_loop_with_delta_on_card_matches_cpu(backend, per_query,
+                                                     cuda_device):
+    """A short open-loop stream with one delta mid-way: every query's
+    levels on the card equal the same stream's on the CPU."""
+    from repro_torch.graph.delta import random_delta
+    from repro_torch.runtime.service import ServingLoop
+
+    csr = powerlaw(300, 5.0, seed=4)
+    rng = np.random.default_rng(5)
+    arrivals = [{"t_ms": float(i), "qid": f"q{i}", "tenant": f"t{i % 2}",
+                 "sources": rng.integers(0, 300, per_query).astype(np.int32)}
+                for i in range(8)]
+    arrivals.append({"t_ms": 3.5, "delta": random_delta(csr, 30, 30, seed=6)})
+    out = {}
+    for dev in ("cpu", cuda_device):
+        loop = ServingLoop(dev, csr, backend=backend, family="powerlaw",
+                           max_iters=64)
+        out[str(dev)] = loop.run_stream(arrivals)
+        assert loop.stats.deltas_applied == 1
+        assert loop.stats.completed == 8
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert sorted(cpu) == sorted(card)
+    for qid in cpu:
+        np.testing.assert_array_equal(card[qid], cpu[qid], err_msg=qid)

@@ -256,6 +256,29 @@ def test_generators_and_sources():
                 tgen.pick_sources(b, k, seed=seed), err_msg=name)
 
 
+def test_bfs_depth_probe_matches_jax():
+    """``pick_sources``' depth probe, which stops its last level at the
+    first unseen neighbour, answers as JAX's full expansion does: sparse
+    graphs where probes fail, and a dense block whose last level is read
+    in several slices before (or without) finding an unseen node."""
+    block = np.arange(1, 301)
+    src = np.concatenate([np.zeros(300, np.int64), np.repeat(block, 300)])
+    dst = np.concatenate([block, np.tile(block, 300)])
+    graphs = [
+        jgen.erdos_renyi(200, 1.3, seed=4),
+        jcsr.csr_from_edges(302, src, dst),  # the block never leaves itself
+        jcsr.csr_from_edges(302, np.append(src, 300), np.append(dst, 301)),
+    ]
+    for i, g in enumerate(graphs):
+        pg = to_port(g)
+        for depth in (1, 2, 3, 5):
+            for v in range(0, g.n_nodes, 3):
+                assert jgen._bfs_depth_at_least(g, v, depth) == (
+                    tgen._bfs_depth_at_least(pg, v, depth)), (i, depth, v)
+    assert not tgen._bfs_depth_at_least(to_port(graphs[1]), 0, 2)
+    assert tgen._bfs_depth_at_least(to_port(graphs[2]), 0, 2)
+
+
 def test_frontier_lane_layout():
     rng = np.random.default_rng(9)
     src = np.array([3, 0, 77, 5, 200, -1], np.int32)

@@ -5,7 +5,12 @@
 - Importing the serving entry point in a fresh interpreter leaves ``jax``
   out of ``sys.modules``.
 - Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-  without a GPU they raise instead of carrying on on the CPU.
+  without a GPU they raise instead of carrying on on the CPU: the
+  dispatcher, the scheduler, the open-loop ``ServingLoop`` and both
+  drivers of ``serve.main`` (the open loop with ``--mutate-stream``
+  included).
+- Graph mutation stays on the dispatcher's device: ``apply_delta`` places
+  the folded structures as new CPU tensors, never the host mirror's.
 - Kernel wrappers (all four: ``binned_pull``, ``msbfs_extend``, ``spmm``,
   ``mha``) take their plain PyTorch version for CPU tensors without
   touching the launch counters, and the launchers refuse CPU tensors.
@@ -38,7 +43,9 @@ from repro_torch.kernels.msbfs_extend.ops import (
 )
 from repro_torch.core import build_operands
 from repro_torch.launch import serve
+from repro_torch.runtime.dispatch import QueryDispatcher
 from repro_torch.runtime.scheduler import AdaptiveScheduler
+from repro_torch.runtime.service import ServingLoop
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -65,9 +72,17 @@ def absolute_imports(path: Path):
             yield str(node.args[0].value)
 
 
+MUTATION_MODULES = ("graph/delta.py", "runtime/service.py",
+                    "runtime/dispatch.py", "runtime/scheduler.py",
+                    "launch/serve.py")
+
+
 def test_port_never_imports_jax_or_the_jax_package():
     files = port_files()
     assert len(files) > 20
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in files if "repro_torch" in p.parts}
+    assert set(MUTATION_MODULES) <= scanned
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files for mod in absolute_imports(p)
@@ -79,7 +94,8 @@ def test_port_never_imports_jax_or_the_jax_package():
 def test_serve_import_leaves_jax_unloaded():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch.launch.serve, repro_torch.core, "
-            "repro_torch.runtime.scheduler; "
+            "repro_torch.runtime.scheduler, repro_torch.runtime.service, "
+            "repro_torch.graph.delta; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "raise SystemExit(1 if bad else 0)")
@@ -111,6 +127,53 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
     sched = AdaptiveScheduler("cpu", csr, phase1_iters=2)
     out = sched.query(np.array([0, 5], np.int32))
     assert out.result.state.levels.device.type == "cpu"
+
+
+def test_open_loop_and_mutation_entry_points_raise_without_cuda(no_cuda):
+    csr = erdos_renyi(64, 3.0, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingLoop(None, csr)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingLoop("cuda", csr)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QueryDispatcher(None, csr)
+    for argv in ([], ["--mutate-stream", "1"], ["--arrivals", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--scale", "0.05", *argv])
+    loop = ServingLoop("cpu", csr, max_iters=8)
+    loop.submit(np.array([0, 5], np.int32), qid="a")
+    assert loop.drain()["a"].shape == (2, 64)
+
+
+def test_apply_delta_places_copies_on_the_device():
+    from repro_torch.graph.delta import random_delta
+
+    csr = erdos_renyi(200, 4.0, seed=2)
+    d = QueryDispatcher("cpu", csr, max_iters=16)
+    d.query(np.array([0, 7], np.int32), backend="dopt_fused")
+    (bundle,) = d._graphs.values()
+    rep = d.apply_delta(random_delta(csr, 10, 10, seed=1))
+    assert rep.structures_changed > 0
+    host, ops = bundle.host, bundle.ops
+    for name in ("fwd", "rev_binned", "rev_binned_pack"):
+        placed, mirror = getattr(ops, name), getattr(host, name)
+        for a, b in zip(tensor_leaves(placed), tensor_leaves(mirror)):
+            assert a.device.type == "cpu" and torch.equal(a, b)
+            if a.numel():  # zero-width slabs own no storage
+                assert a.data_ptr() != b.data_ptr(), name
+
+
+def tensor_leaves(obj):
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, tuple):
+            out.extend(v)
+    return out
 
 
 def test_wrappers_take_plain_path_for_cpu_tensors():

@@ -3,8 +3,9 @@
 ``repro_torch.launch.serve.main`` with ``--closed-loop --device cpu`` on
 the LDBC proxy at scale 0.1 must exit 0, and every served batch's levels,
 iteration counts and policy must equal what JAX's ``QueryService`` returns
-for the same sources; the flags of unported modules raise
-``NotImplementedError``.
+for the same sources; a non-reach ``--query-kind`` raises
+``NotImplementedError`` in both drivers (the open loop and
+``--mutate-stream`` are held against JAX in ``test_torch_service.py``).
 """
 import numpy as np
 import pytest
@@ -43,9 +44,8 @@ def test_closed_loop_serve_matches_jax(per_batch, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    [],  # the open loop
     ["--closed-loop", "--query-kind", "ppr"],
-    ["--closed-loop", "--mutate-stream", "2"],
+    ["--query-kind", "ppr"],  # the open loop refuses it too
 ])
 def test_unported_flags_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

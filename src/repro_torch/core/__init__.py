@@ -1,11 +1,13 @@
 """Paper core on one device: IFE engine, extension backends, policies."""
 from .edge_compute import EDGE_COMPUTES, NO_PARENT, QUERY_KINDS, QueryKind
+from .edge_compute import chunk_fold
 from .ife import (
     IFEResult,
     histogram_lengths,
     reconstruct_paths,
     run_ife,
     run_ife_batch,
+    run_ife_scan,
     validate_parents,
 )
 from .policies import (

@@ -34,6 +34,12 @@ def min_allreduce(x: torch.Tensor, axis_names=()):
     return x
 
 
+def sum_allreduce(x: torch.Tensor, axis_names=()):
+    """Sum across graph axes (identity on one device)."""
+    _single(axis_names)
+    return x
+
+
 def merge_contribution(merge: str, contribution, axis_names=(),
                        or_impl: str = "allgather"):
     """Apply an edge compute's MERGE across graph axes."""
@@ -41,6 +47,8 @@ def merge_contribution(merge: str, contribution, axis_names=(),
         return or_allreduce(contribution, axis_names, or_impl)
     if merge == "min":
         return min_allreduce(contribution, axis_names)
+    if merge == "sum":
+        return sum_allreduce(contribution, axis_names)
     if merge == "or_min":
         reached, cand = contribution
         return (or_allreduce(reached, axis_names, or_impl),

@@ -11,9 +11,11 @@ engine is a host loop over morsels, each with its own convergence loop
 - ``build_resume_engine``: phase 2, one survivor at a time from its saved
   state and iteration counter;
 - ``build_gang_resume_engine``: phase 2 for all survivors under one loop,
-  their frontiers lane-packed so one scan serves the gang, with
-  per-survivor masks so each survivor's state and counter advance only
-  while it is live. Counts equal the serial resume's exactly.
+  their frontiers lane-packed so one scan serves the gang (a compute
+  with no lane form extends member by member instead, where JAX
+  ``vmap``s it), with per-survivor masks so each survivor's state and
+  counter advance only while it is live. Counts equal the serial
+  resume's exactly.
 
 Each loop condition is read on the host: one sync per iteration.
 """
@@ -28,7 +30,7 @@ import torch
 from ..graph.csr import CSRGraph
 from ..kernels.common import resolve_device, to_device
 from .collectives import merge_contribution
-from .edge_compute import EDGE_COMPUTES
+from .edge_compute import EDGE_COMPUTES, _member
 from .extend import (
     STATS_WIDTH,
     ExtendCtx,
@@ -103,10 +105,6 @@ def _check_layout(state_layout: str) -> None:
 
 def _stack_states(states: list):
     return type(states[0])(*(torch.stack(x) for x in zip(*states)))
-
-
-def _member(state, i: int):
-    return type(state)(*(x[i] for x in state))
 
 
 def _run_morsel(ec, be, ops, ctx, state, it: int, cap: int, stats, bw):
@@ -225,6 +223,17 @@ def build_resume_engine(
     return QueryEngine(dev, policy, edge_compute, n, cap, fn, spec)
 
 
+def _map_extend(ec, be, ops, state, ctx, live: np.ndarray):
+    """Gang extension of a compute with no lane form: ``extend`` per live
+    member, results stacked; the engine masks the other members out, so
+    they get zeros, not a scan."""
+    outs = {int(i): ec.extend(be, ops, _member(state, int(i)), ctx)
+            for i in np.nonzero(live)[0]}
+    like = next(iter(outs.values()))
+    return torch.stack([outs[i] if i in outs else torch.zeros_like(like)
+                        for i in range(len(live))])
+
+
 def build_gang_resume_engine(
     device,
     policy: MorselPolicy,
@@ -237,8 +246,9 @@ def build_gang_resume_engine(
 ) -> QueryEngine:
     """Gang-scheduled phase-2 engine: ``fn(ops, state0, it0)`` resumes
     the whole survivor batch (leaves ``[S, ...]``, all-zero pad members
-    inert) under one loop. Each iteration runs one lane-packed extension
-    (``ec.gang_extend``); a member is live while its own frontier is
+    inert) under one loop. Each iteration runs one gang extension
+    (``ec.gang_extend``, lane-packed; a compute with no lane form extends
+    its live members one by one, as JAX ``vmap``s it); a member is live while its own frontier is
     non-empty and its own counter is under the cap, and only live members
     update state and counter. Bit-identical to the serial resume,
     counters included."""
@@ -277,8 +287,9 @@ def build_gang_resume_engine(
                     stats[s, min(int(it[s]), cap - 1)] = frontier_stats(
                         ops, _member(state, int(s)), ctx, bin_widths=bw
                     )
-            merged = merge_contribution(ec.MERGE,
-                                        ec.gang_extend(be, ops, state, ctx))
+            contrib = (ec.gang_extend(be, ops, state, ctx) if ec.LANES_OK
+                       else _map_extend(ec, be, ops, state, ctx, live))
+            merged = merge_contribution(ec.MERGE, contrib)
             it_b = torch.as_tensor(it, dtype=torch.int32, device=dev)
             applied = ec.apply(state, merged, it_b.view((-1,) + tail))
             mask = torch.as_tensor(live, device=dev)

@@ -9,8 +9,14 @@ Backends share one contract and produce bit-identical final states:
 - ``pull_binned_fused``: ``pull_binned`` through the fused
   ``binned_pull`` CUDA kernel (plain PyTorch on CPU tensors);
 - ``block_mxu``: the OR-reach over stored 0/1 tiles through the
-  ``msbfs_extend`` CUDA kernel (plain PyTorch on CPU tensors); parents
-  stay on the push scatter.
+  ``msbfs_extend`` CUDA kernel (plain PyTorch on CPU tensors); parents,
+  the weighted relax and additive pushes stay on the push scatter.
+
+Besides the reach family's primitives every backend serves ``min_dist``
+(the Bellman-Ford relax; on ``pull_binned_fused`` the ``binned_pull``
+kernel's ``min_dist`` op), ``push_sum`` (the additive push of PPR and
+pattern counts, one physical form: the forward scatter) and
+``min_topk`` (the k-best relax, one physical form: the reverse gather).
 
 ``direction="auto"`` is Beamer's alpha/beta switch between push and a
 pull flavor, decided per iteration on the host from the frontier's and
@@ -46,11 +52,15 @@ from ..kernels.binned_pull.ops import (
 )
 from ..kernels.msbfs_extend.ops import extend_blocks
 from .edge_compute import (
+    INF,
     NO_PARENT,
     _deg_chunk,
     chunk_fold,
+    ell_min_dist,
     ell_min_parent,
     ell_min_parent_lanes,
+    ell_min_topk,
+    ell_push_sum,
     ell_reach_dense,
     ell_reach_lanes,
 )
@@ -286,12 +296,34 @@ class ExtendCtx:
 # ---------------------------------------------------------------------------
 
 
+def _min_topk_pull(ops, dists, src_mask, ctx):
+    """The k-best relax every backend shares: a full-Jacobi gather over
+    the reverse ELL (a scatter cannot merge k sorted slots)."""
+    if ops.rev is None:
+        raise ValueError(
+            "top-k relax scans the reverse ELL; build operands with "
+            "extend='ell_pull' (needs_rev)"
+        )
+    seed = torch.where(src_mask, 0.0, INF).to(torch.float32)
+    return ell_min_topk(ops.rev, dists, seed)
+
+
 class PushBackend:
     name = "ell_push"
 
     @staticmethod
     def reach_dense(ops, frontier, visited, ctx):
         return ell_reach_dense(ops.fwd, frontier, ctx.n_out)
+
+    @staticmethod
+    def push_sum(ops, values, ctx, normalize=False):
+        return ell_push_sum(ops.fwd, values, ctx.n_out, normalize)
+
+    min_topk = staticmethod(_min_topk_pull)
+
+    @staticmethod
+    def min_dist(ops, dist, frontier, ctx):
+        return ell_min_dist(ops.fwd, dist, frontier, ctx.n_out)
 
     @staticmethod
     def reach_lanes(ops, lanes, visited, ctx):
@@ -391,6 +423,23 @@ def _gather_min_parent_lanes(s, gl_ext):
     return _slab_fold(s, gl_ext, red, acc0, 5 * n_lanes)
 
 
+def _gather_min_dist(s, w, gdu_ext):
+    """[rows, D] ids (+ [rows, D] f32 weights, None = unit) x [n_out+1]
+    f32 -> [rows] min of gdu[u] + w over each row's slots."""
+    rows, D = s.shape
+    n_out = gdu_ext.shape[0] - 1
+    acc0 = torch.full((rows,), INF, dtype=torch.float32, device=s.device)
+    chunk = _deg_chunk(rows, 16, budget=1 << 28)
+
+    def step(start, width, acc):
+        ids = s[:, start : start + width]
+        got = gdu_ext[ids.clamp(0, n_out).long()]
+        got = got + (1.0 if w is None else w[:, start : start + width])
+        return torch.minimum(acc, got.amin(dim=1))
+
+    return chunk_fold(D, min(chunk, max(D, 1)), step, acc0)
+
+
 def _suppress(x, visited, value):
     if visited is None:
         return x
@@ -425,6 +474,11 @@ class PullBackend:
         cand = _gather_min_parent_lanes(ops.rev.indices, _extended(gl, 0))
         return _suppress(cand, visited, NO_PARENT)
 
+    @staticmethod
+    def _min_dist(ops, gdu, ctx):
+        return _gather_min_dist(ops.rev.indices, ops.rev.weights,
+                                _extended(gdu, INF))
+
 
 class BinnedPullBackend:
     """The ``ell_pull`` contract over ``BinnedRevEll`` slabs: each degree
@@ -435,13 +489,15 @@ class BinnedPullBackend:
 
     @staticmethod
     def _binned_map(bn: BinnedRevEll, per_slab, neutral):
+        """``per_slab(b, slab)`` over every nonempty slab, ``neutral(rows)``
+        for the others, un-permuted to local row order."""
         parts = []
-        for slab in bn.slabs:
+        for b, slab in enumerate(bn.slabs):
             s = slab[0]
             if s.shape[0] == 0 or s.shape[1] == 0:
                 parts.append(neutral(s.shape[0]))
             else:
-                parts.append(per_slab(s))
+                parts.append(per_slab(b, s))
         cat = torch.cat(parts) if len(parts) > 1 else parts[0]
         return cat[bn.inv[0].long()]
 
@@ -450,7 +506,7 @@ class BinnedPullBackend:
         ext = _extended(gf, False)
         dev = gf.device
         reached = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda s: _gather_any(s, ext),
+            ops.rev_binned, lambda b, s: _gather_any(s, ext),
             lambda r: torch.zeros(r, dtype=torch.bool, device=dev),
         )
         return _suppress(reached, visited, False)
@@ -460,7 +516,7 @@ class BinnedPullBackend:
         ext = _extended(gl, 0)
         n_lanes = gl.shape[-1]
         reached = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda s: _gather_lanes(s, ext),
+            ops.rev_binned, lambda b, s: _gather_lanes(s, ext),
             lambda r: torch.zeros((r, n_lanes), dtype=gl.dtype,
                                   device=gl.device),
         )
@@ -470,7 +526,7 @@ class BinnedPullBackend:
     def _min_parent(ops, gf, visited, ctx):
         ext = _extended(gf, False)
         cand = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda s: _gather_min_parent(s, ext),
+            ops.rev_binned, lambda b, s: _gather_min_parent(s, ext),
             lambda r: torch.full((r,), NO_PARENT, dtype=torch.int32,
                                  device=gf.device),
         )
@@ -481,11 +537,25 @@ class BinnedPullBackend:
         ext = _extended(gl, 0)
         n_lanes = gl.shape[-1]
         cand = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda s: _gather_min_parent_lanes(s, ext),
+            ops.rev_binned, lambda b, s: _gather_min_parent_lanes(s, ext),
             lambda r: torch.full((r, n_lanes), NO_PARENT, dtype=torch.int32,
                                  device=gl.device),
         )
         return _suppress(cand, visited, NO_PARENT)
+
+    @staticmethod
+    def _min_dist(ops, gdu, ctx):
+        bn = ops.rev_binned
+        ext = _extended(gdu, INF)
+        return BinnedPullBackend._binned_map(
+            bn,
+            lambda b, s: _gather_min_dist(
+                s, None if bn.slab_weights is None else bn.slab_weights[b][0],
+                ext,
+            ),
+            lambda r: torch.full((r,), INF, dtype=torch.float32,
+                                 device=gdu.device),
+        )
 
 
 class FusedBinnedPullBackend:
@@ -514,10 +584,20 @@ class FusedBinnedPullBackend:
         return _fused_pull(ops.rev_binned_pack, gl, visited,
                            op="min_parent_lanes")
 
+    @staticmethod
+    def _min_dist(ops, gdu, ctx):
+        return _fused_pull(ops.rev_binned_pack, gdu, None, op="min_dist")
+
 
 def _pull_contract(cls):
     """Public backend methods of a pull flavor from its cores (one device:
-    the frontier is already global, so there is no union to take first)."""
+    the frontier is already global, so there is no union to take first).
+    The additive push and the k-best relax have one physical form each,
+    the forward scatter and the reverse gather."""
+    cls.min_dist = staticmethod(lambda ops, dist, frontier, ctx: cls._min_dist(
+        ops, torch.where(frontier != 0, dist, INF), ctx))
+    cls.push_sum = staticmethod(PushBackend.push_sum)
+    cls.min_topk = staticmethod(_min_topk_pull)
     cls.reach_dense = staticmethod(cls._reach_dense)
     cls.reach_lanes = staticmethod(cls._reach_lanes)
     cls.min_parent = staticmethod(cls._min_parent)
@@ -540,8 +620,9 @@ for _cls in (PullBackend, BinnedPullBackend, FusedBinnedPullBackend):
 
 
 class BlockBackend:
-    """OR-reach over the stored 0/1 tiles; candidate parents have no 0/1
-    product form and stay on the push scatter (same merged values)."""
+    """OR-reach over the stored 0/1 tiles; candidate parents and the
+    weighted relax have no 0/1 product form and stay on the push scatter
+    (same merged values)."""
 
     name = "block_mxu"
 
@@ -562,8 +643,22 @@ class BlockBackend:
         lanes = frontier[:, None].to(torch.uint8)
         return BlockBackend.reach_lanes(ops, lanes, visited, ctx)[:, 0] != 0
 
+    @staticmethod
+    def push_sum(ops, values, ctx, normalize=False):
+        """Additive count/mass propagation ``out[v] = sum_u values[u] *
+        A[u, v]``. JAX runs it as a block matmul over the tiles; CUDA has
+        no int32 matmul, and integer sums are exact in any order, so
+        integer values (pattern counts) take the exact scatter of
+        ``ell_push`` over the same edge set, bitwise equal to JAX's
+        product. Float values take ``ell_push``'s fixed-order sum, so a
+        PPR pinned to this backend is deterministic (JAX's float product
+        may differ from it in the last ulp)."""
+        return PushBackend.push_sum(ops, values, ctx, normalize)
+
     min_parent = staticmethod(PushBackend.min_parent)
     min_parent_lanes = staticmethod(PushBackend.min_parent_lanes)
+    min_dist = staticmethod(PushBackend.min_dist)
+    min_topk = staticmethod(_min_topk_pull)
 
     @staticmethod
     def reach_parent_dense(ops, frontier, visited, ctx):
@@ -686,6 +781,18 @@ class AutoBackend:
         if self.use_pull(ops, lanes, visited, ctx):
             return self.pull_be._min_parent_lanes(ops, lanes, visited, ctx)
         return PushBackend.min_parent_lanes(ops, lanes, visited, ctx)
+
+    def min_dist(self, ops, dist, frontier, ctx):
+        # the relax keeps no visited set: the predicate's unexplored mass
+        # is the total minus the frontier's
+        if self.use_pull(ops, frontier, None, ctx):
+            return self.pull_be._min_dist(
+                ops, torch.where(frontier != 0, dist, INF), ctx)
+        return PushBackend.min_dist(ops, dist, frontier, ctx)
+
+    # the additive push and the k-best relax have one physical form each
+    push_sum = staticmethod(PushBackend.push_sum)
+    min_topk = staticmethod(_min_topk_pull)
 
     def reach_parent_dense(self, ops, frontier, visited, ctx):
         if self.use_pull(ops, frontier, visited, ctx):

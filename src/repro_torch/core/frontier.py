@@ -62,3 +62,13 @@ def unpack_lanes(packed: torch.Tensor, lanes: int = LANES) -> torch.Tensor:
     shifts = torch.arange(PACK, dtype=torch.int64, device=packed.device)
     bits = (packed.to(torch.int64).unsqueeze(-1) >> shifts) & 1
     return bits.view(n, lanes).to(torch.uint8)
+
+
+def frontier_size(frontier: torch.Tensor) -> torch.Tensor:
+    """Number of active (node, lane) entries (dense or lanes layout), as
+    an int32 scalar tensor."""
+    return (frontier != 0).sum(dtype=torch.int32)
+
+
+def any_active(frontier: torch.Tensor) -> torch.Tensor:
+    return (frontier != 0).any()

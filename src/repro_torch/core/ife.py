@@ -69,6 +69,19 @@ def run_ife_batch(
                      iterations=torch.stack([r.iterations for r in runs]))
 
 
+def run_ife_scan(
+    graph,
+    source_batch: torch.Tensor,
+    edge_compute: str = "sp_lengths",
+    max_iters: int | None = None,
+    extend="ell_push",
+) -> IFEResult:
+    """One morsel at a time (JAX's ``lax.map`` form of ``run_ife_batch``,
+    the true 1T1S semantics). The port's ``run_ife_batch`` already runs
+    its morsels one after another, so the two give the same states."""
+    return run_ife_batch(graph, source_batch, edge_compute, max_iters, extend)
+
+
 # ---------------------------------------------------------------------------
 # OUTPUT phase (paper §4.1): consume IFE results.
 # ---------------------------------------------------------------------------

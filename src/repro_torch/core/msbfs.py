@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import BlockAdjacency
+from ..kernels.msbfs_extend.ops import extend_blocks
 
 
 def gang_pack_lanes(x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +53,32 @@ def active_block_count(adj: BlockAdjacency,
                        lanes: torch.Tensor) -> torch.Tensor:
     """Tiles one extension consumes under the activity skip."""
     return frontier_block_activity(adj, lanes).sum(dtype=torch.int32)
+
+
+def block_extend_lanes(adj: BlockAdjacency,
+                       lanes: torch.Tensor) -> torch.Tensor:
+    """Frontier extension over the block-sparse adjacency: [n, L] uint8
+    (n divisible by the tile size) -> reached [n, L] uint8, through the
+    ``msbfs_extend`` kernel (its plain version for a CPU tensor)."""
+    n, n_lanes = lanes.shape
+    bsz = adj.block_size
+    g = n // bsz
+    out = extend_blocks(adj.blocks, adj.block_rows, adj.block_cols,
+                        lanes.reshape(g, bsz, n_lanes), g_out=g)
+    return out.reshape(n, n_lanes)
+
+
+def block_extend_dense(adj: BlockAdjacency,
+                       frontier: torch.Tensor) -> torch.Tensor:
+    """Single-frontier variant: [n] bool -> [n] bool (lane width 1)."""
+    reached = block_extend_lanes(adj, frontier[:, None].to(torch.uint8))
+    return reached[:, 0] != 0
+
+
+def scans_saved_factor(adj: BlockAdjacency, lanes: int = 64) -> float:
+    """Analytic MS-BFS scan economy: independent BFS reads every tile once
+    per lane, lane packing once per ``lanes``."""
+    return float(lanes)
 
 
 class LanePacker:

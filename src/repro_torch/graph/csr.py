@@ -75,6 +75,18 @@ class CSRGraph:
         )
         return src, self.indices.astype(np.int32)
 
+    def edge_keys(self) -> np.ndarray:
+        """Sorted ``src * n_nodes + dst`` int64 keys, one per edge (strictly
+        increasing for a deduped CSR). Raises past the int32 node-id range
+        the operand layouts support."""
+        if self.n_nodes >= 2**31:
+            raise ValueError(
+                f"n_nodes={self.n_nodes} exceeds the int32 node-id range "
+                "(< 2**31) that edge keys and operand layouts support"
+            )
+        src = np.repeat(np.arange(self.n_nodes, dtype=np.int64), self.degrees)
+        return src * self.n_nodes + self.indices.astype(np.int64)
+
 
 def csr_from_edges(
     n_nodes: int,
@@ -130,6 +142,13 @@ class EllGraph:
     @property
     def max_deg(self) -> int:
         return int(self.indices.shape[1])
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """[n_nodes, max_deg] bool: slot j of row v holds an edge."""
+        slots = torch.arange(self.max_deg, dtype=torch.int32,
+                             device=self.indices.device)
+        return slots[None, :] < self.degrees[:, None]
 
 
 def _ell_slot_positions(
@@ -368,6 +387,12 @@ class BlockAdjacency:
     @property
     def n_row_blocks(self) -> int:
         return int(self.row_ptr.shape[0]) - 1
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of the dense block grid that is stored."""
+        g = self.n_row_blocks
+        return self.n_blocks / float(g * g)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,7 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.binned_pull.ops import build_pack, drop_record
+from ..kernels.binned_pull.ops import build_pack
+from ..kernels.common import drop_derived
 from .csr import (
     CSRGraph,
     EllGraph,
@@ -321,6 +322,7 @@ def _fold_ell(ell: EllGraph, eff: CSRGraph, dirty: np.ndarray, n_pad: int):
     _np(ell.degrees)[dirty] = counts
     if ell.weights is not None:
         _np(ell.weights)[dirty] = w
+    drop_derived(ell)
     return ell
 
 
@@ -482,7 +484,7 @@ def _fold_pack(pack, bn, changed_cells, perm_changed: bool) -> None:
         _np(pack.inv_pad)[:] = pp[_np(bn.inv)].astype(np.int32)
         perm_pad[:] = rows_local
         perm_pad[:, pp] = _np(bn.perm)
-    drop_record(pack)
+    drop_derived(pack)
 
 
 def _fold_blocks(sb, new_eff: CSRGraph, added: np.ndarray,

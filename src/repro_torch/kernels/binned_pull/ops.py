@@ -21,6 +21,7 @@ from .binned_pull import (
     make_record,
     tile_rows,
 )
+from ..common import derived
 from .ref import fused_binned_pull_ref
 
 
@@ -64,6 +65,24 @@ def pack_plan(pack: BinnedPullPack) -> TilePlan:
         rows_pad=rows_pad,
         zero_rows=int(pack.perm_pad.shape[-1]) - sum(rows_pad),
     )
+
+
+def pack_tile_map(pack: BinnedPullPack):
+    """Host-side scanned-slot accounting of shard 0 in JAX's tile layout
+    (``tile_rows`` rows of one slab to a tile): ``(tile_of_row,
+    tile_slots)``, the tile id of every local row (-1 for rows of
+    in-degree 0, which no tile scans) and the int32 adjacency slots each
+    tile pays."""
+    plan = pack_plan(pack)
+    inv = pack.inv_pad[0].cpu().numpy().astype(np.int64)
+    tile_of_pos = np.full(plan.rbp, -1, np.int64)
+    slots, t = [], 0
+    for w, a0, rows in zip(plan.widths, plan.astarts, plan.rows_pad):
+        tr = tile_rows(w)
+        tile_of_pos[a0 : a0 + rows] = t + np.arange(rows) // tr
+        slots.extend([tr * w] * (rows // tr))
+        t += rows // tr
+    return tile_of_pos[inv], np.asarray(slots, np.int64)
 
 
 def build_pack(bn, n_pad: int) -> BinnedPullPack:
@@ -111,30 +130,17 @@ def build_pack(bn, n_pad: int) -> BinnedPullPack:
     )
 
 
-def drop_record(pack: BinnedPullPack) -> None:
-    """Forget the pack's launch record; the next call rebuilds it. A fold
-    that writes a graph delta into the pack's tensors in place
-    (``graph.delta``) calls this: the record's work list was built from
-    the old ``perm_pad``."""
-    pack.__dict__.pop("_record", None)
-
-
 def launch_record(pack: BinnedPullPack) -> LaunchRecord:
     """The pack's ``LaunchRecord``, built on first use and kept on the
-    pack (outside its dataclass fields, so ``map_tensors``/``to_device``
-    make a new pack that builds its own). An in-place fold of graph deltas
-    into the pack's tensors drops it (``drop_record``) so that the next
-    call rebuilds it."""
-    rec = pack.__dict__.get("_record")
-    if rec is None:
-        rec = make_record(
-            pack_plan(pack), [s[0] for s in pack.slabs],
-            None if pack.slab_weights is None
-            else [w[0] for w in pack.slab_weights],
-            pack.perm_pad[0], pack.inv_pad[0],
-        )
-        pack.__dict__["_record"] = rec
-    return rec
+    pack (``kernels.common.derived``). An in-place fold of graph deltas
+    into the pack's tensors drops it (``drop_derived``): the record's work
+    list was built from the old ``perm_pad``."""
+    return derived(pack, "record", lambda: make_record(
+        pack_plan(pack), [s[0] for s in pack.slabs],
+        None if pack.slab_weights is None
+        else [w[0] for w in pack.slab_weights],
+        pack.perm_pad[0], pack.inv_pad[0],
+    ))
 
 
 def binned_pull(

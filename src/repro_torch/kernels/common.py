@@ -53,6 +53,24 @@ def to_device(obj, device):
     return map_tensors(lambda t: t.to(dev), obj)
 
 
+def derived(obj, key: str, build):
+    """What ``build()`` derives from ``obj``'s tensors, built on first use
+    and kept on ``obj`` (outside its dataclass fields, so a copy made by
+    ``map_tensors``/``to_device`` builds its own). Code that writes
+    ``obj``'s tensors in place calls ``drop_derived``."""
+    key = "_derived_" + key
+    val = obj.__dict__.get(key)
+    if val is None:
+        val = obj.__dict__[key] = build()
+    return val
+
+
+def drop_derived(obj) -> None:
+    """Forget everything ``derived`` kept on ``obj``."""
+    for key in [k for k in obj.__dict__ if k.startswith("_derived_")]:
+        del obj.__dict__[key]
+
+
 def synchronize(device) -> None:
     """Wait for queued work on ``device`` (no-op on the CPU)."""
     dev = torch.device(device)

@@ -20,14 +20,19 @@ Two drivers share that core:
   a time through ``AdaptiveScheduler.query``.
 
 Both report warm latency percentiles: batches that built a new engine or
-ran a new morsel count are cold and reported apart. The non-reach
-``--query-kind`` values are not ported yet and raise
-``NotImplementedError``.
+ran a new morsel count are cold and reported apart. ``--query-kind``
+picks the scenario family every query asks for: ``reach`` (BFS levels),
+``topk_paths`` (weighted k-shortest walk lengths; an unweighted dataset
+gets seeded weights), ``ppr`` (personalized PageRank mass) or
+``pattern_counts`` (2/3-hop walk counts); the non-reach kinds are never
+lane-packed.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset ldbc \\
         --scale 10 --rate 20 --arrivals 60 --mutate-stream 2
     PYTHONPATH=src python -m repro_torch.launch.serve --closed-loop \\
         --dataset ldbc --scale 10 --sources-per-batch 8 --batches 20
+    PYTHONPATH=src python -m repro_torch.launch.serve --query-kind ppr \\
+        --dataset ldbc --scale 10 --arrivals 20
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -265,13 +270,16 @@ def run_closed_loop(args, csr, device, family,
         res, pol = svc.query(sources, returns_paths=args.paths,
                              policy=args.policy,
                              query_kind=args.query_kind)
-        if args.paths and not pol.startswith("ntkms"):
-            dests = rng.integers(0, csr.n_nodes, 4).astype(np.int32)
-            reconstruct_paths(
-                res.state.parents[0, : csr.n_nodes], dests, max_len=32
-            )
-        else:
-            histogram_lengths(res.state.levels)
+        # a non-reach kind's result is its own leaves (dists / mass /
+        # wedges + closed): the sync times the whole state
+        if args.query_kind == "reach":
+            if args.paths and not pol.startswith("ntkms"):
+                dests = rng.integers(0, csr.n_nodes, 4).astype(np.int32)
+                reconstruct_paths(
+                    res.state.parents[0, : csr.n_nodes], dests, max_len=32
+                )
+            else:
+                histogram_lengths(res.state.levels)
         synchronize(svc.device)
         dt = (time.perf_counter() - t0) * 1e3
         lat.append(dt)
@@ -350,8 +358,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="edges added and deleted per --mutate-stream delta")
     ap.add_argument("--query-kind", default="reach",
                     choices=("reach", "topk_paths", "ppr", "pattern_counts"),
-                    help="scenario family; the port serves 'reach' (BFS "
-                         "levels)")
+                    help="scenario family of every query: 'reach' = BFS "
+                         "levels, 'topk_paths' = weighted k-shortest walk "
+                         "lengths (seeded weights when the dataset has "
+                         "none), 'ppr' = personalized PageRank mass, "
+                         "'pattern_counts' = 2/3-hop walk counts")
     ap.add_argument("--paths", action="store_true",
                     help="return actual paths (parents), not lengths")
     ap.add_argument("--policy", default=None,
@@ -387,13 +398,16 @@ def main(argv=None,
     """Serve from the command line. ``on_batch`` receives each closed-loop
     batch, ``on_stream`` the drained open-loop stream."""
     args = build_parser().parse_args(argv)
-    if args.query_kind != "reach":
-        raise NotImplementedError(
-            f"--query-kind {args.query_kind} is not ported yet (ROADMAP "
-            "queue 1: the non-reach query kinds)"
-        )
     device = resolve_device(args.device)
     csr = PAPER_DATASETS[args.dataset](args.scale)
+    if args.query_kind == "topk_paths" and csr.weights is None:
+        # the k-shortest relax needs weights; the proxy datasets have
+        # none, so they get JAX's seeded uniform weighting
+        rng = np.random.default_rng(7)
+        csr = dataclasses.replace(
+            csr,
+            weights=rng.uniform(0.1, 2.0, csr.n_edges).astype(np.float32),
+        )
     family = PAPER_DATASET_FAMILIES.get(args.dataset)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")

@@ -325,21 +325,15 @@ class SettledBatch:
     outcome: QueryOutcome
     _materialize: Callable[[], IFEResult] | None = None
 
+    @property
+    def finalized(self) -> bool:
+        return self._materialize is None
+
     def finalize(self) -> QueryOutcome:
         if self._materialize is not None:
             self.outcome.result = self._materialize()
             self._materialize = None
         return self.outcome
-
-
-def check_query_kind(query_kind: str) -> None:
-    """Raise for a query kind the port does not serve yet."""
-    if query_kind not in QUERY_KINDS:
-        raise NotImplementedError(
-            f"query_kind={query_kind!r} is not ported yet (ROADMAP "
-            "queue 1: the non-reach query kinds); the port serves "
-            f"{sorted(QUERY_KINDS)}"
-        )
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -971,8 +965,24 @@ class QueryDispatcher:
                     query_kind="reach"):
         """Resolve policy, edge compute, extension spec, operands,
         morsels, chunking and the budget model's bucket keys for one
-        source batch."""
-        check_query_kind(query_kind)
+        source batch.
+
+        ``query_kind`` selects the scenario family (``QUERY_KINDS``):
+        "reach" picks sp/msbfs x lengths/parents; the other kinds name
+        their edge compute, and one with no lane form
+        (``lanes_ok=False``) never runs under a lane-packed policy: an
+        auto-recommended one degrades to nTkS, a pinned one raises."""
+        kind = QUERY_KINDS.get(query_kind)
+        if kind is None:
+            raise ValueError(
+                f"unknown query_kind: {query_kind!r} "
+                f"(known: {sorted(QUERY_KINDS)})"
+            )
+        if query_kind != "reach" and returns_paths:
+            raise ValueError(
+                "returns_paths is a reach-family option; "
+                f"query_kind={query_kind!r} has its own result leaves"
+            )
         sources = np.asarray(sources, np.int32).reshape(-1)
         name = policy or recommend_policy(
             len(sources),
@@ -983,7 +993,17 @@ class QueryDispatcher:
             hbm_bytes=self.hbm_bytes,
         )
         pol = POLICIES[name]()
-        if pol.is_multi_source:
+        if pol.is_multi_source and not kind.lanes_ok:
+            if policy is not None:
+                raise ValueError(
+                    f"policy {policy!r} lane-packs sources but "
+                    f"query_kind={query_kind!r} has no lane form"
+                )
+            name = "ntks"
+            pol = POLICIES[name]()
+        if kind.edge_compute is not None:
+            ec = kind.edge_compute
+        elif pol.is_multi_source:
             ec = "msbfs_parents" if returns_paths else "msbfs_lengths"
         else:
             ec = "sp_parents" if returns_paths else "sp_lengths"

@@ -40,7 +40,7 @@ import numpy as np
 
 from ..core import QUERY_KINDS
 from .admission import AdmissionQueue, AdmissionTicket, PlannedBatch
-from .dispatch import QueryDispatcher, SettledBatch, _host, check_query_kind
+from .dispatch import QueryDispatcher, SettledBatch, _host
 
 
 def unpack_levels(
@@ -223,9 +223,13 @@ class ServingLoop:
         query_kind: str = "reach",
     ) -> AdmissionTicket:
         """Admit one query into the stream (see ``AdmissionQueue.submit``).
-        Shed submissions are counted against the tenant and never run; a
-        query kind the port does not serve raises."""
-        check_query_kind(query_kind)
+        Shed submissions are counted against the tenant and never run.
+
+        ``query_kind`` selects the scenario family (``core.QUERY_KINDS``;
+        an unknown one raises ``ValueError``): "reach" delivers per-source
+        level rows; the other kinds deliver their own result leaves, a
+        ``[rows, n(, k)]`` array for "topk_paths" dists and "ppr" mass, a
+        dict of such arrays for "pattern_counts"."""
         now = self.clock()
         ticket = self.admission.submit(
             sources, tenant=tenant, deadline_ms=deadline_ms, qid=qid,

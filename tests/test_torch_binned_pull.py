@@ -215,7 +215,7 @@ def test_launch_record_built_once_per_pack(monkeypatch):
     # a CPU record has no device tables
     assert rec.tasks == {} and rec.counters is None
     moved = to_device(pack, "cpu")
-    assert moved is not pack and "_record" not in moved.__dict__
+    assert moved is not pack and "_derived_record" not in moved.__dict__
     assert torch.equal(binned_pull(moved, g, op="reach"), first)
     assert len(builds) == 2 and launch_record(moved) is not rec
 

@@ -44,6 +44,14 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   slot was freed and claimed by another, bitwise; and a short
   ``ServingLoop`` stream with one delta, per query equal to the same
   stream on the CPU.
+- The weighted relax and the non-reach kinds: ``bellman_ford`` served
+  through ``run_recursive_query`` on ``pull_binned_fused`` and
+  ``dopt_fused`` launches ``binned_pull``'s ``min_dist`` op and equals
+  the CPU run (the op's plain version) and the card's ``ell_push``
+  bitwise; ``topk_paths``, ``ppr`` and ``pattern_counts`` through
+  ``QueryDispatcher.query`` on the card equal the CPU's bits (the port's
+  float sums are elementwise adds in a fixed order on both), and a PPR
+  batch run twice gives the same bits.
 """
 import dataclasses
 
@@ -497,7 +505,7 @@ def test_binned_pull_on_folded_pack_matches_plain(cuda_device):
     rep = d.apply_delta(delta)
     assert rep.same_shape and rep.binned_moves == 2
     pack = bundle.ops.rev_binned_pack
-    assert pack is not old and "_record" not in pack.__dict__
+    assert pack is not old and "_derived_record" not in pack.__dict__
     assert not torch.equal(pack.perm_pad, old.perm_pad)
     rec = launch_record(pack)
     assert torch.equal(rec.perm_pad.cpu(), bundle.host.rev_binned_pack
@@ -579,3 +587,42 @@ def test_serving_loop_with_delta_on_card_matches_cpu(backend, per_query,
     assert sorted(cpu) == sorted(card)
     for qid in cpu:
         np.testing.assert_array_equal(card[qid], cpu[qid], err_msg=qid)
+
+
+@pytest.mark.parametrize("backend", ["pull_binned_fused", "dopt_fused"])
+def test_bellman_ford_min_dist_kernel_matches_plain(backend, cuda_device):
+    from repro_torch.core import policy_ntks, run_recursive_query
+
+    csr = with_weights(powerlaw(400, 6.0, seed=2), seed=3)
+    src = np.array([0, 7, 130], np.int32)
+    before = fused_binned_pull.launches
+    card = run_recursive_query(cuda_device, csr, src, policy_ntks(),
+                               edge_compute="bellman_ford", extend=backend)
+    torch.cuda.synchronize()
+    assert fused_binned_pull.launches > before
+    cpu = run_recursive_query("cpu", csr, src, policy_ntks(),
+                              edge_compute="bellman_ford", extend=backend)
+    push = run_recursive_query(cuda_device, csr, src, policy_ntks(),
+                               edge_compute="bellman_ford",
+                               extend="ell_push")
+    for got, exp, ref in zip(card.state, cpu.state, push.state):
+        assert torch.equal(got.cpu(), exp) and torch.equal(got, ref)
+    assert torch.equal(card.iterations.cpu(), cpu.iterations)
+
+
+@pytest.mark.parametrize("kind", ["ppr", "topk_paths", "pattern_counts"])
+def test_query_kinds_on_card_match_cpu_and_repeat(kind, cuda_device):
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    csr = with_weights(powerlaw(400, 6.0, seed=5), seed=6)
+    src = np.array([3, 40, 41, 200, 399], np.int32)
+    outs = {}
+    for dev in ("cpu", cuda_device, cuda_device):
+        d = QueryDispatcher(dev, csr, max_iters=256, phase1_iters=2)
+        outs.setdefault(str(dev), []).append(d.query(src, query_kind=kind))
+    (cpu,), (a, b) = outs["cpu"], outs[str(cuda_device)]
+    for x, y, z in zip(cpu.result.state, a.result.state, b.result.state):
+        assert torch.equal(y, z), "two runs on the card differ"
+        assert torch.equal(y.cpu(), x), "the card differs from the CPU"
+    assert torch.equal(a.result.iterations.cpu(), cpu.result.iterations)
+    assert a.redispatched == cpu.redispatched > 0

@@ -123,6 +123,9 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
         run_recursive_query(None, csr, [0], policy_ntks())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--closed-loop", "--scale", "0.05", "--batches", "1"])
+    for argv in (["--closed-loop", "--batches", "1"], ["--arrivals", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--scale", "0.05", "--query-kind", "ppr", *argv])
     assert resolve_device("cpu") == torch.device("cpu")
     sched = AdaptiveScheduler("cpu", csr, phase1_iters=2)
     out = sched.query(np.array([0, 5], np.int32))
@@ -221,6 +224,10 @@ def test_single_device_merges_are_identity_and_axes_raise():
     assert merge_contribution("min", c) is c
     r, p = merge_contribution("or_min", (x, c))
     assert r is x and p is c
+    f = torch.tensor([0.5, 0.0, 0.25])
+    assert merge_contribution("sum", f) is f
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        merge_contribution("sum", f, ("model",))
     with pytest.raises(ValueError, match="unknown merge"):
         merge_contribution("xor", x)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -318,7 +318,7 @@ def test_binned_pull_on_folded_pack_matches_fresh_pack():
         host, old_eff, new_eff, tdelta.diff_effective(old_eff, new_eff, d))
     assert structs["rev_binned_pack"] is pack and rep.binned_moves == 2
     assert rep.same_shape and not torch.equal(pack.perm_pad, perm0)
-    assert "_record" not in pack.__dict__
+    assert "_derived_record" not in pack.__dict__
     rec1 = launch_record(pack)
     assert rec1 is not rec0 and torch.equal(rec1.perm_pad, pack.perm_pad[0])
     fresh, n_pad2 = build_operands(new, "pull_binned_fused")

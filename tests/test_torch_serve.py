@@ -3,9 +3,10 @@
 ``repro_torch.launch.serve.main`` with ``--closed-loop --device cpu`` on
 the LDBC proxy at scale 0.1 must exit 0, and every served batch's levels,
 iteration counts and policy must equal what JAX's ``QueryService`` returns
-for the same sources; a non-reach ``--query-kind`` raises
-``NotImplementedError`` in both drivers (the open loop and
-``--mutate-stream`` are held against JAX in ``test_torch_service.py``).
+for the same sources; a ``--query-kind`` neither package serves is refused
+by both loops (the open loop and ``--mutate-stream`` are held against
+JAX in ``test_torch_service.py``, the non-reach kinds in
+``test_torch_queries.py``).
 """
 import numpy as np
 import pytest
@@ -44,9 +45,11 @@ def test_closed_loop_serve_matches_jax(per_batch, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--closed-loop", "--query-kind", "ppr"],
-    ["--query-kind", "ppr"],  # the open loop refuses it too
+    ["--closed-loop", "--query-kind", "nope"],
+    ["--query-kind", "nope"],  # the open loop refuses it too
 ])
-def test_unported_flags_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_flags_raise(extra, capsys):
+    with pytest.raises(SystemExit) as exc:
         serve.main(["--device", "cpu", "--scale", "0.05", *extra])
+    assert exc.value.code == 2
+    assert "invalid choice: 'nope'" in capsys.readouterr().err

@@ -216,11 +216,17 @@ def test_flush_during_drain_and_quota_shedding_match_jax():
 
 
 def test_unported_query_kind_refused_at_submit():
+    """A kind no package serves is refused at submit, as JAX refuses it,
+    before any tenant is charged; every kind JAX serves is admitted."""
     csr, _ = serve_graph()
     loop = TLoop("cpu", to_port(csr), backend="dopt", max_iters=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.submit(np.arange(3, dtype=np.int32), query_kind="ppr")
+    jl = JLoop(mesh11(), csr, backend="dopt", max_iters=64)
+    for lp in (loop, jl):
+        with pytest.raises(ValueError, match="unknown query_kind"):
+            lp.submit(np.arange(3, dtype=np.int32), query_kind="nope")
     assert loop.stats.tenants == {}
+    t = loop.submit(np.arange(3, dtype=np.int32), query_kind="ppr")
+    assert t.admitted and loop.stats.tenant("default").submitted == 1
 
 
 def assert_same_schedule(jarr, tarr):

@@ -74,7 +74,10 @@ Phases (any failure exits non-zero and prints no result):
    checked bitwise against an eager one, and the same for a full pass
    (no visited rows) beside its bound and ``torch.sparse.mm`` of the
    reverse CSR with the frontier as a float32 column (the gather without
-   the visited skip); then release every serve-run operand;
+   the visited skip); ``binned_pull``'s lane ops (``reach_lanes``,
+   ``min_parent_lanes``) at nTkMS's pull shape, the 64 lanes of the
+   first nTkMS batch at level 2, each beside its byte bound; then release
+   every serve-run operand;
 5. drive the op entry points of the GNN/LM kernels at full width, each
    kernel's launch counter set to 0 just before and read just after:
    ``spmm_blocks_from_csr(ldbc scale 10, block 128, normalize="mean")``
@@ -92,14 +95,41 @@ Phases (any failure exits non-zero and prints no result):
    ``F.scaled_dot_product_attention(is_causal=True)``; ``spmm``'s bound
    counts the work's bytes (the nonzeros, offsets, X and Y), and its
    L2 gather of source rows is printed beside it; two ``spmm`` launches
-   must give the same bits.
+   must give the same bits;
+7. ranks: four processes share the card over gloo (every message staged
+   through host memory and counted), each building only its own shards
+   of the scale-10 operands. On a ``(2, 2)`` mesh each runs
+   ``run_recursive_query``'s steps (``prepare_graph`` once a structure
+   set, ``pad_sources``, ``build_engine``) for nTkS and nTkMS on
+   ``dopt_fused``, ``pull_binned_fused`` and ``block_mxu`` in both state
+   layouts, every level held against the BFS oracle and every rank
+   holding the same global levels; holds ``binned_pull`` (``reach``,
+   ``reach_lanes``, ``min_parent_lanes``) and ``msbfs_extend`` at its
+   shard shape against their plain versions; then ``serve`` on the
+   ``(1, 4)`` mesh, rank 0 driving and the others following: closed
+   loop nTkS ``dopt_fused`` x8 (4 batches) and ``recommend`` x64 (3
+   batches), and an open loop of 20 arrivals, every level against the
+   oracle. Per rank it prints the kernels' launches and shard shapes,
+   their times beside the plain versions', the collectives' ms per
+   iteration and bytes staged, and peak device memory. Each engine
+   case's own launches are counted apart from the kernel checks': a
+   ``pull_binned_fused`` or ``block_mxu`` case must launch its kernel on
+   each of its trips, the ``dopt_fused`` cases at least once. A
+   world-size-1 NCCL rank then serves ``--closed-loop`` on the card:
+   that shows the NCCL group comes up and serves, but on one rank every
+   collective is the identity, so no collective runs on NCCL. A rank's
+   failure, or a group past ``RANKS_TIMEOUT_S``,
+   fails the run.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
 the kernel's design: ``row_classes`` for ``binned_pull``, ``csr_chunks``
 for ``spmm``, ``wgmma`` for bf16 attention; ``binned_pull`` also carries
-``graph_ms``, ``device_us``, a ``full_pass`` object and a ``min_dist``
-object with that op's launches and timings), the card's name
+``graph_ms``, ``device_us``, a ``full_pass`` object, a ``min_dist``
+object with that op's launches and timings and a ``lanes`` object with
+the lane ops' timings; ``binned_pull`` and ``msbfs_extend`` carry a
+``shard`` object with each rank's times at its shard shape), the card's
+name
 and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -667,6 +697,360 @@ def tile_swap_graph(csr_from_edges, GraphDelta, erdos_renyi):
                            del_dst=[290])
 
 
+# -- phase 7: ranks --------------------------------------------------------
+
+RANKS = 4  # processes sharing the card over gloo
+RANKS_TIMEOUT_S = 600  # the whole rank group, or it fails
+
+
+def _digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
+    """One of the ranks that share the card over gloo: the engines on a
+    (2, 2) mesh in both state layouts, each kernel at its shard shape
+    against its plain version, then ``serve`` on (1, 4), closed loop and
+    open loop. Returns its report; rank 0 also the served levels."""
+    from repro_torch.core import (
+        build_engine,
+        pad_sources,
+        policy_ntkms,
+        policy_ntks,
+        prepare_graph,
+    )
+    from repro_torch.graph.generators import PAPER_DATASETS
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.binned_pull.ops import binned_pull
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+    from repro_torch.kernels.msbfs_extend.ops import extend_blocks
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    csr = PAPER_DATASETS["ldbc"](scale)
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    rep = {"rank": rank, "coords": [mesh.coord("data"),
+                                    mesh.coord("model")], "cases": {}}
+    levels = {}
+    torch.cuda.reset_peak_memory_stats()
+    mesh.wire.reset()
+    t0 = time.perf_counter()
+    steps = 0
+    shapes, kernel_checks = {}, {}
+    engine_launches = {"binned_pull": 0, "msbfs_extend": 0}
+    check_launches = {"binned_pull": 0, "msbfs_extend": 0}
+
+    def read_launches(into):
+        into["binned_pull"] += bp_mod.fused_binned_pull.launches
+        into["msbfs_extend"] += mx_mod.msbfs_extend_blocks.launches
+
+    # one bundle a structure set, as run_recursive_query builds it:
+    # dopt_fused and pull_binned_fused scan one bundle, block_mxu another
+    for bundle, backends in (("dopt_fused", ("dopt_fused",
+                                             "pull_binned_fused")),
+                             ("block_mxu", ("block_mxu",))):
+        inputs = {}  # this bundle's row padding
+        tb = time.perf_counter()
+        g, n_pad = prepare_graph(csr, mesh, policy_ntks(), extend=bundle)
+        torch.cuda.synchronize()
+        rep[f"build_s/{bundle}"] = time.perf_counter() - tb
+        for be in backends:
+            for pname, pol, srcs, ec in (
+                    ("ntks", policy_ntks(), src8, "sp_lengths"),
+                    ("ntkms", policy_ntkms(), src64, "msbfs_lengths")):
+                for lay in ("replicated", "sharded"):
+                    morsels = pad_sources(srcs, 2, pol.lanes, n_pad)
+                    eng = build_engine(mesh, pol, ec, n_pad,
+                                       state_layout=lay, extend=be)
+                    # this case's engine launches alone
+                    bp_mod.fused_binned_pull.launches = 0
+                    mx_mod.msbfs_extend_blocks.launches = 0
+                    tc = time.perf_counter()
+                    res = eng(g, morsels)
+                    torch.cuda.synchronize()
+                    case_ms = (time.perf_counter() - tc) * 1e3
+                    launched = {"binned_pull": 0, "msbfs_extend": 0}
+                    read_launches(launched)
+                    read_launches(engine_launches)
+                    lv = res.state.levels.cpu().numpy()
+                    its = res.iterations.numpy()
+                    per = len(its) // 2
+                    d = mesh.coord("data")
+                    # this rank's morsels: one extension a trip each
+                    trips = int(its[d * per:(d + 1) * per].sum())
+                    steps += trips
+                    key = f"{pname}/{be}/{lay}"
+                    rep["cases"][key] = {
+                        "digest": _digest(lv), "iterations": its.tolist(),
+                        "trips": trips, "launches": launched, "ms": case_ms}
+                    if rank == 0:
+                        levels[key] = lv
+                    if lay == "replicated" and pname not in inputs:
+                        inputs[pname] = lv
+        # each kernel at this rank's shard shape against its plain version;
+        # these launches are counted apart from the engines'
+        bp_mod.fused_binned_pull.launches = 0
+        mx_mod.msbfs_extend_blocks.launches = 0
+        rows = g.fwd.n_nodes
+        lo = mesh.coord("model") * rows
+        if bundle == "dopt_fused":
+            pack = g.rev_binned_pack
+            lv1 = inputs["ntks"][0]
+            gsrc = torch.tensor((lv1 == 2).astype(np.uint8), device=dev)
+            vloc = torch.tensor(((lv1 >= 0) & (lv1 <= 2))[lo:lo + rows]
+                                .astype(np.uint8), device=dev)
+            lanes = inputs["ntkms"][0]  # [n_pad, 64] u8, 255 unreached
+            gl = torch.tensor((lanes == 2).astype(np.uint8), device=dev)
+            vl = torch.tensor((lanes <= 2)[lo:lo + rows].astype(np.uint8),
+                              device=dev)
+            for op, a, v in (("reach", gsrc, vloc),
+                             ("reach_lanes", gl, vl),
+                             ("min_parent_lanes", gl, vl)):
+                got = binned_pull(pack, a, v, op=op)
+                exp = binned_pull(pack, a, v, op=op, use_ref=True)
+                torch.cuda.synchronize()
+                kernel_checks[f"binned_pull/{op}"] = {
+                    "equal": bool(torch.equal(got, exp)),
+                    "ms": time_ms(lambda: binned_pull(pack, a, v, op=op),
+                                  reps=10, rounds=3),
+                    "plain_ms": time_ms(lambda: binned_pull(
+                        pack, a, v, op=op, use_ref=True), reps=2, rounds=1),
+                }
+            shapes["binned_pull"] = (
+                f"pack rows_local {pack.rows_local} of n_out {n_pad} (row "
+                f"base {lo}), {len(pack.slabs)} slabs, "
+                f"{pack.capacity_slots} slots")
+        else:
+            sb = g.blocks
+            bsz = sb.block_size
+            lanes = inputs["ntkms"][0]
+            loc = torch.tensor((lanes[lo:lo + rows] == 2).astype(np.uint8),
+                               device=dev).view(rows // bsz, bsz, 64)
+            tiles = (sb.blocks[0], sb.block_rows[0], sb.block_cols[0])
+            got = extend_blocks(*tiles, loc, g_out=n_pad // bsz)
+            exp = extend_blocks(*tiles, loc, g_out=n_pad // bsz,
+                                use_ref=True)
+            torch.cuda.synchronize()
+            kernel_checks["msbfs_extend"] = {
+                "equal": bool(torch.equal(got, exp)),
+                "ms": time_ms(lambda: extend_blocks(
+                    *tiles, loc, g_out=n_pad // bsz), reps=10, rounds=3),
+                "plain_ms": time_ms(lambda: extend_blocks(
+                    *tiles, loc, g_out=n_pad // bsz, use_ref=True), reps=1,
+                    rounds=1),
+            }
+            shapes["msbfs_extend"] = (
+                f"{int(sb.blocks.shape[1])} tiles of {bsz}x{bsz} int8 over "
+                f"{rows // bsz} local row blocks, g_out {n_pad // bsz}")
+        read_launches(check_launches)
+        del g
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    rep["engines_s"] = time.perf_counter() - t0
+    rep["launches"] = engine_launches
+    rep["check_launches"] = check_launches
+    rep["shapes"] = shapes
+    rep["kernels"] = kernel_checks
+    rep["steps"] = steps
+    rep["wire"] = {"calls": mesh.wire.calls, "bytes": mesh.wire.bytes,
+                   "staged_bytes": mesh.wire.staged_bytes,
+                   "ms": mesh.wire.ms,
+                   "ms_per_iteration": mesh.wire.ms / max(steps, 1)}
+    rep["engines_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # serve on JAX serve's (1, 4) mesh: rank 0 leads, the others follow
+    served = {}
+    common = ["--device", "cuda:0", "--dataset", "ldbc", "--scale",
+              str(scale)]
+    for sname, extra in (
+            ("closed dopt_fused x8", ["--closed-loop", "--backend",
+                                      "dopt_fused", "--sources-per-batch",
+                                      "8", "--batches", "4"]),
+            ("closed recommend x64", ["--closed-loop",
+                                      "--sources-per-batch", "64",
+                                      "--batches", "3"]),
+            ("open dopt_fused x8", ["--backend", "dopt_fused",
+                                    "--sources-per-batch", "8",
+                                    "--arrivals", "20", "--rate", "20"])):
+        torch.cuda.reset_peak_memory_stats()
+        bp_mod.fused_binned_pull.launches = 0
+        mx_mod.msbfs_extend_blocks.launches = 0
+        batches, streams = [], []
+        ts = time.perf_counter()
+        rc = serve.main(common + extra, on_batch=lambda r: batches.append(
+            (r.sources, r.policy, r.result.state.levels.cpu().numpy(),
+             r.ms, r.cold)), on_stream=streams.append)
+        if rc != 0:
+            raise RuntimeError(f"serve {sname} exited {rc}")
+        entry = {
+            "launches": {
+                "binned_pull": bp_mod.fused_binned_pull.launches,
+                "msbfs_extend": mx_mod.msbfs_extend_blocks.launches},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - ts,
+        }
+        if rank == 0 and batches:
+            entry["batches"] = batches
+        if rank == 0 and streams:
+            loop = streams[0].loop
+            entry["queries"] = [(f"q{i}", a["sources"]) for i, a in
+                                enumerate(streams[0].arrivals)]
+            entry["results"] = dict(loop.results)
+            entry["warm_p50_ms"] = finite(loop.stats.p50())
+            entry["batches_n"] = loop.stats.batches
+        served[sname] = entry
+        gc.collect()
+        torch.cuda.empty_cache()
+    rep["served"] = served
+    rep["levels"] = levels
+    return rep
+
+
+def phase7_nccl(rank: int, world: int, scale: float) -> dict:
+    """A world of one NCCL rank on the card: ``serve --closed-loop``. It
+    shows only that the NCCL process group comes up and the one-rank
+    serve runs inside it; on a mesh of one rank every collective is the
+    identity, so no collective of the port runs on NCCL here."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+
+    batches = []
+    rc = serve.main(["--closed-loop", "--device", "cuda:0", "--dataset",
+                     "ldbc", "--scale", str(scale), "--backend",
+                     "dopt_fused", "--sources-per-batch", "8", "--batches",
+                     "3"],
+                    on_batch=lambda r: batches.append(
+                        (r.sources, r.result.state.levels.cpu().numpy())))
+    return {"rc": rc, "backend": dist.get_backend(), "batches": batches}
+
+
+def phase_7(csr, oracle) -> dict:
+    """Four ranks share the card over gloo (host-staged messages); then a
+    world-size-1 NCCL run of ``serve --closed-loop``."""
+    from repro_torch.graph.generators import pick_sources
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime.service import unpack_levels
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    src8 = np.asarray(pick_sources(csr, 8, seed=300), np.int32)
+    src64 = np.asarray(pick_sources(csr, 64, seed=301), np.int32)
+    reports = run_ranks(phase7_rank, RANKS, (SCALE, src8, src64),
+                        backend="gloo", timeout_s=RANKS_TIMEOUT_S)
+    n = csr.n_nodes
+    ref8, ref64 = oracle.levels(src8), oracle.levels(src64)
+    lead = reports[0]
+    for key, lv in lead["levels"].items():
+        packed = key.startswith("ntkms")
+        ref = ref64 if packed else ref8
+        got = unpack_levels(lv, {"q": (0, len(ref))}, n, packed)["q"]
+        if not np.array_equal(got, ref):
+            fail(f"phase 7 {key}: levels differ from the BFS oracle")
+        for r in reports[1:]:
+            if r["cases"][key]["digest"] != lead["cases"][key]["digest"]:
+                fail(f"phase 7 {key}: rank {r['rank']} holds other levels")
+    for r in reports:
+        for kname, chk in r["kernels"].items():
+            if not chk["equal"]:
+                fail(f"phase 7 rank {r['rank']}: {kname} at the shard shape "
+                     "differs from its plain version")
+        # the engines' own launches, apart from the checks': a fused pull
+        # or block_mxu case launches its kernel on every trip, dopt_fused
+        # on its pull trips
+        dopt_pulls = 0
+        for key, case in r["cases"].items():
+            be = key.split("/")[1]
+            k = {"pull_binned_fused": "binned_pull",
+                 "block_mxu": "msbfs_extend"}.get(be)
+            if k is not None and case["launches"][k] < case["trips"]:
+                fail(f"phase 7 rank {r['rank']} {key}: {k} launched "
+                     f"{case['launches'][k]} times in {case['trips']} trips")
+            if be == "dopt_fused":
+                dopt_pulls += case["launches"]["binned_pull"]
+        if dopt_pulls <= 0:
+            fail(f"phase 7 rank {r['rank']}: dopt_fused never launched "
+                 "binned_pull")
+        if r["wire"]["staged_bytes"] <= 0:
+            fail(f"phase 7 rank {r['rank']} staged nothing over gloo")
+    for sname, entry in lead["served"].items():
+        if "batches" in entry:
+            for srcs, pol, lv, _, _ in entry["batches"]:
+                got = unpack_levels(lv, {"q": (0, len(srcs))}, n,
+                                    pol == "ntkms")["q"]
+                if not np.array_equal(got, oracle.levels(srcs)):
+                    fail(f"phase 7 serve {sname}: levels differ from BFS")
+        if "results" in entry:
+            qs = entry["queries"]
+            if len(entry["results"]) != len(qs):
+                fail(f"phase 7 serve {sname}: {len(entry['results'])} of "
+                     f"{len(qs)} queries served")
+            for (qid, srcs), ref in zip(qs, oracle.levels_of(
+                    [s for _, s in qs])):
+                if not np.array_equal(entry["results"][qid], ref):
+                    fail(f"phase 7 serve {sname} {qid}: levels differ")
+    kernel_launch = {"binned_pull": 0, "msbfs_extend": 0}
+    for r in reports:
+        for sname, entry in r["served"].items():
+            for k, v in entry["launches"].items():
+                kernel_launch[k] += v
+    if min(kernel_launch.values()) <= 0:
+        fail(f"phase 7 serve runs launched no kernel: {kernel_launch}")
+    t1 = time.perf_counter()
+    (nccl,) = run_ranks(phase7_nccl, 1, (SCALE,), backend="nccl",
+                        timeout_s=RANKS_TIMEOUT_S)
+    if nccl["rc"] != 0 or nccl["backend"] != "nccl":
+        fail(f"phase 7 NCCL run: {nccl['rc']}, {nccl['backend']}")
+    for srcs, lv in nccl["batches"]:
+        got = unpack_levels(lv, {"q": (0, len(srcs))}, n, False)["q"]
+        if not np.array_equal(got, oracle.levels(srcs)):
+            fail("phase 7 NCCL serve: levels differ from the BFS oracle")
+    summary = {"ranks": [], "nccl_s": time.perf_counter() - t1}
+    for r in reports:
+        line = {
+            "rank": r["rank"], "coords": r["coords"],
+            "launches": r["launches"],
+            "case_launches": {k: {**c["launches"], "trips": c["trips"]}
+                              for k, c in r["cases"].items()},
+            "check_launches": r["check_launches"], "shapes": r["shapes"],
+            "kernels": r["kernels"], "wire": r["wire"],
+            "steps": r["steps"], "engines_s": r["engines_s"],
+            "build_s": {k[8:]: v for k, v in r.items()
+                        if k.startswith("build_s/")},
+            "engines_peak_gb": r["engines_peak_gb"],
+            "serve": {s: {"launches": e["launches"],
+                          "peak_gb": e["peak_gb"], "seconds": e["seconds"]}
+                      for s, e in r["served"].items()},
+        }
+        summary["ranks"].append(line)
+        print(f"phase 7: rank {r['rank']} " + json.dumps(line), flush=True)
+    lead_serve = {}
+    for sname, entry in lead["served"].items():
+        if "batches" in entry:
+            warm = [ms for _, _, _, ms, cold in entry["batches"] if not cold]
+            lead_serve[sname] = {
+                "batches": len(entry["batches"]),
+                "policies": sorted({p for _, p, _, _, _ in
+                                    entry["batches"]}),
+                "warm_ms": warm}
+        else:
+            lead_serve[sname] = {"queries": len(entry["queries"]),
+                                 "batches": entry["batches_n"],
+                                 "warm_p50_ms": entry["warm_p50_ms"]}
+    summary["serve"] = lead_serve
+    summary["seconds"] = time.perf_counter() - t0
+    print("phase 7: " + json.dumps({
+        "serve": lead_serve, "serve_launches": kernel_launch,
+        "nccl_batches": len(nccl["batches"]), "nccl_s": summary["nccl_s"],
+        "seconds": summary["seconds"]}), flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
@@ -1151,6 +1535,50 @@ def main() -> int:
                  f"{rec.tasks[False, False][1]} blocks "
                  f"({rec.n_parts} hub chunks)",
     }
+    # the lane ops at nTkMS's pull shape: the 64 lanes of the first nTkMS
+    # batch at level 2, through the same pack
+    src2, lv2 = main_inputs["msbfs_extend"]
+    lanes_f = np.zeros((rows, 64), np.uint8)
+    lanes_f[:n, : len(src2)] = (lv2 == level).T
+    lanes_v = np.zeros((rows, 64), np.uint8)
+    lanes_v[:n, : len(src2)] = ((lv2 >= 0) & (lv2 <= level)).T
+    lanes_v[:, len(src2):] = 1  # no source: nothing to pull
+    gl = torch.tensor(lanes_f, device=dev)
+    vl = torch.tensor(lanes_v, device=dev)
+    open_rows = ~lanes_v.all(axis=1)  # rows with an unvisited lane
+    lane_slots = int(widths[open_rows].sum())
+    lane_ops = {}
+    for op, out_bytes in (("reach_lanes", 1), ("min_parent_lanes", 4)):
+        fn = lambda op=op: binned_pull(ldbc_pack, gl, vl, op=op)
+        got = fn()
+        check("binned_pull", got, binned_pull(ldbc_pack, gl, vl, op=op,
+                                              use_ref=True),
+              f"ldbc-10 nTkMS level-2 {op}")
+        # slab ids of rows with an unvisited lane, the 64-lane source
+        # mask, vloc and perm_pad in; 64 lanes a row out
+        l_bytes = (4 * lane_slots + gl.numel() + vl.numel() + 4 * plan.rbp
+                   + out_bytes * rows * 64)
+        l_ops = lane_slots * 64  # one compare per lane per slot
+        lane_ops[op] = {
+            "ms": time_ms(fn),
+            "plain_ms": time_ms(lambda op=op: binned_pull(
+                ldbc_pack, gl, vl, op=op, use_ref=True), reps=2, rounds=3),
+            "bound_ms": max(l_bytes / HBM_BYTES_PER_S,
+                            l_ops / INT8_OPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if l_bytes / HBM_BYTES_PER_S
+                         >= l_ops / INT8_OPS_PER_S else "operations"),
+            "device_us": kernel_us(fn, "binned_pull_kernel"),
+            "shape": f"op {op}, gsrc [{rows}, 64] u8, vloc [{rows}, 64] u8, "
+                     f"{lane_slots} slots of rows with an unvisited lane",
+        }
+        print(f"timed: binned_pull {op} (nTkMS level 2): wrapper "
+              f"{lane_ops[op]['ms']:.4f} ms, kernel "
+              f"{lane_ops[op]['device_us']} us, bound "
+              f"{lane_ops[op]['bound_ms']:.6f} ms by "
+              f"{lane_ops[op]['bound_by']}, plain "
+              f"{lane_ops[op]['plain_ms']:.4f} ms", flush=True)
+    bp["lanes"] = lane_ops
+    del gl, vl
     print(f"timed: binned_pull level-2: wrapper {bp['ms']:.4f} ms, CUDA "
           f"graph {bp['graph_ms']:.4f} ms a call, kernel "
           f"{bp['device_us']} us; full pass: wrapper {full_pass['ms']:.4f} "
@@ -1352,6 +1780,24 @@ def main() -> int:
                  "library F.scaled_dot_product_attention",
     }
     del qkv, o
+
+    # -- phase 7: ranks sharing the card, then one NCCL rank -----------------
+    ranks = phase_7(csr, BFSOracle(csr))
+
+    def shard_times(kname):
+        """Each rank's time of a kernel at its shard shape (phase 7)."""
+        return {
+            op.split("/")[-1]: [
+                {"rank": r["rank"], **r["kernels"][op],
+                 "shape": r["shapes"][kname],
+                 "launches": r["launches"][kname],
+                 "check_launches": r["check_launches"][kname]}
+                for r in ranks["ranks"]]
+            for op in ranks["ranks"][0]["kernels"] if op.startswith(kname)
+        }
+
+    bp["shard"] = shard_times("binned_pull")
+    mx["shard"] = shard_times("msbfs_extend")
     kernels = [
         {"name": "binned_pull", "route": "cuda", "design": "row_classes",
          "source": "src/repro_torch/kernels/csrc/binned_pull.cu",

@@ -1,4 +1,5 @@
-"""Paper core on one device: IFE engine, extension backends, policies."""
+"""Paper core on a mesh of ranks (or one device): IFE engine, extension
+backends, policies, collectives."""
 from .edge_compute import EDGE_COMPUTES, NO_PARENT, QUERY_KINDS, QueryKind
 from .edge_compute import chunk_fold
 from .ife import (
@@ -39,7 +40,9 @@ from .extend import (
     build_operands,
     effective_csr,
     frontier_stats,
+    OperandStream,
     make_backend,
+    operand_stream,
     operands_from_numpy,
 )
 from .dispatcher import (
@@ -52,5 +55,5 @@ from .dispatcher import (
     run_recursive_query,
     strip_operands,
 )
-from .collectives import gang_scatter_back
+from .collectives import gang_handoff, gang_scatter_back
 from .msbfs import gang_pack_lanes, gang_unpack_lanes

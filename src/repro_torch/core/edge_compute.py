@@ -2,7 +2,7 @@
 
 An edge compute is a triple: ``extend`` (the frontier-extension scan,
 through a backend of ``core.extend``), ``MERGE`` (how contributions
-combine across graph shards; identity on one device) and ``apply`` (the
+combine across graph shards, ``core.collectives``) and ``apply`` (the
 end-of-iteration state update). Ported here: the reach family
 (``bfs_levels`` / ``sp_lengths``, ``sp_parents``, ``reachability``,
 ``msbfs_lengths``, ``msbfs_parents``), the weighted relax
@@ -171,16 +171,32 @@ def ordered_sum(le: LiveEdges, vals: torch.Tensor) -> torch.Tensor:
     return torch.cat([vals, vals.new_zeros(1)])[le.out]
 
 
+def _local_rows(x: torch.Tensor, rows: int, row_offset) -> torch.Tensor:
+    """This shard's rows of a global state tensor (replicated layout);
+    ``row_offset=None`` means ``x`` is already local."""
+    if row_offset is None:
+        return x
+    return x[row_offset : row_offset + rows]
+
+
 def _edge_chunks(n_edges: int, row_bytes: int):
     step = max(1, CHUNK_BUDGET // max(row_bytes, 1))
     return range(0, n_edges, step), step
 
 
 def ell_reach_dense(g: EllGraph, frontier: torch.Tensor,
-                    n_out: int | None = None) -> torch.Tensor:
+                    n_out: int | None = None, *,
+                    row_offset=None) -> torch.Tensor:
     """frontier [n] bool -> [n_out] bool: v reached iff some active u has
-    u -> v."""
+    u -> v.
+
+    Two state layouts: replicated, ``frontier`` is global and
+    ``row_offset`` picks this shard's rows; sharded, ``frontier`` is
+    already the shard's rows and ``n_out`` gives the global width. The
+    slab's ids are global, so the contribution is ``[n_out]`` either
+    way. The other push primitives take the same layout arguments."""
     n = frontier.shape[0] if n_out is None else n_out
+    frontier = _local_rows(frontier, g.n_nodes, row_offset)
     _, dst = active_edges(g, frontier, n)
     out = torch.zeros(n, dtype=torch.bool, device=frontier.device)
     out[dst] = True
@@ -188,11 +204,13 @@ def ell_reach_dense(g: EllGraph, frontier: torch.Tensor,
 
 
 def ell_reach_lanes(g: EllGraph, lanes: torch.Tensor,
-                    n_out: int | None = None) -> torch.Tensor:
+                    n_out: int | None = None, *,
+                    row_offset=None) -> torch.Tensor:
     """[n, L] uint8 -> [n_out, L] uint8 per-lane max over in-edges from
     rows with any active lane (one edge list serves every lane)."""
     n_lanes = lanes.shape[-1]
     n = lanes.shape[0] if n_out is None else n_out
+    lanes = _local_rows(lanes, g.n_nodes, row_offset)
     src, dst = active_edges(g, (lanes != 0).any(dim=-1), n)
     out = torch.zeros((n, n_lanes), dtype=lanes.dtype, device=lanes.device)
     starts, step = _edge_chunks(src.numel(), 16 + n_lanes)
@@ -202,22 +220,37 @@ def ell_reach_lanes(g: EllGraph, lanes: torch.Tensor,
     return out
 
 
+def _row_base(row_offset, row_base) -> int:
+    """Global id of the shard's first row (0 on one shard)."""
+    if row_offset is not None:
+        return int(row_offset)
+    return 0 if row_base is None else int(row_base)
+
+
 def ell_min_parent(g: EllGraph, frontier: torch.Tensor,
-                   n_out: int | None = None) -> torch.Tensor:
-    """cand_parent[v] = min active u with u -> v (NO_PARENT if none)."""
+                   n_out: int | None = None, *, row_offset=None,
+                   row_base=None) -> torch.Tensor:
+    """cand_parent[v] = min active u with u -> v (NO_PARENT if none);
+    ``row_base`` is the global id of the first local row (sharded
+    layout)."""
     n = frontier.shape[0] if n_out is None else n_out
+    frontier = _local_rows(frontier, g.n_nodes, row_offset)
     src, dst = active_edges(g, frontier, n)
     out = torch.full((n,), NO_PARENT, dtype=torch.int32,
                      device=frontier.device)
-    out.index_reduce_(0, dst, src.to(torch.int32), "amin")
+    base = _row_base(row_offset, row_base)
+    out.index_reduce_(0, dst, (src + base).to(torch.int32), "amin")
     return out
 
 
 def ell_min_parent_lanes(g: EllGraph, lanes: torch.Tensor,
-                         n_out: int | None = None) -> torch.Tensor:
+                         n_out: int | None = None, *, row_offset=None,
+                         row_base=None) -> torch.Tensor:
     """Per-lane min-parent: [n, L] uint8 -> [n_out, L] int32."""
     n_lanes = lanes.shape[-1]
     n = lanes.shape[0] if n_out is None else n_out
+    lanes = _local_rows(lanes, g.n_nodes, row_offset)
+    base = _row_base(row_offset, row_base)
     src, dst = active_edges(g, (lanes != 0).any(dim=-1), n)
     out = torch.full((n, n_lanes), NO_PARENT, dtype=torch.int32,
                      device=lanes.device)
@@ -225,18 +258,20 @@ def ell_min_parent_lanes(g: EllGraph, lanes: torch.Tensor,
     for i in starts:
         s = src[i : i + step]
         cand = torch.where(
-            lanes[s] != 0, s.to(torch.int32)[:, None], NO_PARENT
+            lanes[s] != 0, (s + base).to(torch.int32)[:, None], NO_PARENT
         )
         out.index_reduce_(0, dst[i : i + step], cand, "amin")
     return out
 
 
 def ell_min_dist(g: EllGraph, dist: torch.Tensor, frontier: torch.Tensor,
-                 n_out: int | None = None) -> torch.Tensor:
+                 n_out: int | None = None, *,
+                 row_offset=None) -> torch.Tensor:
     """Weighted relax: cand[v] = min over active u of dist[u] + w(u, v)."""
     n = dist.shape[0] if n_out is None else n_out
     le = live_edges(g, n)
-    du = torch.where(frontier != 0, dist, INF)
+    du = _local_rows(torch.where(frontier != 0, dist, INF), g.n_nodes,
+                     row_offset)
     cand = du[le.src] + (1.0 if le.weights is None else le.weights)
     out = torch.full((n,), INF, dtype=torch.float32, device=dist.device)
     out.index_reduce_(0, le.dst, cand, "amin")
@@ -244,12 +279,14 @@ def ell_min_dist(g: EllGraph, dist: torch.Tensor, frontier: torch.Tensor,
 
 
 def ell_push_sum(g: EllGraph, values: torch.Tensor, n_out: int | None = None,
-                 normalize: bool = False) -> torch.Tensor:
+                 normalize: bool = False, *,
+                 row_offset=None) -> torch.Tensor:
     """Additive push: out[v] = sum over rows u with edge u->v of values[u]
     (divided by u's out-degree first with ``normalize``). Integer sums
     are exact in any order and take ``index_add_``; float sums take the
     fixed order of ``ordered_sum``."""
     n = values.shape[0] if n_out is None else n_out
+    values = _local_rows(values, g.n_nodes, row_offset)
     if normalize:
         values = values / torch.clamp(g.degrees, min=1).to(values.dtype)
     le = live_edges(g, n)

@@ -22,8 +22,16 @@ pattern counts, one physical form: the forward scatter) and
 pull flavor, decided per iteration on the host from the frontier's and
 the unexplored edge mass.
 
-All operands live on one device; the JAX package's row offsets, sharded
-state layout and collectives have size-1 axes here and drop out.
+On a mesh of ranks every rank holds its graph shard's operands (built
+alone by ``operand_stream(...).build_shard(k)``). ``ExtendCtx`` carries
+the layout: the replicated layout passes global state tensors and a
+``row_offset`` (this shard's first row), the sharded layout passes the
+shard's own rows and a ``row_base``. Pull flavors first union the global
+frontier across the graph axes (``_global_or`` / ``_global_min``), then
+scan their shard and place the result rows into the global
+contribution; the direction predicate and the stats tap are summed over
+the graph axes, so every rank of a group takes the same branch. On one
+device the axes are empty and all of this is the identity.
 """
 from __future__ import annotations
 
@@ -35,22 +43,29 @@ import numpy as np
 import torch
 
 from ..graph.csr import (
+    BinnedPlan,
     BinnedRevEll,
     CSRGraph,
     EllGraph,
     ShardedBlocks,
+    binned_plan,
     binned_rev_csr,
+    binned_rev_shard,
     ell_from_csr,
+    ell_shard,
     sharded_blocks_from_csr,
+    sharded_blocks_nb,
+    sharded_blocks_shard,
     truncate_csr,
 )
-from ..graph.partition import pad_ell
+from ..graph.partition import pad_ell, padded_n, reverse_shard
 from ..kernels.binned_pull.ops import (
     BinnedPullPack,
     binned_pull as _fused_pull,
     build_pack as build_binned_pack,
 )
 from ..kernels.msbfs_extend.ops import extend_blocks
+from .collectives import min_allreduce, or_allreduce, psum
 from .edge_compute import (
     INF,
     NO_PARENT,
@@ -283,12 +298,186 @@ def operands_from_numpy(leaves: dict, device="cpu") -> GraphOperands:
                          rev_binned_pack=pack, blocks=blocks)
 
 
+def _round8(cap: int) -> int:
+    return -(-cap // 8) * 8 if cap > 0 else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class OperandStream:
+    """Shard-at-a-time operand build: ``operand_stream`` runs the global
+    O(n) planning passes once (row padding, ELL widths, the binned plan,
+    the common tile count) and ``build_shard(k)`` builds only policy
+    shard ``k``'s leaves as host numpy arrays, named like the JAX
+    package's (``operands_from_numpy`` reads them). Every leaf's axis 0 is
+    the sharded axis (rows, or the stacked shard axis of length 1), and
+    each piece equals the matching slice of ``build_operands`` bitwise."""
+
+    csr: CSRGraph  # effective (truncated) forward graph
+    spec: "ExtendSpec"
+    n_pad: int
+    k_shards: int  # policy shard count: the build granularity
+    fine_shards: int  # row-padding (lcm) shard count; blocks built fine
+    cap_fwd: int
+    cap_rev: Optional[int] = None
+    plan: Optional[BinnedPlan] = None
+    nb: Optional[int] = None
+
+    @property
+    def rows_local(self) -> int:
+        return self.n_pad // self.k_shards
+
+    def build_shard(self, k: int) -> dict:
+        """Policy shard ``k``'s leaves: name -> host numpy array."""
+        rl = self.rows_local
+        lo, hi = k * rl, (k + 1) * rl
+        leaves = {}
+        idx, degs, w = ell_shard(self.csr, lo, hi, self.cap_fwd, self.n_pad)
+        leaves["fwd.indices"], leaves["fwd.degrees"] = idx, degs
+        if w is not None:
+            leaves["fwd.weights"] = w
+        rev_local = None
+        if self.spec.needs_rev or self.spec.needs_binned:
+            rev_local = reverse_shard(self.csr, lo, hi)
+        if self.spec.needs_rev:
+            idx, degs, w = ell_shard(rev_local, 0, rl, self.cap_rev,
+                                     self.n_pad)
+            leaves["rev.indices"], leaves["rev.degrees"] = idx, degs
+            if w is not None:
+                leaves["rev.weights"] = w
+        if self.spec.needs_binned:
+            bn = binned_rev_shard(self.plan, k, rev_local)
+            leaves["bn.perm"] = bn.perm.numpy()
+            leaves["bn.inv"] = bn.inv.numpy()
+            for b, x in enumerate(bn.slabs):
+                leaves[f"bn.slab{b}"] = x.numpy()
+            if bn.slab_weights is not None:
+                for b, x in enumerate(bn.slab_weights):
+                    leaves[f"bn.w{b}"] = x.numpy()
+            if self.spec.needs_binned_pack:
+                pk = build_binned_pack(bn, self.n_pad)
+                leaves["pack.inv_pad"] = pk.inv_pad.numpy()
+                leaves["pack.perm_pad"] = pk.perm_pad.numpy()
+                for b, x in enumerate(pk.slabs):
+                    leaves[f"pack.slab{b}"] = x.numpy()
+                if pk.slab_weights is not None:
+                    for b, x in enumerate(pk.slab_weights):
+                        leaves[f"pack.w{b}"] = x.numpy()
+        if self.spec.needs_blocks:
+            group = self.fine_shards // self.k_shards
+            bsz = self.spec.block
+            sb = sharded_blocks_shard(
+                self.csr, self.n_pad, self.fine_shards, self.nb,
+                k * group, (k + 1) * group, bsz,
+            )
+            # the fine subshards fold into one policy shard; local
+            # row-block ids are re-based like ``_regroup_block_rows``
+            rb_fine = (self.n_pad // self.fine_shards) // bsz
+            offs = (np.arange(group, dtype=np.int32) * rb_fine)[:, None]
+            leaves["blocks.blocks"] = sb.blocks.numpy().reshape(
+                1, -1, bsz, bsz)
+            leaves["blocks.rows"] = (
+                (sb.block_rows.numpy() + offs).reshape(1, -1)
+                .astype(np.int32)
+            )
+            leaves["blocks.cols"] = sb.block_cols.numpy().reshape(1, -1)
+        return leaves
+
+
+def operand_stream(
+    csr: CSRGraph,
+    extend="ell_push",
+    max_deg: int | None = None,
+    shards: int = 1,
+    block: int | None = None,
+    binned_shards: int | None = None,
+) -> OperandStream:
+    """Plan a shard-at-a-time build with ``build_operands``' parameters:
+    rows pad for ``shards`` (the lcm count), the binned slabs and the
+    build granularity are ``binned_shards`` (the policy's own count)."""
+    spec = as_spec(extend)
+    pad_block = block or spec.pad_block
+    eff = effective_csr(csr, max_deg)
+    n = eff.n_nodes
+    fine = max(int(shards), 1)
+    k = fine if binned_shards is None else int(binned_shards)
+    if fine % k:
+        raise ValueError(f"{fine} row shards do not fold into {k}")
+    n_pad = padded_n(n, fine, pad_block)
+    cap_fwd = _round8(int(eff.degrees.max()) if n else 0)
+    cap_rev = plan = nb = None
+    if spec.needs_rev or spec.needs_binned:
+        rev_degs = (np.bincount(eff.indices, minlength=n) if n
+                    else np.zeros(0, np.int64))
+        if spec.needs_rev:
+            cap_rev = _round8(int(rev_degs.max()) if n else 0)
+        if spec.needs_binned:
+            plan = binned_plan(rev_degs, n_pad, k)
+    if spec.needs_blocks:
+        nb = sharded_blocks_nb(eff, n_pad, fine, spec.block)
+    return OperandStream(
+        csr=eff, spec=spec, n_pad=n_pad, k_shards=k, fine_shards=fine,
+        cap_fwd=cap_fwd, cap_rev=cap_rev, plan=plan, nb=nb,
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class ExtendCtx:
-    """Per-call extension context: the global output width (the padded
-    node count). On one device every state tensor is global."""
+    """Per-call extension context: ``n_out`` is the global output width
+    (the padded node count). Replicated layout: global state tensors and
+    ``row_offset``, this shard's first row. Sharded layout: the shard's
+    own state rows and ``row_base``, the global id of its first row.
+    ``axes`` are the graph axes collectives span (``launch.mesh.Axes``);
+    on one device every field but ``n_out`` keeps its default."""
 
     n_out: int
+    row_offset: Optional[int] = None
+    row_base: Optional[int] = None
+    axes: tuple = ()
+    or_impl: str = "allgather"
+    sharded: bool = False
+
+    @property
+    def start(self) -> Optional[int]:
+        """Global row id of the first local row (None on one shard)."""
+        if self.row_offset is not None:
+            return self.row_offset
+        return self.row_base
+
+
+def _place_rows(local: torch.Tensor, ctx: ExtendCtx, fill) -> torch.Tensor:
+    """A local-rows result placed into the global ``[n_out, ...]``
+    contribution (identity on one shard)."""
+    start = ctx.start
+    if start is None:
+        return local
+    out = torch.full((ctx.n_out, *local.shape[1:]), fill, dtype=local.dtype,
+                     device=local.device)
+    out[start : start + local.shape[0]] = local
+    return out
+
+
+def _local_state(x, rows: int, ctx: ExtendCtx):
+    """This shard's rows of a state tensor (sharded state is local)."""
+    if x is None or ctx.sharded or ctx.row_offset is None:
+        return x
+    return x[ctx.row_offset : ctx.row_offset + rows]
+
+
+def _global_or(x: torch.Tensor, ctx: ExtendCtx) -> torch.Tensor:
+    """The global activation tensor of a state tensor: already global in
+    the replicated layout; placed and OR-unioned across the graph axes in
+    the sharded layout (pull's inverse communication: frontier bits
+    travel instead of contributions)."""
+    if not ctx.sharded:
+        return x
+    placed = _place_rows(x, ctx, 0)
+    return or_allreduce(placed, ctx.axes, ctx.or_impl)
+
+
+def _global_min(x: torch.Tensor, ctx: ExtendCtx, fill) -> torch.Tensor:
+    if not ctx.sharded:
+        return x
+    return min_allreduce(_place_rows(x, ctx, fill), ctx.axes)
 
 
 # ---------------------------------------------------------------------------
@@ -298,14 +487,18 @@ class ExtendCtx:
 
 def _min_topk_pull(ops, dists, src_mask, ctx):
     """The k-best relax every backend shares: a full-Jacobi gather over
-    the reverse ELL (a scatter cannot merge k sorted slots)."""
+    the reverse ELL (a scatter cannot merge k sorted slots). The slot
+    table is made global first, the rows placed back for the min merge."""
     if ops.rev is None:
         raise ValueError(
             "top-k relax scans the reverse ELL; build operands with "
             "extend='ell_pull' (needs_rev)"
         )
-    seed = torch.where(src_mask, 0.0, INF).to(torch.float32)
-    return ell_min_topk(ops.rev, dists, seed)
+    rows = ops.rev.n_nodes
+    gd = _global_min(dists, ctx, INF)
+    seed = torch.where(_local_state(src_mask, rows, ctx), 0.0,
+                       INF).to(torch.float32)
+    return _place_rows(ell_min_topk(ops.rev, gd, seed), ctx, INF)
 
 
 class PushBackend:
@@ -313,29 +506,37 @@ class PushBackend:
 
     @staticmethod
     def reach_dense(ops, frontier, visited, ctx):
-        return ell_reach_dense(ops.fwd, frontier, ctx.n_out)
+        return ell_reach_dense(ops.fwd, frontier, ctx.n_out,
+                               row_offset=ctx.row_offset)
 
     @staticmethod
     def push_sum(ops, values, ctx, normalize=False):
-        return ell_push_sum(ops.fwd, values, ctx.n_out, normalize)
+        return ell_push_sum(ops.fwd, values, ctx.n_out, normalize,
+                            row_offset=ctx.row_offset)
 
     min_topk = staticmethod(_min_topk_pull)
 
     @staticmethod
     def min_dist(ops, dist, frontier, ctx):
-        return ell_min_dist(ops.fwd, dist, frontier, ctx.n_out)
+        return ell_min_dist(ops.fwd, dist, frontier, ctx.n_out,
+                            row_offset=ctx.row_offset)
 
     @staticmethod
     def reach_lanes(ops, lanes, visited, ctx):
-        return ell_reach_lanes(ops.fwd, lanes, ctx.n_out)
+        return ell_reach_lanes(ops.fwd, lanes, ctx.n_out,
+                               row_offset=ctx.row_offset)
 
     @staticmethod
     def min_parent(ops, frontier, visited, ctx):
-        return ell_min_parent(ops.fwd, frontier, ctx.n_out)
+        return ell_min_parent(ops.fwd, frontier, ctx.n_out,
+                              row_offset=ctx.row_offset,
+                              row_base=ctx.row_base)
 
     @staticmethod
     def min_parent_lanes(ops, lanes, visited, ctx):
-        return ell_min_parent_lanes(ops.fwd, lanes, ctx.n_out)
+        return ell_min_parent_lanes(ops.fwd, lanes, ctx.n_out,
+                                    row_offset=ctx.row_offset,
+                                    row_base=ctx.row_base)
 
     @staticmethod
     def reach_parent_dense(ops, frontier, visited, ctx):
@@ -450,34 +651,48 @@ def _suppress(x, visited, value):
 
 
 class PullBackend:
-    """Gather over the padded reverse ELL with visited suppression."""
+    """Gather over the padded reverse ELL with visited suppression. The
+    ``_`` cores take the global activation tensor and return the
+    shard's rows placed into the global contribution."""
 
     name = "ell_pull"
 
     @staticmethod
     def _reach_dense(ops, gf, visited, ctx):
-        return _suppress(_gather_any(ops.rev.indices, _extended(gf, False)),
-                         visited, False)
+        rows = ops.rev.n_nodes
+        r = _gather_any(ops.rev.indices, _extended(gf, False))
+        return _place_rows(
+            _suppress(r, _local_state(visited, rows, ctx), False), ctx,
+            False)
 
     @staticmethod
     def _reach_lanes(ops, gl, visited, ctx):
-        return _suppress(_gather_lanes(ops.rev.indices, _extended(gl, 0)),
-                         visited, 0)
+        rows = ops.rev.n_nodes
+        r = _gather_lanes(ops.rev.indices, _extended(gl, 0))
+        return _place_rows(
+            _suppress(r, _local_state(visited, rows, ctx), 0), ctx, 0)
 
     @staticmethod
     def _min_parent(ops, gf, visited, ctx):
+        rows = ops.rev.n_nodes
         cand = _gather_min_parent(ops.rev.indices, _extended(gf, False))
-        return _suppress(cand, visited, NO_PARENT)
+        return _place_rows(
+            _suppress(cand, _local_state(visited, rows, ctx), NO_PARENT),
+            ctx, NO_PARENT)
 
     @staticmethod
     def _min_parent_lanes(ops, gl, visited, ctx):
+        rows = ops.rev.n_nodes
         cand = _gather_min_parent_lanes(ops.rev.indices, _extended(gl, 0))
-        return _suppress(cand, visited, NO_PARENT)
+        return _place_rows(
+            _suppress(cand, _local_state(visited, rows, ctx), NO_PARENT),
+            ctx, NO_PARENT)
 
     @staticmethod
     def _min_dist(ops, gdu, ctx):
-        return _gather_min_dist(ops.rev.indices, ops.rev.weights,
+        cand = _gather_min_dist(ops.rev.indices, ops.rev.weights,
                                 _extended(gdu, INF))
+        return _place_rows(cand, ctx, INF)
 
 
 class BinnedPullBackend:
@@ -503,51 +718,59 @@ class BinnedPullBackend:
 
     @staticmethod
     def _reach_dense(ops, gf, visited, ctx):
+        bn = ops.rev_binned
         ext = _extended(gf, False)
         dev = gf.device
         reached = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda b, s: _gather_any(s, ext),
+            bn, lambda b, s: _gather_any(s, ext),
             lambda r: torch.zeros(r, dtype=torch.bool, device=dev),
         )
-        return _suppress(reached, visited, False)
+        vloc = _local_state(visited, bn.rows_local, ctx)
+        return _place_rows(_suppress(reached, vloc, False), ctx, False)
 
     @staticmethod
     def _reach_lanes(ops, gl, visited, ctx):
+        bn = ops.rev_binned
         ext = _extended(gl, 0)
         n_lanes = gl.shape[-1]
         reached = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda b, s: _gather_lanes(s, ext),
+            bn, lambda b, s: _gather_lanes(s, ext),
             lambda r: torch.zeros((r, n_lanes), dtype=gl.dtype,
                                   device=gl.device),
         )
-        return _suppress(reached, visited, 0)
+        vloc = _local_state(visited, bn.rows_local, ctx)
+        return _place_rows(_suppress(reached, vloc, 0), ctx, 0)
 
     @staticmethod
     def _min_parent(ops, gf, visited, ctx):
+        bn = ops.rev_binned
         ext = _extended(gf, False)
         cand = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda b, s: _gather_min_parent(s, ext),
+            bn, lambda b, s: _gather_min_parent(s, ext),
             lambda r: torch.full((r,), NO_PARENT, dtype=torch.int32,
                                  device=gf.device),
         )
-        return _suppress(cand, visited, NO_PARENT)
+        vloc = _local_state(visited, bn.rows_local, ctx)
+        return _place_rows(_suppress(cand, vloc, NO_PARENT), ctx, NO_PARENT)
 
     @staticmethod
     def _min_parent_lanes(ops, gl, visited, ctx):
+        bn = ops.rev_binned
         ext = _extended(gl, 0)
         n_lanes = gl.shape[-1]
         cand = BinnedPullBackend._binned_map(
-            ops.rev_binned, lambda b, s: _gather_min_parent_lanes(s, ext),
+            bn, lambda b, s: _gather_min_parent_lanes(s, ext),
             lambda r: torch.full((r, n_lanes), NO_PARENT, dtype=torch.int32,
                                  device=gl.device),
         )
-        return _suppress(cand, visited, NO_PARENT)
+        vloc = _local_state(visited, bn.rows_local, ctx)
+        return _place_rows(_suppress(cand, vloc, NO_PARENT), ctx, NO_PARENT)
 
     @staticmethod
     def _min_dist(ops, gdu, ctx):
         bn = ops.rev_binned
         ext = _extended(gdu, INF)
-        return BinnedPullBackend._binned_map(
+        cand = BinnedPullBackend._binned_map(
             bn,
             lambda b, s: _gather_min_dist(
                 s, None if bn.slab_weights is None else bn.slab_weights[b][0],
@@ -556,57 +779,86 @@ class BinnedPullBackend:
             lambda r: torch.full((r,), INF, dtype=torch.float32,
                                  device=gdu.device),
         )
+        return _place_rows(cand, ctx, INF)
 
 
 class FusedBinnedPullBackend:
     """``pull_binned`` through the fused ``binned_pull`` kernel over the
-    row-padded pack; bit-identical to ``pull_binned``."""
+    row-padded pack of this rank's shard (``rows_local`` may be below
+    ``n_out``); bit-identical to ``pull_binned``."""
 
     name = "pull_binned_fused"
 
     @staticmethod
+    def _vloc(ops, visited, ctx):
+        return _local_state(visited, ops.rev_binned_pack.rows_local, ctx)
+
+    @staticmethod
     def _reach_dense(ops, gf, visited, ctx):
-        return _fused_pull(ops.rev_binned_pack, gf, visited,
-                           op="reach") != 0
+        r = _fused_pull(ops.rev_binned_pack, gf,
+                        FusedBinnedPullBackend._vloc(ops, visited, ctx),
+                        op="reach") != 0
+        return _place_rows(r, ctx, False)
 
     @staticmethod
     def _reach_lanes(ops, gl, visited, ctx):
-        return _fused_pull(ops.rev_binned_pack, gl, visited,
-                           op="reach_lanes")
+        r = _fused_pull(ops.rev_binned_pack, gl,
+                        FusedBinnedPullBackend._vloc(ops, visited, ctx),
+                        op="reach_lanes")
+        return _place_rows(r.to(gl.dtype), ctx, 0)
 
     @staticmethod
     def _min_parent(ops, gf, visited, ctx):
-        return _fused_pull(ops.rev_binned_pack, gf, visited,
+        cand = _fused_pull(ops.rev_binned_pack, gf,
+                           FusedBinnedPullBackend._vloc(ops, visited, ctx),
                            op="min_parent")
+        return _place_rows(cand, ctx, NO_PARENT)
 
     @staticmethod
     def _min_parent_lanes(ops, gl, visited, ctx):
-        return _fused_pull(ops.rev_binned_pack, gl, visited,
+        cand = _fused_pull(ops.rev_binned_pack, gl,
+                           FusedBinnedPullBackend._vloc(ops, visited, ctx),
                            op="min_parent_lanes")
+        return _place_rows(cand, ctx, NO_PARENT)
 
     @staticmethod
     def _min_dist(ops, gdu, ctx):
-        return _fused_pull(ops.rev_binned_pack, gdu, None, op="min_dist")
+        cand = _fused_pull(ops.rev_binned_pack, gdu, None, op="min_dist")
+        return _place_rows(cand, ctx, INF)
 
 
 def _pull_contract(cls):
-    """Public backend methods of a pull flavor from its cores (one device:
-    the frontier is already global, so there is no union to take first).
-    The additive push and the k-best relax have one physical form each,
-    the forward scatter and the reverse gather."""
+    """Public backend methods of a pull flavor from its cores: the
+    frontier (or the masked distance) is made global first, once per
+    call. The additive push and the k-best relax have one physical form
+    each, the forward scatter and the reverse gather."""
     cls.min_dist = staticmethod(lambda ops, dist, frontier, ctx: cls._min_dist(
-        ops, torch.where(frontier != 0, dist, INF), ctx))
+        ops, _global_min(torch.where(frontier != 0, dist, INF), ctx, INF),
+        ctx))
     cls.push_sum = staticmethod(PushBackend.push_sum)
     cls.min_topk = staticmethod(_min_topk_pull)
-    cls.reach_dense = staticmethod(cls._reach_dense)
-    cls.reach_lanes = staticmethod(cls._reach_lanes)
-    cls.min_parent = staticmethod(cls._min_parent)
-    cls.min_parent_lanes = staticmethod(cls._min_parent_lanes)
-    cls.reach_parent_dense = staticmethod(lambda ops, f, v, ctx: (
-        cls._reach_dense(ops, f, v, ctx), cls._min_parent(ops, f, v, ctx)))
-    cls.reach_parent_lanes = staticmethod(lambda ops, f, v, ctx: (
-        cls._reach_lanes(ops, f, v, ctx),
-        cls._min_parent_lanes(ops, f, v, ctx)))
+    cls.reach_dense = staticmethod(lambda ops, f, v, ctx: cls._reach_dense(
+        ops, _global_or(f, ctx), v, ctx))
+    cls.reach_lanes = staticmethod(lambda ops, f, v, ctx: cls._reach_lanes(
+        ops, _global_or(f, ctx), v, ctx))
+    cls.min_parent = staticmethod(lambda ops, f, v, ctx: cls._min_parent(
+        ops, _global_or(f, ctx), v, ctx))
+    cls.min_parent_lanes = staticmethod(
+        lambda ops, f, v, ctx: cls._min_parent_lanes(
+            ops, _global_or(f, ctx), v, ctx))
+
+    def reach_parent_dense(ops, f, v, ctx):
+        gf = _global_or(f, ctx)  # one union serves both scans
+        return cls._reach_dense(ops, gf, v, ctx), cls._min_parent(
+            ops, gf, v, ctx)
+
+    def reach_parent_lanes(ops, f, v, ctx):
+        gl = _global_or(f, ctx)
+        return cls._reach_lanes(ops, gl, v, ctx), cls._min_parent_lanes(
+            ops, gl, v, ctx)
+
+    cls.reach_parent_dense = staticmethod(reach_parent_dense)
+    cls.reach_parent_lanes = staticmethod(reach_parent_lanes)
     return cls
 
 
@@ -632,9 +884,10 @@ class BlockBackend:
         bsz = sb.block_size
         rows = ops.fwd.n_nodes
         n_lanes = lanes.shape[-1]
+        local = _local_state(lanes, rows, ctx)
         out = extend_blocks(
             sb.blocks[0], sb.block_rows[0], sb.block_cols[0],
-            lanes.reshape(rows // bsz, bsz, n_lanes), g_out=ctx.n_out // bsz,
+            local.reshape(rows // bsz, bsz, n_lanes), g_out=ctx.n_out // bsz,
         )
         return out.reshape(ctx.n_out, n_lanes)
 
@@ -680,10 +933,14 @@ class BlockBackend:
 # ---------------------------------------------------------------------------
 
 
-def _predicate_locals(ops, frontier, visited):
-    """``(n_f, m_f, m_u, unvis)``: active-row count, frontier out-edge
-    mass, unexplored out-edge mass (float32 device scalars) and the
-    unvisited-row mask (None when the compute keeps no visited set)."""
+def _predicate_locals(ops, frontier, visited, ctx: ExtendCtx):
+    """This shard's ``(n_f, m_f, m_u, unvis)``: active-row count, frontier
+    out-edge mass, unexplored out-edge mass (float32 device scalars,
+    before the sum over the graph axes) and the unvisited-row mask (None
+    when the compute keeps no visited set)."""
+    rows = ops.fwd.n_nodes
+    frontier = _local_state(frontier, rows, ctx)
+    visited = _local_state(visited, rows, ctx)
     act = (frontier != 0) if frontier.ndim == 1 else (frontier != 0).any(-1)
     deg = ops.fwd.degrees.to(torch.float32)
     n_f = act.sum(dtype=torch.float32)
@@ -707,11 +964,12 @@ BYTES_PER_SLOT = 5.0
 def frontier_stats(ops, state, ctx: ExtendCtx, bin_widths=None):
     """One per-iteration sample for the online direction-threshold
     learner: ``[n_f, m_f, m_u, pull_slots_binned, wall_ms, pull_bytes]``
-    float32 of the state about to extend. ``wall_ms`` is host-filled
-    (-1 here); the slot columns are -1 when ``bin_widths`` (this graph's
-    per-row binned slab widths) is None."""
+    float32 of the state about to extend, summed over ``ctx.axes``.
+    ``wall_ms`` is host-filled (-1 here); the slot columns are -1 when
+    ``bin_widths`` (this shard's per-row binned slab widths) is None."""
     visited = getattr(state, "visited", None)
-    n_f, m_f, m_u, unvis = _predicate_locals(ops, state.frontier, visited)
+    n_f, m_f, m_u, unvis = _predicate_locals(ops, state.frontier, visited,
+                                             ctx)
     if bin_widths is None:
         pull = torch.zeros((), dtype=torch.float32, device=n_f.device)
     elif unvis is None:
@@ -719,6 +977,9 @@ def frontier_stats(ops, state, ctx: ExtendCtx, bin_widths=None):
     else:
         pull = (bin_widths * unvis).sum()
     minus1 = torch.full((), -1.0, dtype=torch.float32, device=n_f.device)
+    if ctx.axes:
+        n_f, m_f, m_u, pull = psum(torch.stack([n_f, m_f, m_u, pull]),
+                                   ctx.axes).unbind(0)
     if bin_widths is None:
         return torch.stack([n_f, m_f, m_u, minus1, minus1, minus1])
     return torch.stack([n_f, m_f, m_u, pull, minus1, pull * BYTES_PER_SLOT])
@@ -739,8 +1000,10 @@ def stats_bin_widths(ops: GraphOperands):
 
 
 class AutoBackend:
-    """Per-iteration push/pull choice. The predicate is read on the host
-    (one device-to-host sync per iteration) and exactly one branch runs."""
+    """Per-iteration push/pull choice. The predicate's inputs are summed
+    over the graph axes and read on the host (one sync per iteration),
+    so every rank of a group takes the same branch, and exactly one
+    branch runs; the pull branch makes its frontier global first."""
 
     name = "dopt"
 
@@ -754,40 +1017,47 @@ class AutoBackend:
         }[spec.pull]
 
     def use_pull(self, ops, frontier, visited, ctx) -> bool:
-        n_f, m_f, m_u, _ = _predicate_locals(ops, frontier, visited)
+        n_f, m_f, m_u, _ = _predicate_locals(ops, frontier, visited, ctx)
         alpha = torch.tensor(self.alpha, dtype=torch.float32)
         beta = torch.tensor(self.beta, dtype=torch.float32)
-        stats = torch.stack([n_f, m_f, m_u]).cpu()
-        n_f, m_f, m_u = stats[0], stats[1], stats[2]
+        stats = torch.stack([n_f, m_f, m_u])
+        if ctx.axes:
+            stats = psum(stats, ctx.axes)
+        n_f, m_f, m_u = stats.cpu().unbind(0)
         # float32 products, like the JAX predicate
         return bool((m_f * alpha > m_u) & (n_f * beta > ctx.n_out))
 
     def reach_dense(self, ops, frontier, visited, ctx):
         if self.use_pull(ops, frontier, visited, ctx):
-            return self.pull_be._reach_dense(ops, frontier, visited, ctx)
+            return self.pull_be._reach_dense(
+                ops, _global_or(frontier, ctx), visited, ctx)
         return PushBackend.reach_dense(ops, frontier, visited, ctx)
 
     def reach_lanes(self, ops, lanes, visited, ctx):
         if self.use_pull(ops, lanes, visited, ctx):
-            return self.pull_be._reach_lanes(ops, lanes, visited, ctx)
+            return self.pull_be._reach_lanes(
+                ops, _global_or(lanes, ctx), visited, ctx)
         return PushBackend.reach_lanes(ops, lanes, visited, ctx)
 
     def min_parent(self, ops, frontier, visited, ctx):
         if self.use_pull(ops, frontier, visited, ctx):
-            return self.pull_be._min_parent(ops, frontier, visited, ctx)
+            return self.pull_be._min_parent(
+                ops, _global_or(frontier, ctx), visited, ctx)
         return PushBackend.min_parent(ops, frontier, visited, ctx)
 
     def min_parent_lanes(self, ops, lanes, visited, ctx):
         if self.use_pull(ops, lanes, visited, ctx):
-            return self.pull_be._min_parent_lanes(ops, lanes, visited, ctx)
+            return self.pull_be._min_parent_lanes(
+                ops, _global_or(lanes, ctx), visited, ctx)
         return PushBackend.min_parent_lanes(ops, lanes, visited, ctx)
 
     def min_dist(self, ops, dist, frontier, ctx):
         # the relax keeps no visited set: the predicate's unexplored mass
         # is the total minus the frontier's
         if self.use_pull(ops, frontier, None, ctx):
-            return self.pull_be._min_dist(
-                ops, torch.where(frontier != 0, dist, INF), ctx)
+            gdu = _global_min(torch.where(frontier != 0, dist, INF), ctx,
+                              INF)
+            return self.pull_be._min_dist(ops, gdu, ctx)
         return PushBackend.min_dist(ops, dist, frontier, ctx)
 
     # the additive push and the k-best relax have one physical form each
@@ -796,16 +1066,16 @@ class AutoBackend:
 
     def reach_parent_dense(self, ops, frontier, visited, ctx):
         if self.use_pull(ops, frontier, visited, ctx):
-            return (self.pull_be._reach_dense(ops, frontier, visited, ctx),
-                    self.pull_be._min_parent(ops, frontier, visited, ctx))
+            gf = _global_or(frontier, ctx)
+            return (self.pull_be._reach_dense(ops, gf, visited, ctx),
+                    self.pull_be._min_parent(ops, gf, visited, ctx))
         return PushBackend.reach_parent_dense(ops, frontier, visited, ctx)
 
     def reach_parent_lanes(self, ops, lanes, visited, ctx):
         if self.use_pull(ops, lanes, visited, ctx):
-            return (
-                self.pull_be._reach_lanes(ops, lanes, visited, ctx),
-                self.pull_be._min_parent_lanes(ops, lanes, visited, ctx),
-            )
+            gl = _global_or(lanes, ctx)
+            return (self.pull_be._reach_lanes(ops, gl, visited, ctx),
+                    self.pull_be._min_parent_lanes(ops, gl, visited, ctx))
         return PushBackend.reach_parent_lanes(ops, lanes, visited, ctx)
 
 
@@ -881,7 +1151,8 @@ class BackendCostProbe:
         ctx = ExtendCtx(n_out=n_pad)
         dev = ops.device
         frontier = torch.arange(n_pad, device=dev) < max(n_pad // 2, 1)
-        visited = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+        # this rank's rows (all rows on one device)
+        visited = torch.zeros(ops.fwd.n_nodes, dtype=torch.bool, device=dev)
         probes = {"ell_push": (PushBackend, int(ops.fwd.indices.numel()))}
         if ops.rev_binned is not None:
             probes["pull_binned"] = (

@@ -2,9 +2,9 @@
 (port of ``repro.core.policies``; host-side numpy, same rules).
 
 A policy names which mesh axes shard source morsels and which partition
-the graph. The port runs on one device, where every axis has size 1, so
-the names select the execution shape (source morsels, lane width, phase
-split) rather than a device layout. ``recommend_policy``'s memory bound
+the graph (``launch.mesh.Mesh``: one process per rank). On one device
+every axis has size 1 and the names select only the execution shape
+(source morsels, lane width, phase split). ``recommend_policy``'s memory bound
 takes the device's total memory from the caller (the dispatcher passes
 the CUDA device's ``total_memory``).
 """

@@ -13,6 +13,10 @@
   adjacency matrix plus tile coordinates, the operand of the MS-BFS block
   kernel.
 
+Per-shard builders (``binned_plan`` / ``binned_rev_shard``, ``ell_shard``,
+``sharded_blocks_nb`` / ``sharded_blocks_shard``) build one rank's shard
+alone, bitwise equal to the matching slice of the whole-graph build.
+
 The builders are the JAX package's numpy builders, unchanged; they return
 CPU tensors (``torch.from_numpy``), which callers move to their device.
 Node ids are int32 throughout.
@@ -224,7 +228,8 @@ class BinnedRevEll:
     binned position ``p`` (``rows_local`` at slab-padding positions) and
     ``inv[k, r]`` the binned position of local row ``r``, so the
     concatenated per-slab results gathered at ``inv`` are back in row
-    order. ``K`` is the graph shard count (1 on one device)."""
+    order. ``K`` is the number of graph shards stacked (1 on one device
+    and on a rank of a mesh, which holds only its own shard)."""
 
     slabs: tuple  # of [K, rows_b, width_b] int32 per bucket
     perm: torch.Tensor  # [K, rows_binned] int32
@@ -366,6 +371,151 @@ def binned_rev_csr(
 
 
 @dataclasses.dataclass(frozen=True)
+class BinnedPlan:
+    """Shard-independent layout of the degree-binned reverse slabs:
+    everything that couples shards in ``binned_rev_csr`` (bucket edges
+    from the global degree histogram, the common max-over-shards slab row
+    counts, the row-to-bucket map) in one O(n) pass, so one shard's slabs
+    can be built from its own reverse rows alone (``binned_rev_shard``)."""
+
+    widths: tuple  # per-bucket slab width; widths[0] == 0
+    rows_b: np.ndarray  # [n_buckets] common slab row counts
+    bucket_of: np.ndarray  # [n_pad] bucket id per padded row
+    degs: np.ndarray  # [n_pad] effective in-degree per padded row
+    shards: int
+    n_pad: int
+
+    @property
+    def rows_local(self) -> int:
+        return self.n_pad // self.shards
+
+    @property
+    def rows_binned(self) -> int:
+        return int(self.rows_b.sum())
+
+
+def binned_plan(
+    rev_degs: np.ndarray,
+    n_pad: int,
+    shards: int = 1,
+    max_overhead: float = 1.1,
+) -> BinnedPlan:
+    """The planning pass of ``binned_rev_csr`` without edge data;
+    ``rev_degs`` is the effective graph's in-degree histogram."""
+    if n_pad % max(shards, 1):
+        raise ValueError(f"n_pad={n_pad} is not divisible by {shards}")
+    rows_local = n_pad // shards
+    degs = np.zeros(n_pad, np.int64)
+    degs[: len(rev_degs)] = rev_degs
+    nz_edges = _degree_bucket_edges(degs, max_overhead)
+    bucket_of = np.zeros(n_pad, np.int64)
+    widths = [0]
+    for b, (lo, hi) in enumerate(nz_edges, start=1):
+        bucket_of[(degs >= lo) & (degs <= hi)] = b
+        widths.append(hi)
+    shard_of = np.arange(n_pad, dtype=np.int64) // rows_local
+    counts = np.zeros((shards, len(widths)), np.int64)
+    np.add.at(counts, (shard_of, bucket_of), 1)
+    return BinnedPlan(
+        widths=tuple(widths),
+        rows_b=counts.max(axis=0),
+        bucket_of=bucket_of,
+        degs=degs,
+        shards=shards,
+        n_pad=n_pad,
+    )
+
+
+def binned_rev_shard(
+    plan: BinnedPlan, k: int, rev_local: CSRGraph
+) -> BinnedRevEll:
+    """Shard ``k``'s slice (leading axis 1) of ``binned_rev_csr``, built
+    from the shard's own reverse rows (``partition.reverse_shard``):
+    slots within one (shard, bucket) ascend by local row and in-neighbor
+    lists keep the stable by-destination edge order, so the slice equals
+    the wholesale build's ``[k:k+1]`` bitwise."""
+    rl = plan.rows_local
+    n_pad = plan.n_pad
+    bucket_k = plan.bucket_of[k * rl : (k + 1) * rl]
+    degs_k = plan.degs[k * rl : (k + 1) * rl]
+    n_buckets = len(plan.widths)
+    starts = np.cumsum(plan.rows_b) - plan.rows_b
+
+    local = np.arange(rl, dtype=np.int64)
+    order = np.argsort(bucket_k, kind="stable")
+    o_bucket, o_local = bucket_k[order], local[order]
+    run_start = np.concatenate(
+        [[0], np.cumsum(np.bincount(o_bucket, minlength=n_buckets))]
+    )[:-1]
+    slot_in_bucket = np.arange(rl, dtype=np.int64) - run_start[o_bucket]
+    pos = starts[o_bucket] + slot_in_bucket
+
+    perm = np.full((1, plan.rows_binned), rl, np.int32)
+    perm[0, pos] = o_local.astype(np.int32)
+    inv = np.zeros((1, rl), np.int32)
+    inv[0, o_local] = pos.astype(np.int32)
+
+    has_w = rev_local.weights is not None
+    slabs, slab_w = [], []
+    for b in range(n_buckets):
+        w = plan.widths[b]
+        rb = int(plan.rows_b[b])
+        slab = np.full((1, rb, w), n_pad, np.int32)
+        wslab = np.zeros((1, rb, w), np.float32) if has_w else None
+        if w > 0:
+            sel = o_bucket == b
+            rows = o_local[sel]
+            kept = degs_k[rows]
+            flat = np.repeat(np.arange(len(rows)), kept)
+            slots = np.arange(int(kept.sum()), dtype=np.int64) - np.repeat(
+                np.cumsum(kept) - kept, kept
+            )
+            src = rev_local.indptr[rows][flat] + slots
+            slab[0, slot_in_bucket[sel][flat], slots] = rev_local.indices[src]
+            if has_w:
+                wslab[0, slot_in_bucket[sel][flat], slots] = (
+                    rev_local.weights[src]
+                )
+        slabs.append(_t(slab))
+        if has_w:
+            slab_w.append(_t(wslab))
+    return BinnedRevEll(
+        slabs=tuple(slabs),
+        perm=_t(perm),
+        inv=_t(inv),
+        slab_weights=tuple(slab_w) if has_w else None,
+    )
+
+
+def ell_shard(
+    csr: CSRGraph, lo: int, hi: int, cap: int, sentinel: int
+) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """Rows ``[lo, hi)`` of the padded ELL slab as host numpy
+    ``(indices [rows, cap], degrees [rows], weights or None)``: the
+    row-range counterpart of ``pad_ell(ell_from_csr(csr), ...)``. ``cap``
+    is the global row width and ``sentinel`` the padded node count; rows
+    at or past ``csr.n_nodes`` are pad rows (all sentinel, degree 0)."""
+    n = csr.n_nodes
+    rows = hi - lo
+    lo_r, hi_r = min(lo, n), min(hi, n)
+    indices = np.full((rows, cap), sentinel, np.int32)
+    degs = np.zeros(rows, np.int32)
+    w = np.zeros((rows, cap), np.float32) if csr.weights is not None else None
+    if hi_r > lo_r and cap > 0:
+        sub = csr.indptr[lo_r : hi_r + 1] - csr.indptr[lo_r]
+        r, s, p = _ell_slot_positions(sub, cap)
+        base = csr.indptr[lo_r]
+        indices[r, s] = csr.indices[base + p]
+        if w is not None:
+            w[r, s] = csr.weights[base + p]
+    if hi_r > lo_r:
+        degs[: hi_r - lo_r] = np.minimum(
+            csr.degrees[lo_r:hi_r], cap
+        ).astype(np.int32)
+    return indices, degs, w
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockAdjacency:
     """Block-sparse 0/1 adjacency: only ``[B, B]`` tiles holding an edge
     are stored, with their (src-block, dst-block) coordinates and a CSR
@@ -452,6 +602,75 @@ def sharded_blocks_from_csr(
         blocks=_t(out_blocks),
         block_rows=_t(out_rows),
         block_cols=_t(out_cols),
+    )
+
+
+def sharded_blocks_nb(
+    csr: CSRGraph, n_pad: int, shards: int, block: int = 128
+) -> int:
+    """The common per-shard tile count of ``sharded_blocks_from_csr``:
+    the one global quantity a per-shard block build needs."""
+    if n_pad % (shards * block):
+        raise ValueError(f"n_pad={n_pad} not divisible by {shards}*{block}")
+    rows_local = n_pad // shards
+    rb = rows_local // block
+    g = n_pad // block
+    src, dst = csr.edge_list()
+    src = src.astype(np.int64)
+    key = ((src // rows_local) * rb + (src % rows_local) // block) * g + (
+        dst.astype(np.int64) // block
+    )
+    uniq = np.unique(key)
+    if not len(uniq):
+        return 1
+    counts = np.bincount(uniq // (rb * g), minlength=shards)
+    return max(int(counts.max()), 1)
+
+
+def sharded_blocks_shard(
+    csr: CSRGraph,
+    n_pad: int,
+    shards: int,
+    nb: int,
+    f_lo: int,
+    f_hi: int,
+    block: int = 128,
+) -> ShardedBlocks:
+    """Fine shards ``[f_lo, f_hi)`` of ``sharded_blocks_from_csr``
+    (leading axis ``f_hi - f_lo``), built from those shards' edges only;
+    ``nb`` is the global common tile count (``sharded_blocks_nb``). A
+    shard's edges are a contiguous CSR row range and ``np.unique`` over
+    its keys keeps the global key order, so the slices equal the
+    wholesale build's bitwise."""
+    rows_local = n_pad // shards
+    rb = rows_local // block
+    g = n_pad // block
+    n = csr.n_nodes
+    span = f_hi - f_lo
+    lo = min(f_lo * rows_local, n)
+    hi = min(f_hi * rows_local, n)
+    e_lo, e_hi = int(csr.indptr[lo]), int(csr.indptr[hi])
+    out_blocks = np.zeros((span, nb, block, block), np.int8)
+    out_rows = np.zeros((span, nb), np.int32)
+    out_cols = np.full((span, nb), g, np.int32)  # sentinel col
+    if e_hi > e_lo:
+        pos = np.arange(e_lo, e_hi, dtype=np.int64)
+        src = np.searchsorted(csr.indptr, pos, side="right") - 1
+        dst = csr.indices[e_lo:e_hi].astype(np.int64)
+        shard = src // rows_local
+        key = (shard * rb + (src % rows_local) // block) * g + dst // block
+        uniq, inv = np.unique(key, return_inverse=True)
+        tiles = np.zeros((len(uniq), block, block), np.int8)
+        tiles[inv, src % block, dst % block] = 1
+        u_shard = (uniq // (rb * g)).astype(np.int64) - f_lo
+        counts = np.bincount(u_shard, minlength=span)
+        starts = np.cumsum(counts) - counts
+        slot = np.arange(len(uniq)) - starts[u_shard]
+        out_blocks[u_shard, slot] = tiles
+        out_rows[u_shard, slot] = ((uniq // g) % rb).astype(np.int32)
+        out_cols[u_shard, slot] = (uniq % g).astype(np.int32)
+    return ShardedBlocks(
+        blocks=_t(out_blocks), block_rows=_t(out_rows), block_cols=_t(out_cols)
     )
 
 

@@ -31,7 +31,9 @@ class BinnedPullPack:
     and perm/inverse contract, every nonzero-width slab row-padded to a
     multiple of its ``tile_rows`` (pad rows all-sentinel), and the
     permutation pair re-indexed into the padded position space. ``K`` is
-    the graph shard count (1 on one device)."""
+    the number of graph shards stacked (1 on a rank of a mesh, which
+    builds only its own shard: ``rows_local`` is then ``n_out`` over the
+    shard count and the wrapper's ``gsrc`` stays global)."""
 
     slabs: tuple  # of [K, rows_pad_b, width_b] int32 (nonzero-width)
     inv_pad: torch.Tensor  # [K, rows_local] int32 (local row -> padded pos)
@@ -151,7 +153,8 @@ def binned_pull(
     op: str,
     use_ref: bool = False,
 ) -> torch.Tensor:
-    """Fused pull extension of shard 0 of ``pack``. Returns
+    """Fused pull extension of shard 0 of ``pack`` (a rank's own shard)
+    over the global source tensor ``gsrc [n_out]``. Returns
     ``[rows_local]`` (``[rows_local, L]`` for the lane ops): uint8 reach
     mask, int32 min-parent or float32 distance. A CPU ``gsrc`` (or
     ``use_ref``) runs the plain version; a CUDA ``gsrc`` launches the

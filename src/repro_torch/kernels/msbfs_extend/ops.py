@@ -63,7 +63,9 @@ def extend_blocks(
 ) -> torch.Tensor:
     """Reach mask ``[g_out, B, L]`` uint8 of one extension over the
     tiles: the plain version for a CPU tensor (or ``use_ref``), the CUDA
-    kernel for a CUDA tensor."""
+    kernel for a CUDA tensor. On a rank of a mesh the tiles are its shard's
+    (``operand_stream(...).build_shard``): ``lanes`` holds the shard's row
+    blocks and ``g_out`` every destination block of the graph."""
     if use_ref or lanes.device.type == "cpu":
         return msbfs_extend_ref(blocks, block_rows, block_cols, lanes, g_out)
     return msbfs_extend_blocks(blocks, block_rows, block_cols, lanes, g_out)

@@ -1,6 +1,7 @@
 """Recursive-query serving driver (port of ``repro.launch.serve``).
 
-A resident query service over one graph on one device: operands are
+A resident query service over one graph (one device, or a mesh of ranks
+under torchrun, below): operands are
 built once, engines are built per (kind x policy x edge compute x
 backend) into a shared cache and reused across request batches, and each
 batch runs the paper's hybrid (phase 1 issues source-level morsels under
@@ -35,11 +36,26 @@ lane-packed.
         --dataset ldbc --scale 10 --arrivals 20
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
+
+Under torchrun (``WORLD_SIZE`` > 1) every rank serves on the mesh of
+the JAX package's ``serve``, ``(1, WORLD_SIZE)`` over ``("data",
+"model")``, and holds its own graph shards: rank 0 runs either loop and
+prints, ranks > 0 replay its dispatcher calls (``QueryDispatcher.follow``).
+The collective backend is NCCL when each rank takes its own card (no
+``--device``) and gloo when every rank is given the one ``--device``:
+``--device cpu``, or ``--device cuda:0`` for ranks that share one card.
+``--mutate-stream`` needs one rank::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 \
+        -m repro_torch.launch.serve --closed-loop --scale 10 --batches 8
+    PYTHONPATH=src torchrun --nproc-per-node 2 \
+        -m repro_torch.launch.serve --device cpu --closed-loop --scale 0.1
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
@@ -54,8 +70,10 @@ from ..graph.generators import (
     pick_sources,
 )
 from ..kernels.common import resolve_device, synchronize
+from ..runtime.dispatch import QueryDispatcher
 from ..runtime.scheduler import AdaptiveScheduler
 from ..runtime.service import ServingLoop
+from .mesh import Mesh, as_mesh, init_distributed, make_mesh
 
 
 class QueryService:
@@ -63,16 +81,17 @@ class QueryService:
     over ``AdaptiveScheduler`` whose ``query`` returns
     ``(IFEResult, policy_name)``."""
 
-    def __init__(self, device, csr, max_deg=None, max_iters=64,
+    def __init__(self, mesh, csr, max_deg=None, max_iters=64,
                  adaptive=True, backend="recommend",
                  direction_thresholds=None, family=None, online_adapt=True,
                  refit_every=16, cost="auto"):
-        self.device = resolve_device(device)
+        self.mesh = as_mesh(mesh)
+        self.device = self.mesh.device
         self.csr = csr
         self.max_iters = max_iters
         self.max_deg = max_deg
         self.scheduler = AdaptiveScheduler(
-            self.device, csr, max_deg=max_deg, max_iters=max_iters,
+            self.mesh, csr, max_deg=max_deg, max_iters=max_iters,
             adaptive=adaptive, backend=backend,
             direction_thresholds=direction_thresholds, family=family,
             online_adapt=online_adapt, refit_every=refit_every, cost=cost,
@@ -174,15 +193,34 @@ def _report_core(sched, used=None) -> None:
         )
 
 
-def run_open_loop(args, csr, device, family,
-                  on_stream: Callable[[StreamRecord], None] | None = None
-                  ) -> int:
-    loop = ServingLoop(
-        device, csr, adaptive=not args.static, backend=args.backend,
+def open_loop_dispatcher(args, csr, mesh, family) -> QueryDispatcher:
+    """The open loop's dispatcher (every rank of a mesh builds the same)."""
+    return QueryDispatcher(
+        mesh, csr, adaptive=not args.static, backend=args.backend,
         direction_thresholds=args.thresholds, family=family,
         online_adapt=args.online_adapt, refit_every=args.refit_every,
+        cost=args.cost_mode, pad_pow2_morsels=True,
+    )
+
+
+def closed_loop_service(args, csr, mesh, family) -> QueryService:
+    """The closed loop's service (every rank of a mesh builds the same)."""
+    return QueryService(mesh, csr, adaptive=not args.static,
+                        backend=args.backend,
+                        direction_thresholds=args.thresholds, family=family,
+                        online_adapt=args.online_adapt,
+                        refit_every=args.refit_every, cost=args.cost_mode)
+
+
+def run_open_loop(args, csr, mesh, family,
+                  on_stream: Callable[[StreamRecord], None] | None = None
+                  ) -> int:
+    disp = open_loop_dispatcher(args, csr, mesh, family)
+    disp.leading = True  # ranks > 0 replay its calls
+    loop = ServingLoop(
+        dispatcher=disp,
         overlap=args.overlap, tenant_quota=args.quota,
-        max_batch_sources=args.max_batch_sources, cost=args.cost_mode,
+        max_batch_sources=args.max_batch_sources,
     )
     arrivals = poisson_arrivals(
         csr, args.rate, args.arrivals, args.sources_per_batch,
@@ -209,7 +247,10 @@ def run_open_loop(args, csr, device, family,
            f"±{args.delta_edges} edges" if args.mutate_stream else "")
     )
     t0 = time.perf_counter()
-    loop.run_stream(arrivals)
+    try:
+        loop.run_stream(arrivals)
+    finally:
+        loop.dispatcher.release_followers()
     wall_s = time.perf_counter() - t0
     st = loop.stats
     print(
@@ -251,58 +292,58 @@ def run_open_loop(args, csr, device, family,
     return 0
 
 
-def run_closed_loop(args, csr, device, family,
+def run_closed_loop(args, csr, mesh, family,
                     on_batch: Callable[[BatchRecord], None] | None = None
                     ) -> int:
-    svc = QueryService(device, csr, adaptive=not args.static,
-                       backend=args.backend,
-                       direction_thresholds=args.thresholds, family=family,
-                       online_adapt=args.online_adapt,
-                       refit_every=args.refit_every, cost=args.cost_mode)
+    svc = closed_loop_service(args, csr, mesh, family)
+    svc.scheduler.leading = True  # ranks > 0 replay its calls
     rng = np.random.default_rng(0)
     lat, warm_lat, p1_ms, p2_ms, used = [], [], [], [], {}
     redispatched, cold_ms = 0, 0.0
     cache = svc.scheduler.cache
-    for b in range(args.batches):
-        sources = pick_sources(csr, args.sources_per_batch, seed=100 + b)
-        compiles0 = cache.compile_events
-        t0 = time.perf_counter()
-        res, pol = svc.query(sources, returns_paths=args.paths,
-                             policy=args.policy,
-                             query_kind=args.query_kind)
-        # a non-reach kind's result is its own leaves (dists / mass /
-        # wedges + closed): the sync times the whole state
-        if args.query_kind == "reach":
-            if args.paths and not pol.startswith("ntkms"):
-                dests = rng.integers(0, csr.n_nodes, 4).astype(np.int32)
-                reconstruct_paths(
-                    res.state.parents[0, : csr.n_nodes], dests, max_len=32
-                )
+    try:
+        for b in range(args.batches):
+            sources = pick_sources(csr, args.sources_per_batch, seed=100 + b)
+            compiles0 = cache.compile_events
+            t0 = time.perf_counter()
+            res, pol = svc.query(sources, returns_paths=args.paths,
+                                 policy=args.policy,
+                                 query_kind=args.query_kind)
+            # a non-reach kind's result is its own leaves (dists / mass /
+            # wedges + closed): the sync times the whole state
+            if args.query_kind == "reach":
+                if args.paths and not pol.startswith("ntkms"):
+                    dests = rng.integers(0, csr.n_nodes, 4).astype(np.int32)
+                    reconstruct_paths(
+                        res.state.parents[0, : csr.n_nodes], dests, max_len=32
+                    )
+                else:
+                    histogram_lengths(res.state.levels)
+            synchronize(svc.device)
+            dt = (time.perf_counter() - t0) * 1e3
+            lat.append(dt)
+            cold = cache.compile_events > compiles0
+            if cold:
+                cold_ms += dt
             else:
-                histogram_lengths(res.state.levels)
-        synchronize(svc.device)
-        dt = (time.perf_counter() - t0) * 1e3
-        lat.append(dt)
-        cold = cache.compile_events > compiles0
-        if cold:
-            cold_ms += dt
-        else:
-            warm_lat.append(dt)
-        used[pol] = used.get(pol, 0) + 1
-        out = svc.last_outcome
-        p1_ms.append(out.phase_ms["phase1"])
-        p2_ms.append(out.phase_ms["phase2"])
-        redispatched += out.redispatched
-        if on_batch is not None:
-            on_batch(BatchRecord(b, sources, res, pol, dt, cold))
-        if b < 3 or b == args.batches - 1:
-            phase = (
-                f"p1 {out.phase_ms['phase1']:7.1f} ms"
-                f" p2 {out.phase_ms['phase2']:7.1f} ms"
-                if out.hybrid else "static"
-            )
-            print(f"batch {b:3d}: {len(sources)} sources -> {pol:6s} "
-                  f"{dt:8.1f} ms  [{phase}]")
+                warm_lat.append(dt)
+            used[pol] = used.get(pol, 0) + 1
+            out = svc.last_outcome
+            p1_ms.append(out.phase_ms["phase1"])
+            p2_ms.append(out.phase_ms["phase2"])
+            redispatched += out.redispatched
+            if on_batch is not None:
+                on_batch(BatchRecord(b, sources, res, pol, dt, cold))
+            if b < 3 or b == args.batches - 1:
+                phase = (
+                    f"p1 {out.phase_ms['phase1']:7.1f} ms"
+                    f" p2 {out.phase_ms['phase2']:7.1f} ms"
+                    if out.hybrid else "static"
+                )
+                print(f"batch {b:3d}: {len(sources)} sources -> {pol:6s} "
+                      f"{dt:8.1f} ms  [{phase}]")
+    finally:
+        svc.scheduler.release_followers()
     p1_ms, p2_ms = map(np.asarray, (p1_ms, p2_ms))
     print(
         f"served {args.batches} batches ({args.batches - len(warm_lat)} "
@@ -326,7 +367,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=sorted(PAPER_DATASETS))
     ap.add_argument("--scale", type=float, default=0.5)
     ap.add_argument("--device", default=None,
-                    help="torch device to serve on (default: cuda; "
+                    help="torch device to serve on (default: cuda, the "
+                         "rank's card under torchrun, over NCCL; a device "
+                         "given under torchrun is every rank's, over gloo; "
                          "'cpu' runs the plain PyTorch path)")
     ap.add_argument("--closed-loop", action="store_true",
                     help="one-batch-at-a-time driver (implied by --paths); "
@@ -398,7 +441,46 @@ def main(argv=None,
     """Serve from the command line. ``on_batch`` receives each closed-loop
     batch, ``on_stream`` the drained open-loop stream."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, owned = _serving_mesh(args)
+    try:
+        return _serve(args, mesh, on_batch, on_stream)
+    finally:
+        if owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serving_mesh(args) -> tuple[Mesh, bool]:
+    """The one-rank mesh on ``--device``, or under torchrun (or inside a
+    process group already up) JAX ``serve``'s ``(1, WORLD_SIZE)`` mesh
+    over ``("data", "model")``; the flag says this call set the process
+    group up."""
+    import torch.distributed as dist
+
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world == 1:
+        return as_mesh(resolve_device(args.device)), False
+    if args.mutate_stream:
+        raise NotImplementedError(
+            "--mutate-stream on several ranks: graph deltas across ranks "
+            "are not ported (ROADMAP queue 1: deltas across ranks)"
+        )
+    # one card a rank takes NCCL; ranks given one device (the CPU, or a
+    # card they share, which NCCL refuses) take gloo
+    backend = "nccl" if args.device is None else "gloo"
+    owned = not dist.is_initialized()
+    if owned:
+        init_distributed(backend)
+    device = args.device
+    if device is None:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', dist.get_rank()))}"
+    return make_mesh((1, world), ("data", "model"), device), owned
+
+
+def _serve(args, mesh: Mesh, on_batch, on_stream) -> int:
+    device = mesh.device
     csr = PAPER_DATASETS[args.dataset](args.scale)
     if args.query_kind == "topk_paths" and csr.weights is None:
         # the k-shortest relax needs weights; the proxy datasets have
@@ -409,15 +491,24 @@ def main(argv=None,
             weights=rng.uniform(0.1, 2.0, csr.n_edges).astype(np.float32),
         )
     family = PAPER_DATASET_FAMILIES.get(args.dataset)
+    closed = args.closed_loop or args.paths
+    if mesh.rank > 0:
+        # a follower: the same dispatcher, driven by rank 0's calls
+        disp = (closed_loop_service(args, csr, mesh, family).scheduler
+                if closed else open_loop_dispatcher(args, csr, mesh, family))
+        disp.follow()
+        return 0
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    ranks = (f" x {mesh.size} ranks ({mesh.backend})" if mesh.size > 1
+             else "")
     print(
-        f"serving {args.dataset} proxy on {name}: {csr.n_nodes} nodes, "
-        f"{csr.n_edges} edges, avg degree {csr.avg_degree:.0f}"
+        f"serving {args.dataset} proxy on {name}{ranks}: {csr.n_nodes} "
+        f"nodes, {csr.n_edges} edges, avg degree {csr.avg_degree:.0f}"
     )
-    if args.closed_loop or args.paths:
-        return run_closed_loop(args, csr, device, family, on_batch=on_batch)
-    return run_open_loop(args, csr, device, family, on_stream=on_stream)
+    if closed:
+        return run_closed_loop(args, csr, mesh, family, on_batch=on_batch)
+    return run_open_loop(args, csr, mesh, family, on_stream=on_stream)
 
 
 if __name__ == "__main__":

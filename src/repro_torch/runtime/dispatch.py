@@ -1,5 +1,5 @@
 """Dispatch layer of the serving core: engine cache + two-phase hybrid
-(port of ``repro.runtime.dispatch`` on one ``torch.device``).
+(port of ``repro.runtime.dispatch`` on a mesh of ranks or one device).
 
 ``QueryDispatcher`` executes one batch of source nodes: the engine cache,
 the paper's two-phase hybrid (nTkS phase 1 under a learned budget,
@@ -24,12 +24,23 @@ What differs from the JAX package:
   events) on a CUDA device and "slots" on the CPU;
 - ``recommend_policy``'s memory bound reads the CUDA device's
   ``total_memory`` (16 GiB, the JAX default, on the CPU);
-- operand bundles are keyed on the extension spec alone (one device: the
-  policy's graph axes do not change the layout), so a dispatcher may hold
-  fewer bundles than JAX's and fold a delta into fewer of them;
+- operand bundles are keyed on the extension spec and the policy's
+  graph axes of size above 1 (on one device the spec alone), so a
+  dispatcher may hold fewer bundles than JAX's and fold a delta into
+  fewer of them;
 - ``apply_delta`` places each changed structure as new tensors (a copy,
-  also on the CPU) and times itself (``DeltaReport.ms``);
-- the sharded state layout is not ported (ROADMAP queue 1).
+  also on the CPU) and times itself (``DeltaReport.ms``); on a mesh of
+  more than one rank it raises (deltas across ranks are not ported);
+- on a mesh of ranks every rank runs its own dispatcher over its own
+  shards, either all making the same calls (SPMD, as the tests do) or
+  with rank 0 leading (``leading=True``, as ``serve`` runs it): each
+  ``begin_batch`` / ``settle_batch`` / finalize it runs is first
+  broadcast, and ranks > 0 replay them in order in ``follow`` until
+  ``release_followers``. Every decision that
+  picks a collective is the same on every rank: plans and learners feed
+  only on global values (gathered iteration counts, stats summed over
+  the graph axes), and measured cost rates are taken on rank 0 and
+  broadcast.
 
 Graph mutation: ``apply_delta`` folds a ``GraphDelta`` into a writable
 host mirror of every cached bundle (``graph.delta.fold_operands``) and
@@ -49,6 +60,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import (
     POLICIES,
@@ -75,6 +87,7 @@ from ..core import (
     recommend_k,
     recommend_policy,
 )
+from ..core.collectives import gang_handoff
 from ..core.extend import GraphOperands, effective_csr
 from ..graph.csr import CSRGraph
 from ..graph.delta import (
@@ -85,7 +98,15 @@ from ..graph.delta import (
     diff_effective,
     fold_operands,
 )
-from ..kernels.common import map_tensors, resolve_device, synchronize
+from ..kernels.common import map_tensors, synchronize
+from ..launch.mesh import as_mesh
+
+
+def _bcast(obj):
+    """Rank 0's ``obj`` on every rank (the control channel of a mesh)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 #: device memory ``recommend_policy`` assumes off the card (the JAX default)
 DEFAULT_HBM_BYTES = 16 * 2**30
@@ -315,6 +336,7 @@ class InflightBatch:
     n_real: int
     buckets: np.ndarray
     payload: Any
+    seq: int = 0  # the batch's number on the mesh's control channel
 
 
 @dataclasses.dataclass
@@ -324,12 +346,17 @@ class SettledBatch:
 
     outcome: QueryOutcome
     _materialize: Callable[[], IFEResult] | None = None
+    seq: int = 0  # the batch's number on the mesh's control channel
+    _on_finalize: Callable[[], None] | None = None
 
     @property
     def finalized(self) -> bool:
         return self._materialize is None
 
     def finalize(self) -> QueryOutcome:
+        if self._on_finalize is not None:
+            self._on_finalize()
+            self._on_finalize = None
         if self._materialize is not None:
             self.outcome.result = self._materialize()
             self._materialize = None
@@ -349,8 +376,9 @@ def _take_padded(x: torch.Tensor, idx: torch.Tensor, rows: int):
 
 
 class QueryDispatcher:
-    """Build-once, serve-many execution layer over one graph on one
-    device. The execution and learning contract is the JAX package's:
+    """Build-once, serve-many execution layer over one graph on a mesh of
+    ranks (a bare device is the one-rank mesh). The execution and
+    learning contract is the JAX package's:
     ``adaptive`` enables the two-phase hybrid for policies with source
     morsels, ``gang_resume=False`` pins the serial phase-2 resume,
     ``online_adapt`` turns on the per-bucket budget model and the
@@ -358,7 +386,7 @@ class QueryDispatcher:
 
     def __init__(
         self,
-        device,
+        mesh,
         csr: CSRGraph,
         max_deg: int | None = None,
         max_iters: int = 64,
@@ -376,7 +404,8 @@ class QueryDispatcher:
         pad_pow2_morsels: bool = False,
         cost: str = "auto",
     ):
-        self.device = resolve_device(device)
+        self.mesh = as_mesh(mesh)
+        self.device = self.mesh.device
         self.csr = csr
         self.max_deg = max_deg
         self.max_iters = max_iters
@@ -420,12 +449,51 @@ class QueryDispatcher:
         self._dir_samples: dict[int, collections.deque] = {}
         self._sample_window = int(sample_window)
         self._batches_since_refit = 0
+        self._seq = 0  # batches begun (the control channel's numbering)
+        # rank 0 broadcasts its calls to followers (``serve``'s mode)
+        self.leading = False
+
+    # ------------------------------------------------------- rank 0 leads
+
+    @property
+    def leads(self) -> bool:
+        """Rank 0 of a mesh of several ranks, set ``leading``: its calls
+        are broadcast to the followers."""
+        return self.leading and self.mesh.size > 1 and self.mesh.rank == 0
+
+    def follow(self) -> int:
+        """Ranks > 0: replay rank 0's dispatcher calls, in order, until it
+        calls ``release_followers``; returns the batches replayed."""
+        if self.mesh.size == 1 or self.mesh.rank == 0:
+            raise RuntimeError("only ranks > 0 of a mesh follow")
+        pending, n = {}, 0
+        while True:
+            op, seq, kw = _bcast(None)
+            if op == "stop":
+                return n
+            if op == "begin":
+                pending[seq] = self.begin_batch(**kw)
+                n += 1
+            elif op == "settle":
+                pending[seq] = self.settle_batch(pending.pop(seq))
+            elif op == "finalize":
+                pending.pop(seq).finalize()
+            else:
+                raise RuntimeError(f"unknown control message {op!r}")
+
+    def release_followers(self) -> None:
+        """Rank 0: let every follower's ``follow`` return."""
+        if self.leads:
+            _bcast(("stop", 0, {}))
 
     # ------------------------------------------------------------- engines
 
-    @staticmethod
-    def _bundle_key(spec: ExtendSpec) -> tuple:
+    def _bundle_key(self, policy: MorselPolicy, spec: ExtendSpec) -> tuple:
+        # the shard layout depends on the graph axes that split the graph
+        split = tuple(a for a in policy.graph_axes
+                      if self.mesh.shape.get(a, 1) > 1)
         return (
+            split,
             spec.needs_rev,
             spec.needs_binned,
             spec.needs_binned_pack,
@@ -436,15 +504,18 @@ class QueryDispatcher:
     def _graph_for(
         self, policy: MorselPolicy, spec: ExtendSpec = ExtendSpec()
     ) -> OperandBundle:
-        """The device-placed operand bundle ``spec`` scans, built once and
-        shared by every spec needing the same structures (on one device
-        the policy's graph axes do not change the layout). A delta folds
-        into the shared bundle once; a batch in flight keeps the
-        ``(ops, epoch)`` it resolved at begin time."""
-        key = self._bundle_key(spec)
+        """This rank's operand bundle for ``spec`` under ``policy``'s
+        graph split, built once and shared by every spec needing the same
+        structures and split. Rows pad for ``mesh.size`` shards, so every
+        policy's bundle has one ``n_pad`` and phase-1 state resumes on the
+        phase-2 graph unchanged. A delta folds into the shared bundle
+        once; a batch in flight keeps the ``(ops, epoch)`` it resolved at
+        begin time."""
+        key = self._bundle_key(policy, spec)
         if key not in self._graphs:
             ops, n_pad = prepare_graph(
-                self.csr, self.device, policy, self.max_deg, extend=spec
+                self.csr, self.mesh, policy, self.max_deg, extend=spec,
+                pad_shards=self.mesh.size,
             )
             self._graphs[key] = OperandBundle(
                 ops=ops, n_pad=n_pad, version=self.operands_version,
@@ -483,6 +554,11 @@ class QueryDispatcher:
         the keys of engines scanning a rebuilt structure. Batches planned
         after this call see the new graph; batches in flight keep the
         tensors they pinned at begin time."""
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                "graph deltas on a mesh of several ranks are not ported "
+                "(ROADMAP queue 1: deltas across ranks)"
+            )
         t0 = time.perf_counter()
         new_csr = apply_delta_csr(self.csr, delta)
         old_eff = effective_csr(self.csr, self.max_deg)
@@ -565,7 +641,7 @@ class QueryDispatcher:
     def _engine_stale(self, key: EngineKey) -> bool:
         """True when ``key`` was keyed on shapes an applied delta has
         since rebuilt."""
-        bundle = self._graphs.get(self._bundle_key(key.extend))
+        bundle = self._graphs.get(self._bundle_key(key.policy, key.extend))
         if bundle is None:
             return False
         return key.operands_epoch != self._spec_epoch(bundle, key.extend)
@@ -588,27 +664,27 @@ class QueryDispatcher:
         cap = int(max_iters if max_iters is not None else self.max_iters)
         key = EngineKey(kind, policy, edge_compute, n_pad, cap, state_layout,
                         extend, collect_stats, int(epoch))
-        dev = self.device
+        mesh = self.mesh
         if kind == "static":
             builder = lambda: build_engine(
-                dev, policy, edge_compute, n_pad, cap,
+                mesh, policy, edge_compute, n_pad, cap,
                 state_layout=state_layout, extend=extend,
                 collect_stats=collect_stats,
             )
         elif kind == "phase1":
             builder = lambda: build_engine(
-                dev, policy, edge_compute, n_pad, cap,
+                mesh, policy, edge_compute, n_pad, cap,
                 state_layout=state_layout, sync="shard", extend=extend,
                 collect_stats=collect_stats,
             )
         elif kind == "resume":
             builder = lambda: build_resume_engine(
-                dev, policy, edge_compute, n_pad, cap, extend=extend,
+                mesh, policy, edge_compute, n_pad, cap, extend=extend,
                 collect_stats=collect_stats,
             )
         elif kind == "gang":
             builder = lambda: build_gang_resume_engine(
-                dev, policy, edge_compute, n_pad, cap, extend=extend,
+                mesh, policy, edge_compute, n_pad, cap, extend=extend,
                 state_layout=state_layout, collect_stats=collect_stats,
             )
         else:
@@ -706,6 +782,16 @@ class QueryDispatcher:
         first use and kept for the dispatcher's life."""
         if n_pad in self._cost_rates:
             return self._cost_rates[n_pad]
+        if self.mesh.size > 1:
+            # each rank's timings differ: rank 0 measures its shard and
+            # every rank plans with its rates
+            rates = self._probe_rates(n_pad) if self.mesh.rank == 0 else None
+            rates = self._cost_rates[n_pad] = _bcast(rates)
+            return rates
+        rates = self._cost_rates[n_pad] = self._probe_rates(n_pad)
+        return rates
+
+    def _probe_rates(self, n_pad: int) -> dict:
         best = None
         score = lambda o: (
             (o.rev_binned is not None) + (o.rev_binned_pack is not None)
@@ -715,11 +801,7 @@ class QueryDispatcher:
                 best is None or score(ops) > score(best)
             ):
                 best = ops
-        rates = (
-            {} if best is None else self.cost_probe.rates(best, int(n_pad))
-        )
-        self._cost_rates[n_pad] = rates
-        return rates
+        return {} if best is None else self.cost_probe.rates(best, int(n_pad))
 
     def online_trace(self, cost: str | None = None) -> dict:
         """The accumulated live samples as a ``BENCH_direction_opt``-shaped
@@ -831,6 +913,7 @@ class QueryDispatcher:
         g, n_pad = inf["g"], inf["n_pad"]
         state_layout, extend = inf["state_layout"], inf["extend"]
         n_real, budget, collect = inf["n_real"], inf["budget"], inf["collect"]
+        sharded = state_layout == "sharded" and self.mesh.size > 1
         out1 = inf["out1"]
         res1, stats1 = out1 if collect else (out1, None)
         f1 = res1.state.frontier
@@ -848,7 +931,9 @@ class QueryDispatcher:
                 else 4
             ),
         )
-        push_slots = int(g.fwd.indices.numel())
+        # the global forward ELL's slots (each rank holds one shard)
+        push_slots = int(g.fwd.indices.numel()) * (
+            self.mesh.axes(pol.graph_axes).size)
         if stats1 is not None and n_real > 0:
             self._record_samples(
                 _host(stats1)[:n_real], iters1[:n_real], n_pad,
@@ -861,7 +946,8 @@ class QueryDispatcher:
                 budget_too_low=too_low, budget_too_high=too_high,
                 budget_inert_slots=inert, budget_observed=n_real,
             ))
-        use_gang = self.gang_resume and idx.size > 1
+        # the sharded phase 2 is the gang engine (no serial sharded resume)
+        use_gang = self.gang_resume and (idx.size > 1 or sharded)
 
         # survivors padded to a pow2 morsel count (all-zero pad members
         # are inert: zero-trip loops)
@@ -872,8 +958,15 @@ class QueryDispatcher:
         if n_pad2 != n_pad:
             raise RuntimeError(f"phase graphs disagree: {n_pad2} != {n_pad}")
         state1 = res1.state
-        idx_t = torch.as_tensor(idx, dtype=torch.long, device=f1.device)
-        sub_state = type(state1)(*(_take_padded(x, idx_t, kp) for x in state1))
+        if sharded:
+            # phase-1 rows (gathered by the engine) -> this rank's phase-2
+            # rows over every mesh axis, survivors picked and padded
+            sub_state = gang_handoff(state1, idx, kp,
+                                     self.mesh.axes(p2.graph_axes))
+        else:
+            idx_t = torch.as_tensor(idx, dtype=torch.long, device=f1.device)
+            sub_state = type(state1)(*(_take_padded(x, idx_t, kp)
+                                       for x in state1))
 
         if use_gang:
             eng2 = self.engine(
@@ -986,7 +1079,7 @@ class QueryDispatcher:
         sources = np.asarray(sources, np.int32).reshape(-1)
         name = policy or recommend_policy(
             len(sources),
-            1,
+            self.mesh.size,
             self.csr.avg_degree,
             returns_paths=returns_paths,
             n_nodes=self.csr.n_nodes,
@@ -1020,7 +1113,8 @@ class QueryDispatcher:
         # the shape epoch of the tensors resolved here keys every engine
         # this batch runs (phase 1, static, each chunk)
         epoch = self._spec_epoch(bundle, spec)
-        morsels = pad_sources(sources, 1, pol.lanes, n_pad)
+        src_shards = self.mesh.axes(pol.source_axes).size
+        morsels = pad_sources(sources, src_shards, pol.lanes, n_pad)
         # paper Fig 13: dense graphs cap concurrent source morsels (k);
         # oversized batches run in fixed-size chunks
         k = (
@@ -1028,7 +1122,7 @@ class QueryDispatcher:
             if self.max_inflight is not None
             else recommend_k(self.csr.avg_degree)
         )
-        chunk = max(1, k)
+        chunk = max(src_shards, k * src_shards)
         if self.pad_pow2_morsels and 0 < morsels.shape[0] <= chunk:
             m2 = min(_pow2ceil(morsels.shape[0]), chunk)
             if m2 > morsels.shape[0]:
@@ -1046,8 +1140,11 @@ class QueryDispatcher:
         return sources, name, pol, ec, spec, g, n_pad, morsels, chunk, \
             n_real, buckets, epoch
 
-    def _hybrid_eligible(self, pol) -> bool:
-        return self.adaptive and bool(pol.source_axes)
+    def _hybrid_eligible(self, pol, state_layout: str) -> bool:
+        # the sharded phase 2 is the gang engine: without it the sharded
+        # batch runs the static program
+        return (self.adaptive and bool(pol.source_axes)
+                and (state_layout == "replicated" or self.gang_resume))
 
     # -------------------------------------------------- split-phase surface
 
@@ -1062,12 +1159,21 @@ class QueryDispatcher:
     ) -> InflightBatch:
         """Plan one batch and run its phase 1 (or static engine). Settle
         it with ``settle_batch`` before the next ``begin_batch``: learning
-        is host-serial."""
-        if state_layout != "replicated":
-            raise NotImplementedError(
-                f"state_layout={state_layout!r} is not ported yet (ROADMAP "
-                "queue 1: multi-device collectives and the sharded layout)"
-            )
+        is host-serial. On a mesh, rank 0 first tells the followers."""
+        seq = self._seq
+        self._seq += 1
+        if self.leads:
+            _bcast(("begin", seq, dict(
+                sources=np.asarray(sources), returns_paths=returns_paths,
+                policy=policy, state_layout=state_layout, backend=backend,
+                query_kind=query_kind)))
+        inflight = self._begin(sources, returns_paths, policy, state_layout,
+                               backend, query_kind)
+        inflight.seq = seq
+        return inflight
+
+    def _begin(self, sources, returns_paths, policy, state_layout, backend,
+               query_kind) -> InflightBatch:
         (sources, name, pol, ec, spec, g, n_pad, morsels, chunk, n_real,
          buckets, epoch) = self._plan_query(
              sources, returns_paths, policy, backend, query_kind)
@@ -1079,7 +1185,7 @@ class QueryDispatcher:
             }
             return InflightBatch("chunked", name, n_real, buckets, payload)
         m = torch.as_tensor(morsels)
-        if self._hybrid_eligible(pol):
+        if self._hybrid_eligible(pol, state_layout):
             inf = self._begin_hybrid(
                 pol, ec, g, n_pad, m, state_layout, extend=spec,
                 n_real=n_real, buckets=buckets, epoch=epoch,
@@ -1092,6 +1198,8 @@ class QueryDispatcher:
     def settle_batch(self, inflight: InflightBatch) -> SettledBatch:
         """Resume survivors, run post-batch learning; the stitched state
         may still be deferred to ``finalize_batch``."""
+        if self.leads:
+            _bcast(("settle", inflight.seq, {}))
         if inflight.kind == "chunked":
             p = inflight.payload
             outcome = self._run_chunked(
@@ -1107,6 +1215,10 @@ class QueryDispatcher:
         settled.outcome.policy = inflight.name
         self._learn(settled.outcome, inflight.buckets, inflight.n_real)
         self.stats.record(settled.outcome)
+        settled.seq = inflight.seq
+        if self.leads:
+            settled._on_finalize = lambda: _bcast(
+                ("finalize", settled.seq, {}))
         return settled
 
     def finalize_batch(self, settled: SettledBatch) -> QueryOutcome:
@@ -1117,7 +1229,7 @@ class QueryDispatcher:
         """The in-flight-cap chunk loop: fixed-size chunks stitched into
         one outcome."""
         run_fn = (
-            self._run_hybrid if self._hybrid_eligible(pol)
+            self._run_hybrid if self._hybrid_eligible(pol, state_layout)
             else self._run_static
         )
         outcomes = []

@@ -18,14 +18,15 @@ from .service import unpack_levels
 
 
 class AdaptiveScheduler(QueryDispatcher):
-    """Build-once, serve-many recursive-query runtime over one graph on
-    one device: ``QueryDispatcher`` plus ``submit``/``flush``."""
+    """Build-once, serve-many recursive-query runtime over one graph on a
+    mesh of ranks (or one device): ``QueryDispatcher`` plus
+    ``submit``/``flush``."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._admission = AdmissionQueue(
             n_nodes=self.csr.n_nodes,
-            n_devices=1,
+            n_devices=self.mesh.size,
             avg_degree=self.csr.avg_degree,
         )
         self.admissions = {"ntkms": 0, "per_query": 0}

@@ -148,8 +148,9 @@ class ServingStats:
 
 
 class ServingLoop:
-    """Always-on serving loop over one graph on one device: open-loop
-    admission in, per-tenant results and telemetry out.
+    """Always-on serving loop over one graph on a mesh of ranks (or one
+    device; on a mesh it runs on rank 0, over a ``leading`` dispatcher):
+    open-loop admission in, per-tenant results and telemetry out.
 
     ``overlap=True`` (default) runs the double-buffered pipeline of the
     module docstring; ``overlap=False`` runs each batch's three steps back
@@ -185,7 +186,7 @@ class ServingLoop:
         self.on_result = on_result
         self.admission = AdmissionQueue(
             n_nodes=dispatcher.csr.n_nodes,
-            n_devices=1,
+            n_devices=dispatcher.mesh.size,
             avg_degree=dispatcher.csr.avg_degree,
             tenant_quota=tenant_quota,
             max_queue=max_queue,

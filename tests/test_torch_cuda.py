@@ -44,6 +44,13 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   slot was freed and claimed by another, bitwise; and a short
   ``ServingLoop`` stream with one delta, per query equal to the same
   stream on the CPU.
+- Shard-local operands (the multi-rank layout): ``binned_pull`` on one
+  rank's pack (``rows_local < n_out``, a nonzero row base), all five
+  ops, and ``msbfs_extend`` on one rank's tiles (``g_out`` above the
+  shard's row blocks), bitwise equal to their plain versions; two ranks
+  sharing the card over gloo run ``run_recursive_query`` through both
+  kernels, stage their messages through host memory, and equal the
+  one-device CPU run.
 - The weighted relax and the non-reach kinds: ``bellman_ford`` served
   through ``run_recursive_query`` on ``pull_binned_fused`` and
   ``dopt_fused`` launches ``binned_pull``'s ``min_dist`` op and equals
@@ -626,3 +633,72 @@ def test_query_kinds_on_card_match_cpu_and_repeat(kind, cuda_device):
         assert torch.equal(y.cpu(), x), "the card differs from the CPU"
     assert torch.equal(a.result.iterations.cpu(), cpu.result.iterations)
     assert a.redispatched == cpu.redispatched > 0
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_kernels_on_shard_local_operands_match_plain(k, cuda_device):
+    from repro_torch.core.extend import operand_stream, operands_from_numpy
+
+    csr = with_weights(fixture_csr("pl", n=1200, seed=6), seed=2)
+    st = operand_stream(csr, "dopt_fused", shards=4, binned_shards=4)
+    pack = operands_from_numpy(st.build_shard(k), cuda_device) \
+        .rev_binned_pack
+    n_pad, rows = st.n_pad, pack.rows_local
+    assert rows == n_pad // 4 < n_pad
+    rng = np.random.default_rng(k)
+    for op in OPS:
+        lanes = 64 if op in LANE_OPS else 1
+        shape = (n_pad, lanes) if op in LANE_OPS else (n_pad,)
+        vshape = (rows, lanes) if op in LANE_OPS else (rows,)
+        if op == "min_dist":
+            g = np.where(rng.random(n_pad) < 0.3, rng.uniform(0, 9, n_pad),
+                         np.inf).astype(np.float32)
+            vd = None
+        else:
+            g = (rng.random(shape) < 0.3).astype(np.uint8)
+            vd = torch.from_numpy(
+                (rng.random(vshape) < 0.4).astype(np.uint8)).to(cuda_device)
+        gd = torch.from_numpy(g).to(cuda_device)
+        before = fused_binned_pull.launches
+        got = binned_pull(pack, gd, vd, op=op)
+        torch.cuda.synchronize()
+        assert fused_binned_pull.launches == before + 1
+        assert torch.equal(got, binned_pull(pack, gd, vd, op=op,
+                                            use_ref=True)), op
+    # the tiles pad rows to 4 x 128: another n_pad than the pack's
+    st = operand_stream(csr, "block_mxu", shards=4, binned_shards=4)
+    tiles = operands_from_numpy(st.build_shard(k), cuda_device).blocks
+    b = tiles.block_size
+    g_local, g_out = st.rows_local // b, st.n_pad // b
+    assert g_local < g_out
+    for lanes in (64, 1):
+        f = (rng.random((g_local, b, lanes)) < 0.05).astype(np.uint8)
+        fd = torch.from_numpy(f).to(cuda_device)
+        args = (tiles.blocks[0], tiles.block_rows[0], tiles.block_cols[0], fd)
+        before = msbfs_extend_blocks.launches
+        got = extend_blocks(*args, g_out=g_out)
+        torch.cuda.synchronize()
+        assert msbfs_extend_blocks.launches == before + 1
+        assert torch.equal(got, extend_blocks(*args, g_out=g_out,
+                                              use_ref=True)), lanes
+
+
+def test_ranks_sharing_the_card_match_one_cpu_device(cuda_device):
+    from repro_torch.core import POLICIES, run_recursive_query
+    from repro_torch.launch.mesh import run_ranks
+
+    import test_torch_ranks as TR
+
+    ranks = run_ranks(TR.card_rank, 2, timeout_s=240)
+    csr = powerlaw(2000, 6.0, seed=5)
+    for r in ranks:
+        assert (r["launches"] > 0).all() and int(r["staged"]) > 0
+    for pol, ec, be, lay in TR.CARD_CASES:
+        srcs = TR.SOURCES_70 if pol == "ntkms" else TR.SOURCES
+        one = run_recursive_query("cpu", csr, srcs, POLICIES[pol](), ec)
+        n = csr.n_nodes  # two ranks pad rows for two shards
+        for f in one.state._fields:
+            want = getattr(one.state, f).numpy()[:, :n]
+            for r in ranks:
+                np.testing.assert_array_equal(r[f"{be}/{f}"][:, :n], want,
+                                              err_msg=f"{be}/{f}")

@@ -74,7 +74,8 @@ def absolute_imports(path: Path):
 
 MUTATION_MODULES = ("graph/delta.py", "runtime/service.py",
                     "runtime/dispatch.py", "runtime/scheduler.py",
-                    "launch/serve.py")
+                    "launch/serve.py", "launch/mesh.py",
+                    "core/collectives.py", "graph/partition.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -94,6 +95,7 @@ def test_port_never_imports_jax_or_the_jax_package():
 def test_serve_import_leaves_jax_unloaded():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch.launch.serve, repro_torch.core, "
+            "repro_torch.launch.mesh, repro_torch.core.collectives, "
             "repro_torch.runtime.scheduler, repro_torch.runtime.service, "
             "repro_torch.graph.delta; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -226,9 +228,54 @@ def test_single_device_merges_are_identity_and_axes_raise():
     assert r is x and p is c
     f = torch.tensor([0.5, 0.0, 0.25])
     assert merge_contribution("sum", f) is f
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # axis names reduce over a mesh's process groups: bare names have none
+    with pytest.raises(ValueError, match="carry no mesh"):
         merge_contribution("sum", f, ("model",))
     with pytest.raises(ValueError, match="unknown merge"):
         merge_contribution("xor", x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="carry no mesh"):
         merge_contribution("or", x, ("model",))
+    # the one-rank mesh's axes have size 1: every merge is the identity
+    from repro_torch.launch.mesh import as_mesh
+
+    axes = as_mesh("cpu").axes(("data", "model"))
+    assert merge_contribution("or", x, axes) is x
+    assert merge_contribution("sum", f, axes) is f
+
+
+def test_mesh_entry_points_raise_without_cuda_unless_cpu(no_cuda):
+    from repro_torch.launch.mesh import as_mesh, init_distributed, make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        as_mesh(None)
+    # NCCL puts the rank on its card: no card, no rank (and no fallback)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_distributed("nccl", "tcp://127.0.0.1:1", 0, 1)
+    with pytest.raises(ValueError, match="nccl or gloo"):
+        init_distributed("mpi", "tcp://127.0.0.1:1", 0, 1)
+    # a mesh of several ranks needs its process group
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        make_mesh((2, 2), ("data", "model"), "cpu")
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    assert mesh.size == 1 and mesh.device.type == "cpu"
+    csr = erdos_renyi(64, 3.0, seed=0)
+    for layout in ("replicated", "sharded"):
+        res = run_recursive_query(mesh, csr, [0, 5], policy_ntks(),
+                                  state_layout=layout)
+        assert res.state.levels.device.type == "cpu"
+
+
+def test_deltas_on_a_mesh_of_ranks_name_the_roadmap_item(monkeypatch):
+    from repro_torch.graph.delta import random_delta
+
+    csr = erdos_renyi(64, 3.0, seed=0)
+    d = QueryDispatcher("cpu", csr, max_iters=8)
+    monkeypatch.setattr(d.mesh, "size", 4)
+    with pytest.raises(NotImplementedError, match="deltas across ranks"):
+        d.apply_delta(random_delta(csr, 2, 2, seed=0))
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="deltas across ranks"):
+        serve.main(["--device", "cpu", "--scale", "0.05",
+                    "--mutate-stream", "1"])

@@ -1,0 +1,362 @@
+"""Rank programs of the port's multi-rank tests (no test here).
+
+Each function here runs inside one spawned rank
+(``repro_torch.launch.mesh.run_ranks``): it builds the rank's mesh, runs
+the port on it and returns numpy results for the parent test to hold
+against numpy folds or the JAX package. This module imports only the
+port (a rank never loads JAX), and its input builders are plain numpy,
+so the parent rebuilds exactly the inputs each rank saw.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MESH = ((2, 2), ("data", "model"))
+
+
+# ---------------------------------------------------------------------------
+# Collectives on a (2, 2) mesh.
+# ---------------------------------------------------------------------------
+
+N_ROWS = 64  # rows of the reduce-scatter inputs (32 x 2 shards of 'model')
+GANG = 4
+
+
+def collective_inputs(rank: int) -> dict:
+    """The numpy inputs rank ``rank`` feeds every collective."""
+    rng = np.random.default_rng(100 + rank)
+    return {
+        "bits": rng.random(1000) < 0.2,
+        "words": rng.integers(-2**31, 2**31, size=37, dtype=np.int64)
+        .astype(np.int32),
+        "rs_int": rng.integers(0, 1000, size=(N_ROWS * 2,), dtype=np.int32),
+        "rs_bits": rng.random((N_ROWS * 2, 3)) < 0.1,
+        "rs_f32": rng.standard_normal(N_ROWS * 2).astype(np.float32),
+        "rows_bits": rng.random((N_ROWS * 2, 5)) < 0.1,
+        "rows_min": rng.integers(0, 10**6, size=(N_ROWS * 2, 5),
+                                 dtype=np.int32),
+        "rows_f32": rng.standard_normal((N_ROWS * 2,)).astype(np.float32),
+        "gang_bits": rng.random((GANG, N_ROWS * 2)) < 0.1,
+        "gang_min": rng.integers(0, 10**6, size=(GANG, N_ROWS * 2),
+                                 dtype=np.int32),
+        "gang_f32": rng.standard_normal((GANG, N_ROWS * 2)).astype(
+            np.float32),
+        "sum_f32": rng.standard_normal(300).astype(np.float32),
+        "min_f32": rng.standard_normal(300).astype(np.float32),
+        "flag": bool(rank == 2),
+    }
+
+
+def handoff_state():
+    """A stacked global phase-1 state every rank holds (leaves [m, n])."""
+    rng = np.random.default_rng(7)
+    m, n = 6, N_ROWS * 2
+    return (rng.random((m, n)) < 0.3,
+            rng.integers(-1, 9, size=(m, n)).astype(np.int32))
+
+
+HANDOFF_IDX = np.array([4, 1, 3])
+
+
+def collectives_rank(rank: int, world: int) -> dict:
+    from collections import namedtuple
+
+    from repro_torch.core import collectives as C
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MESH, "cpu")
+    both = mesh.axes(("data", "model"))
+    model = mesh.axes("model")
+    x = {k: (torch.from_numpy(np.asarray(v)) if k != "flag" else v)
+         for k, v in collective_inputs(rank).items()}
+    out = {}
+    t = lambda a: a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    for impl in ("pmax", "allgather", "ring"):
+        out[f"or_allreduce_both_{impl}"] = t(C.or_allreduce(x["bits"], both,
+                                                            impl))
+        out[f"or_allreduce_model_{impl}"] = t(
+            C.or_allreduce(x["bits"], model, impl))
+    out["ring_or_u32_model"] = t(C.ring_or_u32(x["words"], model))
+    ops = {"or": torch.bitwise_or, "min": torch.minimum, "sum": torch.add}
+    for flavor, rs in (("ring", C.ring_reduce_scatter),
+                       ("allgather", C.allgather_reduce_scatter)):
+        for name, op in ops.items():
+            src = x["rs_f32"] if name == "sum" else x["rs_int"]
+            out[f"rs_{flavor}_{name}"] = t(rs(src, model, op))
+    for impl in ("ring", "allgather"):
+        out[f"or_rs_{impl}"] = t(C.or_reduce_scatter(x["rows_bits"], both,
+                                                     impl))
+        out[f"min_rs_{impl}"] = t(C.min_reduce_scatter(x["rows_min"], both,
+                                                       impl))
+        out[f"sum_rs_{impl}"] = t(C.sum_reduce_scatter(x["rows_f32"], both,
+                                                       impl))
+        r, p = C.merge_scatter("or_min", (x["rows_bits"], x["rows_min"]),
+                               both, "ring", impl=impl)
+        out[f"merge_scatter_{impl}_or"] = t(r)
+        out[f"merge_scatter_{impl}_min"] = t(p)
+    out["gang_merge_or"] = t(C.gang_merge_scatter("or", x["gang_bits"], both,
+                                                  "ring"))
+    out["gang_merge_min"] = t(C.gang_merge_scatter("min", x["gang_min"], both,
+                                                   "allgather"))
+    out["gang_merge_sum"] = t(C.gang_merge_scatter("sum", x["gang_f32"], both,
+                                                   "ring"))
+    St = namedtuple("St", "frontier levels")
+    full = St(*(torch.from_numpy(a) for a in handoff_state()))
+    sub = C.gang_handoff(full, HANDOFF_IDX, GANG, both)
+    out["handoff_frontier"], out["handoff_levels"] = t(sub[0]), t(sub[1])
+    # the inverse: every rank writes the gathered survivors back
+    whole = St(*(C.gather_rows(s, both, 1) for s in sub))
+    back = C.gang_scatter_back(full, St(*(w.clone() for w in whole)),
+                               HANDOFF_IDX)
+    out["scatter_back_levels"] = t(back[1])
+    out["merge_sum"] = t(C.merge_contribution("sum", x["sum_f32"], both))
+    out["merge_min"] = t(C.merge_contribution("min", x["min_f32"], both))
+    out["any_over"] = np.asarray(C.any_over(x["flag"], both))
+    out["any_over_model"] = np.asarray(C.any_over(x["flag"], model))
+    out["gather_rows"] = t(C.gather_rows(
+        torch.full((2, 3), rank, dtype=torch.int32), both, 0))
+    out["wire_calls"] = np.asarray(mesh.wire.calls)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Engines, dispatcher and serving on a mesh.
+# ---------------------------------------------------------------------------
+
+
+def skew_graph(csr_from_edges, powerlaw):
+    """The gang case of the JAX package's multi-device test: a powerlaw
+    component plus three long paths whose heads straggle."""
+    pl = powerlaw(200, 5.0, seed=2)
+    src_pl, dst_pl = pl.edge_list()
+    srcs, dsts, base, heads = [src_pl], [dst_pl], 200, []
+    for n in (40, 28, 22):
+        p = np.arange(n - 1, dtype=np.int64) + base
+        srcs += [p, p + 1]
+        dsts += [p + 1, p]
+        heads.append(base)
+        base += n
+    csr = csr_from_edges(base, np.concatenate(srcs), np.concatenate(dsts))
+    return csr, np.array(heads + [3, 9, 17], dtype=np.int32)
+
+
+def weighted_graph(csr_from_edges):
+    """The divergent ``sync="shard"`` case's weighted graph."""
+    rng = np.random.default_rng(3)
+    n, m = 300, 1800
+    w = rng.uniform(0.1, 2.0, m).astype(np.float32)
+    return csr_from_edges(n, rng.integers(0, n, m), rng.integers(0, n, m),
+                          weights=w)
+
+
+SOURCES = np.array([0, 3, 17, 44, 123, 200, 250, 280, 5, 9], np.int32)
+SOURCES_70 = (np.arange(70, dtype=np.int32) * 4 % 300).astype(np.int32)
+BACKENDS = ("ell_push", "ell_pull", "pull_binned", "pull_binned_fused",
+            "dopt", "dopt_fused", "block_mxu")
+#: the JAX backend each port backend is held against (JAX's fused Pallas
+#: body does not trace on current jax; the fused kernel is bit-identical
+#: to the binned pull by contract)
+JAX_TWIN = {"pull_binned_fused": "pull_binned", "dopt_fused": "dopt"}
+# (name, policy, or_impl, edge compute, layout, backend, sources)
+QUERY_CASES = (
+    [("1t1s", "1t1s", None, "sp_lengths", "replicated", "ell_push", "s10"),
+     ("nt1s_ring", "nt1s", "ring", "sp_lengths", "replicated", "ell_push",
+      "s10"),
+     ("ntkms_ring", "ntkms", "ring", "msbfs_lengths", "replicated",
+      "ell_push", "s70"),
+     ("ntkms_sharded_block", "ntkms", "allgather", "msbfs_lengths",
+      "sharded", "block_mxu", "s70"),
+     ("ntkms_parents_binned", "ntkms", "ring", "msbfs_parents", "sharded",
+      "pull_binned_fused", "s70"),
+     ("ntks_parents_dopt", "ntks", "ring", "sp_parents", "sharded", "dopt",
+      "s10"),
+     ("bellman_replicated", "ntks", "allgather", "bellman_ford",
+      "replicated", "ell_push", "w4"),
+     ("bellman_sharded", "ntks", "allgather", "bellman_ford", "sharded",
+      "dopt_fused", "w4")]
+    + [(f"ntks_{impl}", "ntks", impl, "sp_lengths", "replicated", "ell_push",
+        "s10") for impl in ("allgather", "ring", "pmax")]
+    + [(f"be_{lay}_{be}", "ntks", "allgather", "sp_lengths", lay, be, "s10")
+       for lay in ("replicated", "sharded") for be in BACKENDS]
+)
+
+
+def query_case_inputs(powerlaw, csr_from_edges):
+    csr = powerlaw(300, 5.0, seed=1)
+    wcsr = weighted_graph(csr_from_edges)
+    return {"s10": (csr, SOURCES), "s70": (csr, SOURCES_70),
+            "w4": (wcsr, np.array([0, 3, 17, 44], np.int32))}
+
+
+def _leaves(state) -> dict:
+    return {f: getattr(state, f).cpu().numpy() for f in state._fields}
+
+
+def engines_rank(rank: int, world: int) -> dict:
+    """Every policy/backend/layout case, the gang phase 2 and the
+    divergent ``sync="shard"`` case on a (2, 2) mesh."""
+    from repro_torch.core import POLICIES, run_recursive_query
+    from repro_torch.graph.csr import csr_from_edges
+    from repro_torch.graph.generators import powerlaw
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.dispatch import QueryDispatcher
+    from repro_torch.runtime.scheduler import AdaptiveScheduler
+
+    mesh = make_mesh(*MESH, "cpu")
+    inputs = query_case_inputs(powerlaw, csr_from_edges)
+    out = {}
+    for name, pol, impl, ec, lay, be, src in QUERY_CASES:
+        csr, sources = inputs[src]
+        policy = POLICIES[pol]() if impl is None else POLICIES[pol](
+            or_impl=impl)
+        res = run_recursive_query(mesh, csr, sources, policy, ec,
+                                  state_layout=lay, extend=be)
+        for k, v in _leaves(res.state).items():
+            out[f"{name}/{k}"] = v
+        out[f"{name}/iterations"] = res.iterations.numpy()
+    skew, gsrcs = skew_graph(csr_from_edges, powerlaw)
+    for lay in ("replicated", "sharded"):
+        sched = AdaptiveScheduler(mesh, skew, max_iters=64, phase1_iters=2)
+        o = sched.query(gsrcs, state_layout=lay)
+        out[f"gang_{lay}/levels"] = o.result.state.levels.cpu().numpy()
+        out[f"gang_{lay}/iterations"] = o.result.iterations.numpy()
+        out[f"gang_{lay}/counts"] = np.array(
+            [o.hybrid, o.resumed_ganged, o.gang_width, o.resumed_serial])
+    wcsr = weighted_graph(csr_from_edges)
+    srcs = np.array([0, 3, 17, 44], dtype=np.int32)
+    for kind, leaf, budget in (("topk_paths", "dists", 14),
+                               ("ppr", "mass", 48)):
+        dq = QueryDispatcher(mesh, wcsr, max_iters=512, phase1_iters=budget)
+        for lay in ("replicated", "sharded"):
+            o = dq.query(srcs, query_kind=kind, state_layout=lay)
+            out[f"{kind}_{lay}/{leaf}"] = getattr(
+                o.result.state, leaf).cpu().numpy()
+            out[f"{kind}_{lay}/iterations"] = o.result.iterations.numpy()
+            out[f"{kind}_{lay}/counts"] = np.array(
+                [o.hybrid, o.redispatched])
+    out["wire/staged_bytes"] = np.asarray(mesh.wire.staged_bytes)
+    return out
+
+
+SERVE_ARGV = ["--closed-loop", "--device", "cpu", "--dataset", "ldbc",
+              "--scale", "0.1", "--batches", "3"]
+
+
+def serve_rank(rank: int, world: int, argv: list) -> list:
+    """``serve.main`` on this rank; rank 0 returns its served batches."""
+    from repro_torch.launch import serve
+
+    got = []
+    rc = serve.main(argv, on_batch=lambda b: got.append({
+        "sources": b.sources, "policy": b.policy,
+        "levels": b.result.state.levels.cpu().numpy(),
+        "iterations": b.result.iterations.numpy(),
+    }))
+    assert rc == 0
+    return got
+
+
+def plans_rank(rank: int, world: int) -> list:
+    """A measured-cost dispatcher whose probe rates differ on every rank:
+    the plans each rank logs must be the same (rank 0's rates rule)."""
+    from repro_torch.graph.generators import powerlaw
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.scheduler import AdaptiveScheduler
+
+    mesh = make_mesh(*MESH, "cpu")
+    csr = powerlaw(400, 6.0, seed=4)
+    sched = AdaptiveScheduler(mesh, csr, max_iters=32, cost="measured",
+                              refit_every=1, family="powerlaw")
+
+    def skewed_rates(ops, n_pad):
+        # push far cheaper than pull on even ranks, far dearer on odd
+        # ones: fitted on its own rates, each rank would pick other
+        # thresholds
+        cheap, dear = 1e-3, 1e3
+        push, pull = (cheap, dear) if rank % 2 == 0 else (dear, cheap)
+        ms = {"ell_push": push, "pull_binned": pull,
+              "pull_binned_fused": pull}
+        return {k: {"ms_per_slot": v * 1e-6, "bytes_per_slot": 5.0,
+                    "probe_ms": v, "slots": 1} for k, v in ms.items()}
+
+    sched.cost_probe.rates = skewed_rates
+    log = []
+    rng = np.random.default_rng(0)
+    for b in range(6):
+        sources = rng.choice(csr.n_nodes, size=int(rng.integers(2, 9)),
+                             replace=False).astype(np.int32)
+        infl = sched.begin_batch(sources)
+        p = infl.payload
+        plan = [infl.kind, infl.name]
+        if isinstance(p, dict) and "budget" in p:
+            plan += [p["budget"], repr(p["extend"])]
+        out = sched.settle_batch(infl).finalize()
+        plan += [int(out.redispatched)]
+        thr = sched.direction_thresholds
+        plan.append(None if thr is None else repr(thr))
+        log.append(plan)
+    return log
+
+
+CARD_CASES = (("ntks", "sp_lengths", "dopt_fused", "sharded"),
+              ("ntks", "sp_parents", "pull_binned_fused", "replicated"),
+              ("ntkms", "msbfs_lengths", "block_mxu", "sharded"))
+
+
+def card_rank(rank: int, world: int) -> dict:
+    """Ranks sharing cuda:0 over gloo: the shard-local kernels on the
+    main path, and what the wire staged through host memory."""
+    from repro_torch.core import POLICIES, run_recursive_query
+    from repro_torch.graph.generators import powerlaw
+    from repro_torch.kernels.binned_pull.binned_pull import fused_binned_pull
+    from repro_torch.kernels.msbfs_extend.msbfs_extend import (
+        msbfs_extend_blocks,
+    )
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, world), ("data", "model"), "cuda:0")
+    csr = powerlaw(2000, 6.0, seed=5)
+    out = {}
+    for pol, ec, be, lay in CARD_CASES:
+        srcs = SOURCES_70 if pol == "ntkms" else SOURCES
+        res = run_recursive_query(mesh, csr, srcs, POLICIES[pol](), ec,
+                                  state_layout=lay, extend=be)
+        for k, v in _leaves(res.state).items():
+            out[f"{be}/{k}"] = v
+    out["launches"] = np.array([fused_binned_pull.launches,
+                                msbfs_extend_blocks.launches])
+    out["staged"] = np.asarray(mesh.wire.staged_bytes)
+    return out
+
+
+LINE_MESH = ((1, 4), ("data", "model"))
+
+
+def line_rank(rank: int, world: int) -> dict:
+    """``serve``'s mesh shape, ``(1, 4)``: a size-1 source axis
+    inside every collective over both axes (nT1S, the phase-2 gang)."""
+    from repro_torch.core import policy_nt1s, run_recursive_query
+    from repro_torch.graph.csr import csr_from_edges
+    from repro_torch.graph.generators import powerlaw
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.scheduler import AdaptiveScheduler
+
+    mesh = make_mesh(*LINE_MESH, "cpu")
+    out = {}
+    csr = powerlaw(300, 5.0, seed=1)
+    for lay in ("replicated", "sharded"):
+        res = run_recursive_query(mesh, csr, SOURCES, policy_nt1s(
+            or_impl="ring"), "sp_parents", state_layout=lay, extend="dopt")
+        for k, v in _leaves(res.state).items():
+            out[f"line_nt1s_{lay}/{k}"] = v
+        out[f"line_nt1s_{lay}/iterations"] = res.iterations.numpy()
+    skew, gsrcs = skew_graph(csr_from_edges, powerlaw)
+    for lay in ("replicated", "sharded"):
+        o = AdaptiveScheduler(mesh, skew, max_iters=64,
+                              phase1_iters=2).query(gsrcs, state_layout=lay)
+        out[f"line_gang_{lay}/levels"] = o.result.state.levels.numpy()
+        out[f"line_gang_{lay}/iterations"] = o.result.iterations.numpy()
+        out[f"line_gang_{lay}/counts"] = np.array(
+            [o.hybrid, o.resumed_ganged, o.gang_width, o.resumed_serial])
+    return out

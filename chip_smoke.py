@@ -105,13 +105,28 @@ Phases (any failure exits non-zero and prints no result):
    layouts, every level held against the BFS oracle and every rank
    holding the same global levels; holds ``binned_pull`` (``reach``,
    ``reach_lanes``, ``min_parent_lanes``) and ``msbfs_extend`` at its
-   shard shape against their plain versions; then ``serve`` on the
+   shard shape against their plain versions; then four graph deltas
+   at scale 10, each folded by every rank into its own shards of a
+   dispatcher's two nTkS bundles (``QueryDispatcher.apply_delta``): a
+   same-shape one of 64 double edge swaps, one that moves two rows
+   between degree buckets, one that overflows the forward ELL width
+   (edges added to the node of highest out-degree) and one that fills
+   shard 0's tile list; after each, every engine case again against
+   the BFS of the new graph on every rank, ``binned_pull`` (all five
+   ops) on the folded shard pack and ``msbfs_extend`` on the folded
+   shard tiles with ``torch.equal`` to their plain versions, and each
+   case's launches; then ``serve`` on the
    ``(1, 4)`` mesh, rank 0 driving and the others following: closed
    loop nTkS ``dopt_fused`` x8 (4 batches) and ``recommend`` x64 (3
-   batches), and an open loop of 20 arrivals, every level against the
-   oracle. Per rank it prints the kernels' launches and shard shapes,
-   their times beside the plain versions', the collectives' ms per
-   iteration and bytes staged, and peak device memory. Each engine
+   batches), and open loops with ``--mutate-stream``: ``dopt_fused``
+   x8, 40 arrivals and 2 deltas, ``recommend`` x64, 20 arrivals and 1
+   delta, every query against the BFS of the graph it was admitted
+   under and every rank's finalized batches equal to rank 0's. Per rank
+   it prints the kernels' launches and shard shapes, their times beside
+   the plain versions', the collectives' ms per iteration and bytes
+   staged, peak device memory, and each delta's ``apply_delta`` ms (and
+   the slowest rank's), the bytes its collectives moved, peak device
+   memory and the rank's host RSS after the fold. Each engine
    case's own launches are counted apart from the kernel checks': a
    ``pull_binned_fused`` or ``block_mxu`` case must launch its kernel on
    each of its trips, the ``dopt_fused`` cases at least once. A
@@ -654,6 +669,41 @@ def phase_3c(dev, csr, check, launches) -> dict:
     return out
 
 
+def stream_versions(csr, arrivals):
+    """The graph versions of an open-loop schedule (the initial graph,
+    then one a delta) and the ``(qid, sources)`` admitted under each: the
+    schedule is in time order and qids count the submissions."""
+    from repro_torch.graph.delta import apply_delta_csr
+
+    graphs, by_version = [csr], [[]]
+    for a in arrivals:
+        if "delta" in a:
+            graphs.append(apply_delta_csr(graphs[-1], a["delta"]))
+            by_version.append([])
+        else:
+            qid = f"q{sum(len(q) for q in by_version)}"
+            by_version[-1].append((qid, a["sources"]))
+    return graphs, by_version
+
+
+def check_versions(rname, results, graphs, by_version, oracle) -> None:
+    """Every query's levels against the BFS of the graph version it was
+    admitted under (``oracle`` serves version 0)."""
+    n_queries = sum(len(q) for q in by_version)
+    if len(results) != n_queries:
+        fail(f"{rname}: {len(results)} of {n_queries} queries delivered")
+    for v, queries in enumerate(by_version):
+        if not queries:
+            continue
+        orc = oracle if v == 0 else BFSOracle(graphs[v])
+        refs = orc.levels_of([src for _, src in queries])
+        for (qid, src), ref in zip(queries, refs):
+            if not np.array_equal(results[qid], ref):
+                bad = int((results[qid] != ref).any(axis=1).sum())
+                fail(f"{rname} {qid} (graph version {v}): levels of "
+                     f"{bad} source(s) differ from the BFS oracle")
+
+
 def star_csr(n, csr_from_edges):
     dsts = np.arange(1, n - 8)
     return csr_from_edges(n, np.zeros_like(dsts), dsts)
@@ -701,6 +751,99 @@ def tile_swap_graph(csr_from_edges, GraphDelta, erdos_renyi):
 
 RANKS = 4  # processes sharing the card over gloo
 RANKS_TIMEOUT_S = 600  # the whole rank group, or it fails
+TILE = 128  # block_mxu tile size
+
+
+def _swap_delta(csr, GraphDelta, rng, n_swaps=32):
+    """Double edge swaps (u->v, x->y) => (u->y, x->v), v and y in one
+    column block: every degree and every tile's presence stays, so every
+    structure folds in place (2 x ``n_swaps`` inserts and deletes)."""
+    n = csr.n_nodes
+    s, t = (a.astype(np.int64) for a in csr.edge_list())
+    keys = np.sort(s * n + t)
+    order = np.argsort(t // TILE, kind="stable")
+    cb = (t // TILE)[order]
+    used, dels, adds = set(), [], []
+    while len(dels) < 2 * n_swaps:
+        i = int(rng.integers(0, len(s)))
+        lo, hi = np.searchsorted(cb, [t[i] // TILE, t[i] // TILE + 1])
+        j = int(order[rng.integers(lo, hi)])
+        (u, v), (x, y) = (int(s[i]), int(t[i])), (int(s[j]), int(t[j]))
+        new = [(u, y), (x, v)]
+        k = np.array([a * n + b for a, b in new])
+        if (u == x or v == y or np.isin(k, keys).any()
+                or any(e in used for e in [(u, v), (x, y), *new])):
+            continue
+        used.update([(u, v), (x, y), *new])
+        dels += [(u, v), (x, y)]
+        adds += new
+    (ds, dd), (a_s, ad) = zip(*dels), zip(*adds)
+    return GraphDelta(add_src=a_s, add_dst=ad, del_src=ds, del_dst=dd)
+
+
+def _rebin_delta(csr, GraphDelta, rng):
+    """In-edges moved from a row of in-degree b to one of in-degree a (1
+    <= a, b - a in [2, 6]), both in the first column block (shard 0 of
+    every split), from the same sources: the two rows trade degree
+    buckets, every out-degree and tile stays."""
+    rev = csr.reverse()
+    indeg = np.diff(rev.indptr)[:TILE]
+    ins = lambda v: set(rev.indices[rev.indptr[v]:rev.indptr[v + 1]]
+                        .tolist())
+    for t in np.argsort(indeg, kind="stable"):
+        for t2 in range(TILE):
+            a, b = int(indeg[t]), int(indeg[t2])
+            if a < 1 or not 2 <= b - a <= 6:
+                continue
+            movers = sorted(ins(t2) - ins(t))[: b - a]
+            if len(movers) == b - a:
+                return GraphDelta(add_src=movers, add_dst=[t] * len(movers),
+                                  del_src=movers, del_dst=[t2] * len(movers))
+    raise RuntimeError("no pair of rows to rebin")
+
+
+def _overflow_delta(csr, GraphDelta, rng):
+    """New out-edges for the node of highest out-degree, one past its
+    forward ELL width: every bundle's forward ELL is rebuilt."""
+    u = int(np.argmax(csr.degrees))
+    width = -(-int(csr.degrees[u]) // 8) * 8
+    have = np.zeros(csr.n_nodes, bool)
+    have[csr.neighbors(u)] = True
+    new = np.flatnonzero(~have)[: width - int(csr.degrees[u]) + 1]
+    return GraphDelta(add_src=np.full(len(new), u), add_dst=new)
+
+
+def _tiles_delta(csr, GraphDelta, rng, n_pad):
+    """One edge into every empty tile of the rows of shard 0 of the
+    (2, 2) engine part's two-way split (``n_pad`` rows padded for four):
+    that shard's tile list overflows and the tiles are rebuilt."""
+    n = csr.n_nodes
+    s, t = csr.edge_list()
+    have = set(np.unique((s.astype(np.int64) // TILE) * n + t // TILE)
+               .tolist())
+    adds = []
+    for rb in range(-(-min(n_pad // 2, n) // TILE)):
+        for cb in range(-(-n // TILE)):
+            if rb * n + cb not in have:
+                adds.append((rb * TILE, min(cb * TILE, n - 1)))
+    a_s, a_d = zip(*adds) if adds else ((), ())
+    return GraphDelta(add_src=a_s, add_dst=a_d)
+
+
+def phase7_deltas(csr, GraphDelta, apply_delta_csr, n_pad):
+    """The engine part's deltas, each built on the graph the ones before
+    it left: ``[(name, delta)]`` and the graph after each."""
+    rng = np.random.default_rng(31)
+    out, graphs = [], []
+    for name, make in (
+            ("same_shape", _swap_delta), ("rebin", _rebin_delta),
+            ("ell_overflow", _overflow_delta),
+            ("tiles_full", lambda g, D, r: _tiles_delta(g, D, r, n_pad))):
+        d = make(csr, GraphDelta, rng)
+        out.append((name, d))
+        csr = apply_delta_csr(csr, d)
+        graphs.append(csr)
+    return out, graphs
 
 
 def _digest(a: np.ndarray) -> str:
@@ -709,18 +852,161 @@ def _digest(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
-def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
-    """One of the ranks that share the card over gloo: the engines on a
-    (2, 2) mesh in both state layouts, each kernel at its shard shape
-    against its plain version, then ``serve`` on (1, 4), closed loop and
-    open loop. Returns its report; rank 0 also the served levels."""
+def host_rss_gb() -> float:
+    """This process's resident host memory now (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def phase7_engine_cases(mesh, g, n_pad, bundle, backends, src8, src64,
+                        into: dict, levels: dict | None, tag: str = ""):
+    """Phase 7's engine cases on one structure set ``g``: nTkS and nTkMS
+    on each backend in both state layouts, each case's own kernel
+    launches counted alone. Fills ``into`` with each case's digest,
+    iterations, trips and launches (and ``levels``, on rank 0); returns
+    the replicated cases' levels, the kernel checks' inputs."""
     from repro_torch.core import (
         build_engine,
         pad_sources,
         policy_ntkms,
         policy_ntks,
-        prepare_graph,
     )
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+
+    inputs = {}
+    for be in backends:
+        for pname, pol, srcs, ec in (
+                ("ntks", policy_ntks(), src8, "sp_lengths"),
+                ("ntkms", policy_ntkms(), src64, "msbfs_lengths")):
+            for lay in ("replicated", "sharded"):
+                morsels = pad_sources(srcs, 2, pol.lanes, n_pad)
+                eng = build_engine(mesh, pol, ec, n_pad, state_layout=lay,
+                                   extend=be)
+                # this case's engine launches alone
+                bp_mod.fused_binned_pull.launches = 0
+                mx_mod.msbfs_extend_blocks.launches = 0
+                tc = time.perf_counter()
+                res = eng(g, morsels)
+                torch.cuda.synchronize()
+                case_ms = (time.perf_counter() - tc) * 1e3
+                launched = {"binned_pull": bp_mod.fused_binned_pull.launches,
+                            "msbfs_extend":
+                                mx_mod.msbfs_extend_blocks.launches}
+                lv = res.state.levels.cpu().numpy()
+                its = res.iterations.numpy()
+                per = len(its) // 2
+                d = mesh.coord("data")
+                # this rank's morsels: one extension a trip each
+                trips = int(its[d * per:(d + 1) * per].sum())
+                key = f"{tag}{pname}/{be}/{lay}"
+                into[key] = {
+                    "digest": _digest(lv), "iterations": its.tolist(),
+                    "trips": trips, "launches": launched, "ms": case_ms}
+                if levels is not None:
+                    levels[key] = lv
+                if lay == "replicated" and pname not in inputs:
+                    inputs[pname] = lv
+    return inputs
+
+
+def phase7_delta_part(mesh, csr, deltas, src8, src64,
+                      levels: dict | None) -> list:
+    """The (2, 2) engine part on operands graph deltas folded: a
+    dispatcher's nTkS bundles of the engine cases' two structure sets;
+    each delta folded by every rank into its own shards, then every
+    engine case re-run and ``binned_pull`` (all five ops) and
+    ``msbfs_extend`` held against their plain versions on the folded
+    shard pack and tiles. Returns one entry a delta."""
+    from repro_torch.core import as_spec, policy_ntks
+    from repro_torch.kernels.binned_pull.binned_pull import LANE_OPS, OPS
+    from repro_torch.kernels.binned_pull.ops import binned_pull
+    from repro_torch.kernels.msbfs_extend.ops import extend_blocks
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    dev = mesh.device
+    sets = (("dopt_fused", ("dopt_fused", "pull_binned_fused")),
+            ("block_mxu", ("block_mxu",)))
+    dq = QueryDispatcher(mesh, csr, max_iters=64)
+    for bundle, _ in sets:
+        dq._graph_for(policy_ntks(), as_spec(bundle))
+    steps = []
+    for step, (dname, d) in enumerate(deltas, 1):
+        torch.cuda.reset_peak_memory_stats()
+        r = dq.apply_delta(d)
+        entry = {
+            "delta": dname, "adds": r.n_adds, "dels": r.n_dels,
+            "apply_delta_ms": r.ms, "slowest_rank_ms": r.ms_max,
+            "wire_bytes": r.wire_bytes,
+            "structures_changed": r.structures_changed,
+            "structures_rebuilt": r.structures_rebuilt,
+            "binned_moves": r.binned_moves,
+            "engines_invalidated": r.engines_invalidated,
+            "rebuilt": sorted({f"{'+'.join(k[0])}/{s}"
+                               for k, f in r.folds
+                               for s, v in f.reshaped.items() if v}),
+            "cases": {}, "kernels": {},
+        }
+        for bundle, backends in sets:
+            b = dq._graph_for(policy_ntks(), as_spec(bundle))
+            g, n_pad = b.ops, b.n_pad
+            inputs = phase7_engine_cases(
+                mesh, g, n_pad, bundle, backends, src8, src64,
+                entry["cases"], levels, tag=f"delta{step}/")
+            rows = g.fwd.n_nodes
+            lo = mesh.coord("model") * rows
+            if bundle == "dopt_fused":
+                pack = g.rev_binned_pack
+                lv1 = inputs["ntks"][0]
+                lanes = inputs["ntkms"][0]
+                dense = (torch.tensor((lv1 == 2).astype(np.uint8),
+                                      device=dev),
+                         torch.tensor(((lv1 >= 0) & (lv1 <= 2))[lo:lo + rows]
+                                      .astype(np.uint8), device=dev))
+                lane = (torch.tensor((lanes == 2).astype(np.uint8),
+                                     device=dev),
+                        torch.tensor((lanes <= 2)[lo:lo + rows]
+                                     .astype(np.uint8), device=dev))
+                dist = (torch.tensor(np.where(lv1 >= 0, lv1, np.inf)
+                                     .astype(np.float32), device=dev), None)
+                for op in OPS:
+                    a, v = (lane if op in LANE_OPS else
+                            dist if op == "min_dist" else dense)
+                    got = binned_pull(pack, a, v, op=op)
+                    exp = binned_pull(pack, a, v, op=op, use_ref=True)
+                    torch.cuda.synchronize()
+                    entry["kernels"][f"binned_pull/{op}"] = bool(
+                        torch.equal(got, exp))
+            else:
+                sb = g.blocks
+                bsz = sb.block_size
+                loc = torch.tensor(
+                    (inputs["ntkms"][0][lo:lo + rows] == 2).astype(np.uint8),
+                    device=dev).view(rows // bsz, bsz, 64)
+                tiles = (sb.blocks[0], sb.block_rows[0], sb.block_cols[0])
+                got = extend_blocks(*tiles, loc, g_out=n_pad // bsz)
+                exp = extend_blocks(*tiles, loc, g_out=n_pad // bsz,
+                                    use_ref=True)
+                torch.cuda.synchronize()
+                entry["kernels"]["msbfs_extend"] = bool(torch.equal(got, exp))
+            del g
+        entry["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # after the fold: the rank's host mirrors are resident
+        entry["host_rss_gb"] = host_rss_gb()
+        steps.append(entry)
+    del dq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return steps
+
+
+def phase7_rank(rank: int, world: int, scale: float, src8, src64,
+                deltas) -> dict:
+    """One of the ranks that share the card over gloo: the engines on a
+    (2, 2) mesh in both state layouts, each kernel at its shard shape
+    against its plain version, then ``serve`` on (1, 4), closed loop and
+    open loop. Returns its report; rank 0 also the served levels."""
+    from repro_torch.core import policy_ntks, prepare_graph
     from repro_torch.graph.generators import PAPER_DATASETS
     from repro_torch.kernels.binned_pull import binned_pull as bp_mod
     from repro_torch.kernels.binned_pull.ops import binned_pull
@@ -739,9 +1025,7 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
     torch.cuda.reset_peak_memory_stats()
     mesh.wire.reset()
     t0 = time.perf_counter()
-    steps = 0
     shapes, kernel_checks = {}, {}
-    engine_launches = {"binned_pull": 0, "msbfs_extend": 0}
     check_launches = {"binned_pull": 0, "msbfs_extend": 0}
 
     def read_launches(into):
@@ -753,44 +1037,13 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
     for bundle, backends in (("dopt_fused", ("dopt_fused",
                                              "pull_binned_fused")),
                              ("block_mxu", ("block_mxu",))):
-        inputs = {}  # this bundle's row padding
         tb = time.perf_counter()
         g, n_pad = prepare_graph(csr, mesh, policy_ntks(), extend=bundle)
         torch.cuda.synchronize()
         rep[f"build_s/{bundle}"] = time.perf_counter() - tb
-        for be in backends:
-            for pname, pol, srcs, ec in (
-                    ("ntks", policy_ntks(), src8, "sp_lengths"),
-                    ("ntkms", policy_ntkms(), src64, "msbfs_lengths")):
-                for lay in ("replicated", "sharded"):
-                    morsels = pad_sources(srcs, 2, pol.lanes, n_pad)
-                    eng = build_engine(mesh, pol, ec, n_pad,
-                                       state_layout=lay, extend=be)
-                    # this case's engine launches alone
-                    bp_mod.fused_binned_pull.launches = 0
-                    mx_mod.msbfs_extend_blocks.launches = 0
-                    tc = time.perf_counter()
-                    res = eng(g, morsels)
-                    torch.cuda.synchronize()
-                    case_ms = (time.perf_counter() - tc) * 1e3
-                    launched = {"binned_pull": 0, "msbfs_extend": 0}
-                    read_launches(launched)
-                    read_launches(engine_launches)
-                    lv = res.state.levels.cpu().numpy()
-                    its = res.iterations.numpy()
-                    per = len(its) // 2
-                    d = mesh.coord("data")
-                    # this rank's morsels: one extension a trip each
-                    trips = int(its[d * per:(d + 1) * per].sum())
-                    steps += trips
-                    key = f"{pname}/{be}/{lay}"
-                    rep["cases"][key] = {
-                        "digest": _digest(lv), "iterations": its.tolist(),
-                        "trips": trips, "launches": launched, "ms": case_ms}
-                    if rank == 0:
-                        levels[key] = lv
-                    if lay == "replicated" and pname not in inputs:
-                        inputs[pname] = lv
+        inputs = phase7_engine_cases(mesh, g, n_pad, bundle, backends, src8,
+                                     src64, rep["cases"],
+                                     levels if rank == 0 else None)
         # each kernel at this rank's shard shape against its plain version;
         # these launches are counted apart from the engines'
         bp_mod.fused_binned_pull.launches = 0
@@ -852,7 +1105,9 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     rep["engines_s"] = time.perf_counter() - t0
-    rep["launches"] = engine_launches
+    steps = sum(c["trips"] for c in rep["cases"].values())
+    rep["launches"] = {k: sum(c["launches"][k] for c in rep["cases"].values())
+                       for k in ("binned_pull", "msbfs_extend")}
     rep["check_launches"] = check_launches
     rep["shapes"] = shapes
     rep["kernels"] = kernel_checks
@@ -862,6 +1117,11 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
                    "ms": mesh.wire.ms,
                    "ms_per_iteration": mesh.wire.ms / max(steps, 1)}
     rep["engines_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the same cases on operands each rank folds graph deltas into
+    td = time.perf_counter()
+    rep["deltas"] = phase7_delta_part(mesh, csr, deltas, src8, src64,
+                                      levels if rank == 0 else None)
+    rep["deltas_s"] = time.perf_counter() - td
     # serve on JAX serve's (1, 4) mesh: rank 0 leads, the others follow
     served = {}
     common = ["--device", "cuda:0", "--dataset", "ldbc", "--scale",
@@ -875,15 +1135,22 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
                                       "--batches", "3"]),
             ("open dopt_fused x8", ["--backend", "dopt_fused",
                                     "--sources-per-batch", "8",
-                                    "--arrivals", "20", "--rate", "20"])):
+                                    "--arrivals", "40", "--rate", "20",
+                                    "--mutate-stream", "2"]),
+            ("open recommend x64", ["--sources-per-batch", "64",
+                                    "--arrivals", "20", "--rate", "20",
+                                    "--mutate-stream", "1"])):
         torch.cuda.reset_peak_memory_stats()
         bp_mod.fused_binned_pull.launches = 0
         mx_mod.msbfs_extend_blocks.launches = 0
-        batches, streams = [], []
+        batches, streams, finalized = [], [], {}
         ts = time.perf_counter()
-        rc = serve.main(common + extra, on_batch=lambda r: batches.append(
-            (r.sources, r.policy, r.result.state.levels.cpu().numpy(),
-             r.ms, r.cold)), on_stream=streams.append)
+        rc = serve.main(
+            common + extra, on_batch=lambda r: batches.append(
+                (r.sources, r.policy, r.result.state.levels.cpu().numpy(),
+                 r.ms, r.cold)), on_stream=streams.append,
+            on_outcome=lambda seq, o: finalized.__setitem__(
+                seq, _digest(o.result.state.levels.cpu().numpy())))
         if rc != 0:
             raise RuntimeError(f"serve {sname} exited {rc}")
         entry = {
@@ -892,16 +1159,25 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64) -> dict:
                 "msbfs_extend": mx_mod.msbfs_extend_blocks.launches},
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "seconds": time.perf_counter() - ts,
+            # every rank's finalized batches (a follower's replays)
+            "finalized": finalized,
         }
         if rank == 0 and batches:
             entry["batches"] = batches
         if rank == 0 and streams:
             loop = streams[0].loop
-            entry["queries"] = [(f"q{i}", a["sources"]) for i, a in
-                                enumerate(streams[0].arrivals)]
+            entry["arrivals"] = streams[0].arrivals
             entry["results"] = dict(loop.results)
             entry["warm_p50_ms"] = finite(loop.stats.p50())
             entry["batches_n"] = loop.stats.batches
+            entry["delta_reports"] = [
+                {"version": r.version, "ms": r.ms,
+                 "slowest_rank_ms": r.ms_max, "wire_bytes": r.wire_bytes,
+                 "structures_changed": r.structures_changed,
+                 "structures_rebuilt": r.structures_rebuilt,
+                 "binned_moves": r.binned_moves,
+                 "engines_invalidated": r.engines_invalidated}
+                for r in loop.delta_reports]
         served[sname] = entry
         gc.collect()
         torch.cuda.empty_cache()
@@ -929,6 +1205,25 @@ def phase7_nccl(rank: int, world: int, scale: float) -> dict:
     return {"rc": rc, "backend": dist.get_backend(), "batches": batches}
 
 
+def check_case_launches(rank: int, what: str, cases: dict) -> None:
+    """The engines' own launches, apart from the checks': a fused pull or
+    ``block_mxu`` case launches its kernel on every trip, ``dopt_fused``
+    on its pull trips (at least once over its cases)."""
+    dopt_pulls = 0
+    for key, case in cases.items():
+        be = key.split("/")[-2]
+        k = {"pull_binned_fused": "binned_pull",
+             "block_mxu": "msbfs_extend"}.get(be)
+        if k is not None and case["launches"][k] < max(case["trips"], 1):
+            fail(f"phase 7 rank {rank} {what}{key}: {k} launched "
+                 f"{case['launches'][k]} times in {case['trips']} trips")
+        if be == "dopt_fused":
+            dopt_pulls += case["launches"]["binned_pull"]
+    if dopt_pulls <= 0:
+        fail(f"phase 7 rank {rank} {what}: dopt_fused never launched "
+             "binned_pull")
+
+
 def phase_7(csr, oracle) -> dict:
     """Four ranks share the card over gloo (host-staged messages); then a
     world-size-1 NCCL run of ``serve --closed-loop``."""
@@ -939,45 +1234,64 @@ def phase_7(csr, oracle) -> dict:
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
+    from repro_torch.graph.delta import GraphDelta, apply_delta_csr
+    from repro_torch.graph.partition import padded_n
+
     src8 = np.asarray(pick_sources(csr, 8, seed=300), np.int32)
     src64 = np.asarray(pick_sources(csr, 64, seed=301), np.int32)
-    reports = run_ranks(phase7_rank, RANKS, (SCALE, src8, src64),
+    # the engine part's deltas; block_mxu's rows pad for the four ranks
+    deltas, graphs = phase7_deltas(csr, GraphDelta, apply_delta_csr,
+                                   padded_n(csr.n_nodes, RANKS, TILE))
+    reports = run_ranks(phase7_rank, RANKS, (SCALE, src8, src64, deltas),
                         backend="gloo", timeout_s=RANKS_TIMEOUT_S)
     n = csr.n_nodes
-    ref8, ref64 = oracle.levels(src8), oracle.levels(src64)
+    refs = {"": (oracle.levels(src8), oracle.levels(src64))}
+    for step, g in enumerate(graphs, 1):
+        orc = BFSOracle(g)
+        refs[f"delta{step}/"] = (orc.levels(src8), orc.levels(src64))
     lead = reports[0]
     for key, lv in lead["levels"].items():
-        packed = key.startswith("ntkms")
-        ref = ref64 if packed else ref8
+        tag, case = (key.split("/", 1)[0] + "/", key.split("/", 1)[1]) \
+            if key.startswith("delta") else ("", key)
+        packed = case.startswith("ntkms")
+        ref = refs[tag][1 if packed else 0]
         got = unpack_levels(lv, {"q": (0, len(ref))}, n, packed)["q"]
         if not np.array_equal(got, ref):
             fail(f"phase 7 {key}: levels differ from the BFS oracle")
         for r in reports[1:]:
-            if r["cases"][key]["digest"] != lead["cases"][key]["digest"]:
+            cases = r["cases"] if not tag else r["deltas"][
+                int(tag[5:-1]) - 1]["cases"]
+            mine = lead["cases"] if not tag else lead["deltas"][
+                int(tag[5:-1]) - 1]["cases"]
+            if cases[key]["digest"] != mine[key]["digest"]:
                 fail(f"phase 7 {key}: rank {r['rank']} holds other levels")
+    if len(lead["levels"]) != 12 * (1 + len(deltas)):
+        fail(f"phase 7: {len(lead['levels'])} engine cases checked")
     for r in reports:
         for kname, chk in r["kernels"].items():
             if not chk["equal"]:
                 fail(f"phase 7 rank {r['rank']}: {kname} at the shard shape "
                      "differs from its plain version")
-        # the engines' own launches, apart from the checks': a fused pull
-        # or block_mxu case launches its kernel on every trip, dopt_fused
-        # on its pull trips
-        dopt_pulls = 0
-        for key, case in r["cases"].items():
-            be = key.split("/")[1]
-            k = {"pull_binned_fused": "binned_pull",
-                 "block_mxu": "msbfs_extend"}.get(be)
-            if k is not None and case["launches"][k] < case["trips"]:
-                fail(f"phase 7 rank {r['rank']} {key}: {k} launched "
-                     f"{case['launches'][k]} times in {case['trips']} trips")
-            if be == "dopt_fused":
-                dopt_pulls += case["launches"]["binned_pull"]
-        if dopt_pulls <= 0:
-            fail(f"phase 7 rank {r['rank']}: dopt_fused never launched "
-                 "binned_pull")
+        check_case_launches(r["rank"], "", r["cases"])
+        for step, entry in enumerate(r["deltas"], 1):
+            bad = [k for k, ok in entry["kernels"].items() if not ok]
+            if bad or len(entry["kernels"]) != 6:
+                fail(f"phase 7 rank {r['rank']} delta {step}: {bad} on the "
+                     f"folded shard differ from their plain versions")
+            check_case_launches(r["rank"], f"delta {step} ", entry["cases"])
+            if r["deltas"][step - 1]["rebuilt"] != \
+                    lead["deltas"][step - 1]["rebuilt"]:
+                fail(f"phase 7 delta {step}: ranks rebuilt other structures")
         if r["wire"]["staged_bytes"] <= 0:
             fail(f"phase 7 rank {r['rank']} staged nothing over gloo")
+    # the deltas reshape what they were built to: nothing for the first
+    # two, every forward ELL, then the tiles
+    rebuilt = [set(e["rebuilt"]) for e in lead["deltas"]]
+    if (rebuilt[0] or rebuilt[1] or lead["deltas"][1]["binned_moves"] <= 0
+            or not {"model/fwd"} <= rebuilt[2]
+            or "model/blocks" not in rebuilt[3]):
+        fail(f"phase 7 deltas rebuilt {rebuilt}, moves "
+             f"{[e['binned_moves'] for e in lead['deltas']]}")
     for sname, entry in lead["served"].items():
         if "batches" in entry:
             for srcs, pol, lv, _, _ in entry["batches"]:
@@ -986,14 +1300,17 @@ def phase_7(csr, oracle) -> dict:
                 if not np.array_equal(got, oracle.levels(srcs)):
                     fail(f"phase 7 serve {sname}: levels differ from BFS")
         if "results" in entry:
-            qs = entry["queries"]
-            if len(entry["results"]) != len(qs):
-                fail(f"phase 7 serve {sname}: {len(entry['results'])} of "
-                     f"{len(qs)} queries served")
-            for (qid, srcs), ref in zip(qs, oracle.levels_of(
-                    [s for _, s in qs])):
-                if not np.array_equal(entry["results"][qid], ref):
-                    fail(f"phase 7 serve {sname} {qid}: levels differ")
+            sgraphs, by_version = stream_versions(csr, entry["arrivals"])
+            want = int(sname.startswith("open dopt")) + 1
+            if len(entry["delta_reports"]) != want:
+                fail(f"phase 7 serve {sname}: "
+                     f"{len(entry['delta_reports'])} deltas applied")
+            check_versions(f"phase 7 serve {sname}", entry["results"],
+                           sgraphs, by_version, oracle)
+        for r in reports[1:]:
+            if r["served"][sname]["finalized"] != entry["finalized"]:
+                fail(f"phase 7 serve {sname}: rank {r['rank']} finalized "
+                     "other batches than rank 0")
     kernel_launch = {"binned_pull": 0, "msbfs_extend": 0}
     for r in reports:
         for sname, entry in r["served"].items():
@@ -1023,6 +1340,13 @@ def phase_7(csr, oracle) -> dict:
             "build_s": {k[8:]: v for k, v in r.items()
                         if k.startswith("build_s/")},
             "engines_peak_gb": r["engines_peak_gb"],
+            "deltas": [{k: v for k, v in e.items()
+                        if k not in ("cases", "kernels")}
+                       for e in r["deltas"]],
+            "delta_case_launches": [
+                {k: {**c["launches"], "trips": c["trips"]}
+                 for k, c in e["cases"].items()} for e in r["deltas"]],
+            "deltas_s": r["deltas_s"],
             "serve": {s: {"launches": e["launches"],
                           "peak_gb": e["peak_gb"], "seconds": e["seconds"]}
                       for s, e in r["served"].items()},
@@ -1039,9 +1363,10 @@ def phase_7(csr, oracle) -> dict:
                                     entry["batches"]}),
                 "warm_ms": warm}
         else:
-            lead_serve[sname] = {"queries": len(entry["queries"]),
+            lead_serve[sname] = {"queries": len(entry["results"]),
                                  "batches": entry["batches_n"],
-                                 "warm_p50_ms": entry["warm_p50_ms"]}
+                                 "warm_p50_ms": entry["warm_p50_ms"],
+                                 "deltas": entry["delta_reports"]}
     summary["serve"] = lead_serve
     summary["seconds"] = time.perf_counter() - t0
     print("phase 7: " + json.dumps({
@@ -1392,30 +1717,12 @@ def main() -> int:
             launches[k] += v
         t1 = time.perf_counter()
         loop, arrivals = streams[0].loop, streams[0].arrivals
-        # each query against the graph version it was admitted under: the
-        # schedule is in time order and qids count the submissions
-        graphs, by_version = [csr], [[]]
-        for a in arrivals:
-            if "delta" in a:
-                graphs.append(apply_delta_csr(graphs[-1], a["delta"]))
-                by_version.append([])
-            else:
-                qid = f"q{sum(len(q) for q in by_version)}"
-                by_version[-1].append((qid, a["sources"]))
+        graphs, by_version = stream_versions(csr, arrivals)
         st = loop.stats
         n_queries = sum(len(q) for q in by_version)
-        if st.completed != n_queries or len(loop.results) != n_queries:
+        if st.completed != n_queries:
             fail(f"{rname}: {st.completed} of {n_queries} queries served")
-        for v, queries in enumerate(by_version):
-            if not queries:
-                continue
-            orc = oracle if v == 0 else BFSOracle(graphs[v])
-            refs = orc.levels_of([src for _, src in queries])
-            for (qid, src), ref in zip(queries, refs):
-                if not np.array_equal(loop.results[qid], ref):
-                    bad = int((loop.results[qid] != ref).any(axis=1).sum())
-                    fail(f"{rname} {qid} (graph version {v}): levels of "
-                         f"{bad} source(s) differ from the BFS oracle")
+        check_versions(rname, loop.results, graphs, by_version, oracle)
         reps = loop.delta_reports
         if len(reps) != len(graphs) - 1 or (
                 loop.dispatcher.csr.n_edges != graphs[-1].n_edges):

@@ -138,6 +138,16 @@ class ExtendSpec:
         return self.direction == "fixed" and self.backend == "block_mxu"
 
     @property
+    def structures(self) -> tuple:
+        """The ``GraphOperands`` slots this spec scans (``fwd`` always)."""
+        return ("fwd",) + tuple(name for need, name in (
+            (self.needs_rev, "rev"),
+            (self.needs_binned, "rev_binned"),
+            (self.needs_binned_pack, "rev_binned_pack"),
+            (self.needs_blocks, "blocks"),
+        ) if need)
+
+    @property
     def pad_block(self) -> int:
         """Row-padding unit the operands need (tiles must divide the row
         count; 32 keeps bit-packed words aligned)."""
@@ -298,6 +308,26 @@ def operands_from_numpy(leaves: dict, device="cpu") -> GraphOperands:
                          rev_binned_pack=pack, blocks=blocks)
 
 
+def operands_shard_from_numpy(leaves: dict, k: int, shards: int,
+                              device="cpu") -> GraphOperands:
+    """Policy shard ``k`` of ``shards`` of a whole bundle's numpy leaves
+    (``operands_from_numpy``'s names, every leaf's axis 0 the row or the
+    stacked shard axis): the bundle a rank of a mesh holds. Carries a
+    graph built or folded whole (the JAX package's host mirror, say)
+    across to one rank, as ``operands_from_numpy`` carries it to one
+    device."""
+    n_pad = int(leaves["fwd.indices"].shape[0])
+    rl = n_pad // shards
+
+    def part(name, a):
+        if name.startswith(("fwd.", "rev.")):
+            return a[k * rl:(k + 1) * rl]
+        return a[k:k + 1]
+
+    return operands_from_numpy(
+        {name: part(name, a) for name, a in leaves.items()}, device)
+
+
 def _round8(cap: int) -> int:
     return -(-cap // 8) * 8 if cap > 0 else 0
 
@@ -310,14 +340,16 @@ class OperandStream:
     shard ``k``'s leaves as host numpy arrays, named like the JAX
     package's (``operands_from_numpy`` reads them). Every leaf's axis 0 is
     the sharded axis (rows, or the stacked shard axis of length 1), and
-    each piece equals the matching slice of ``build_operands`` bitwise."""
+    each piece equals the matching slice of ``build_operands`` bitwise.
+    ``structures`` names the ``GraphOperands`` slots built."""
 
     csr: CSRGraph  # effective (truncated) forward graph
-    spec: "ExtendSpec"
+    structures: frozenset
     n_pad: int
     k_shards: int  # policy shard count: the build granularity
     fine_shards: int  # row-padding (lcm) shard count; blocks built fine
-    cap_fwd: int
+    tile: int = 128  # block_mxu tile size
+    cap_fwd: Optional[int] = None
     cap_rev: Optional[int] = None
     plan: Optional[BinnedPlan] = None
     nb: Optional[int] = None
@@ -328,23 +360,26 @@ class OperandStream:
 
     def build_shard(self, k: int) -> dict:
         """Policy shard ``k``'s leaves: name -> host numpy array."""
+        want = self.structures
         rl = self.rows_local
         lo, hi = k * rl, (k + 1) * rl
         leaves = {}
-        idx, degs, w = ell_shard(self.csr, lo, hi, self.cap_fwd, self.n_pad)
-        leaves["fwd.indices"], leaves["fwd.degrees"] = idx, degs
-        if w is not None:
-            leaves["fwd.weights"] = w
+        if "fwd" in want:
+            idx, degs, w = ell_shard(self.csr, lo, hi, self.cap_fwd,
+                                     self.n_pad)
+            leaves["fwd.indices"], leaves["fwd.degrees"] = idx, degs
+            if w is not None:
+                leaves["fwd.weights"] = w
         rev_local = None
-        if self.spec.needs_rev or self.spec.needs_binned:
+        if want & {"rev", "rev_binned"}:
             rev_local = reverse_shard(self.csr, lo, hi)
-        if self.spec.needs_rev:
+        if "rev" in want:
             idx, degs, w = ell_shard(rev_local, 0, rl, self.cap_rev,
                                      self.n_pad)
             leaves["rev.indices"], leaves["rev.degrees"] = idx, degs
             if w is not None:
                 leaves["rev.weights"] = w
-        if self.spec.needs_binned:
+        if "rev_binned" in want:
             bn = binned_rev_shard(self.plan, k, rev_local)
             leaves["bn.perm"] = bn.perm.numpy()
             leaves["bn.inv"] = bn.inv.numpy()
@@ -353,7 +388,7 @@ class OperandStream:
             if bn.slab_weights is not None:
                 for b, x in enumerate(bn.slab_weights):
                     leaves[f"bn.w{b}"] = x.numpy()
-            if self.spec.needs_binned_pack:
+            if "rev_binned_pack" in want:
                 pk = build_binned_pack(bn, self.n_pad)
                 leaves["pack.inv_pad"] = pk.inv_pad.numpy()
                 leaves["pack.perm_pad"] = pk.perm_pad.numpy()
@@ -362,9 +397,9 @@ class OperandStream:
                 if pk.slab_weights is not None:
                     for b, x in enumerate(pk.slab_weights):
                         leaves[f"pack.w{b}"] = x.numpy()
-        if self.spec.needs_blocks:
+        if "blocks" in want:
             group = self.fine_shards // self.k_shards
-            bsz = self.spec.block
+            bsz = self.tile
             sb = sharded_blocks_shard(
                 self.csr, self.n_pad, self.fine_shards, self.nb,
                 k * group, (k + 1) * group, bsz,
@@ -383,6 +418,32 @@ class OperandStream:
         return leaves
 
 
+def _plan_stream(eff: CSRGraph, structures, n_pad: int, k_shards: int,
+                 fine_shards: int, tile: int) -> OperandStream:
+    """The global passes ``structures`` need: the forward and reverse ELL
+    widths, the binned plan (at ``k_shards``), the common tile count (at
+    ``fine_shards``)."""
+    want = frozenset(structures)
+    n = eff.n_nodes
+    cap_fwd = cap_rev = plan = nb = None
+    if "fwd" in want:
+        cap_fwd = _round8(int(eff.degrees.max()) if n else 0)
+    if want & {"rev", "rev_binned"}:
+        rev_degs = (np.bincount(eff.indices, minlength=n) if n
+                    else np.zeros(0, np.int64))
+        if "rev" in want:
+            cap_rev = _round8(int(rev_degs.max()) if n else 0)
+        if "rev_binned" in want:
+            plan = binned_plan(rev_degs, n_pad, k_shards)
+    if "blocks" in want:
+        nb = sharded_blocks_nb(eff, n_pad, fine_shards, tile)
+    return OperandStream(
+        csr=eff, structures=want, n_pad=n_pad, k_shards=k_shards,
+        fine_shards=fine_shards, tile=tile, cap_fwd=cap_fwd,
+        cap_rev=cap_rev, plan=plan, nb=nb,
+    )
+
+
 def operand_stream(
     csr: CSRGraph,
     extend="ell_push",
@@ -397,27 +458,26 @@ def operand_stream(
     spec = as_spec(extend)
     pad_block = block or spec.pad_block
     eff = effective_csr(csr, max_deg)
-    n = eff.n_nodes
     fine = max(int(shards), 1)
     k = fine if binned_shards is None else int(binned_shards)
     if fine % k:
         raise ValueError(f"{fine} row shards do not fold into {k}")
-    n_pad = padded_n(n, fine, pad_block)
-    cap_fwd = _round8(int(eff.degrees.max()) if n else 0)
-    cap_rev = plan = nb = None
-    if spec.needs_rev or spec.needs_binned:
-        rev_degs = (np.bincount(eff.indices, minlength=n) if n
-                    else np.zeros(0, np.int64))
-        if spec.needs_rev:
-            cap_rev = _round8(int(rev_degs.max()) if n else 0)
-        if spec.needs_binned:
-            plan = binned_plan(rev_degs, n_pad, k)
-    if spec.needs_blocks:
-        nb = sharded_blocks_nb(eff, n_pad, fine, spec.block)
-    return OperandStream(
-        csr=eff, spec=spec, n_pad=n_pad, k_shards=k, fine_shards=fine,
-        cap_fwd=cap_fwd, cap_rev=cap_rev, plan=plan, nb=nb,
-    )
+    n_pad = padded_n(eff.n_nodes, fine, pad_block)
+    return _plan_stream(eff, spec.structures, n_pad, k, fine, spec.block)
+
+
+def rebuild_shard(eff: CSRGraph, n_pad: int, shards: int, k: int,
+                  structures, tile: int = 128) -> dict:
+    """Policy shard ``k`` of ``shards`` of the named structures, rebuilt
+    from the effective graph ``eff`` at ``n_pad`` rows with the new global
+    widths, binned plan and tile count: the ``[k]`` slice of a whole
+    rebuild, as a graph delta rebuilds a structure it cannot fold (the
+    tiles at ``shards`` lists, like ``sharded_blocks_from_csr(eff, n_pad,
+    shards)``, whatever finer padding the first build had). Returns
+    ``{name: structure}`` of host tensors."""
+    st = _plan_stream(eff, structures, n_pad, shards, shards, tile)
+    ops = operands_from_numpy(st.build_shard(k))
+    return {name: getattr(ops, name) for name in structures}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1097,14 +1157,8 @@ def make_backend(spec: ExtendSpec):
 
 def check_operands(spec: ExtendSpec, ops: GraphOperands) -> None:
     """Raise when ``ops`` lacks a structure ``spec`` scans."""
-    missing = [
-        name for need, name in (
-            (spec.needs_rev, "rev"),
-            (spec.needs_binned, "rev_binned"),
-            (spec.needs_binned_pack, "rev_binned_pack"),
-            (spec.needs_blocks, "blocks"),
-        ) if need and getattr(ops, name) is None
-    ]
+    missing = [name for name in spec.structures
+               if getattr(ops, name) is None]
     if missing:
         raise ValueError(
             f"extend={spec.backend}/{spec.direction}/{spec.pull} needs "

@@ -22,24 +22,31 @@ inserts) against a host ``CSRGraph``. Two consumers:
 Everything here is host-side: the mirror's leaves are CPU tensors and the
 folds write into their ``.numpy()`` views. Placing the changed structures
 on the device (and the engine-cache versioning) is the dispatcher's job.
+
+On a mesh of ranks a sharded bundle's mirror holds one policy shard
+(``RankShard``): its ELL rows ``[lo, hi)`` and its stacked structures at
+stacked index 0. Every rank computes the same global diff (each holds the
+whole host CSR), folds only the dirty rows and tiles of its own shard,
+and reads in-neighbors through ``reverse_shard``, so no rank builds
+another rank's rows. A structure one shard cannot fold is rebuilt on
+every shard (``core.extend.rebuild_shard``): the fold asks ``agree`` (an
+OR over the ranks sharing the bundle) at fixed points, in one order on
+every rank. Free slots are chosen per shard, so a shard's fold gives the
+slots the whole-mirror fold gives it. A whole mirror (one device, or a
+bundle every rank holds whole) is the one shard of one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..kernels.binned_pull.ops import build_pack
+from ..core.extend import rebuild_shard
 from ..kernels.common import drop_derived
-from .csr import (
-    CSRGraph,
-    EllGraph,
-    binned_rev_csr,
-    csr_from_edges,
-    sharded_blocks_from_csr,
-)
+from .csr import CSRGraph, EllGraph, csr_from_edges
+from .partition import reverse_shard
 
 # Structure slots of a ``core.extend.GraphOperands`` bundle, in field order.
 STRUCTURES = ("fwd", "rev", "rev_binned", "rev_binned_pack", "blocks")
@@ -288,6 +295,30 @@ class FoldReport:
         return sum(bool(v) for v in self.reshaped.values())
 
 
+@dataclasses.dataclass(frozen=True)
+class RankShard:
+    """The policy shard of a sharded bundle one rank's mirror holds: shard
+    ``k`` of ``shards`` over ``n_pad`` padded rows. Its ELLs hold rows
+    ``[lo, hi)``; its binned slabs, pack and tiles hold the shard at
+    stacked index 0."""
+
+    k: int
+    shards: int
+    n_pad: int
+
+    @property
+    def rows_local(self) -> int:
+        return self.n_pad // self.shards
+
+    @property
+    def lo(self) -> int:
+        return self.k * self.rows_local
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.rows_local
+
+
 def _ell_row_data(eff: CSRGraph, rows: np.ndarray, width: int, n_pad: int):
     """Padded ``[len(rows), width]`` neighbor rows of ``eff`` (sentinel
     ``n_pad``), plus clipped degrees: the content an ELL slab stores."""
@@ -307,56 +338,32 @@ def _ell_row_data(eff: CSRGraph, rows: np.ndarray, width: int, n_pad: int):
     return idx, w, counts.astype(np.int32)
 
 
-def _fold_ell(ell: EllGraph, eff: CSRGraph, dirty: np.ndarray, n_pad: int):
-    """Rewrite ``dirty`` rows of a host-mirror ELL slab in place.
+def _ell_overflows(eff: CSRGraph, rows: np.ndarray, width: int) -> bool:
+    """True when a row's degree in ``eff`` passes the slab width (the
+    edgeless ``[n, 0]`` slab gaining its first edge included)."""
+    degs = eff.indptr[rows + 1] - eff.indptr[rows]
+    return bool(len(degs)) and int(degs.max()) > width
 
-    Returns the slab, or ``None`` when a dirty row's new degree overflows
-    the slab width (the edgeless ``[n, 0]`` slab gaining its first edge
-    included): the caller rebuilds at the new width."""
+
+def _fold_ell(ell: EllGraph, eff: CSRGraph, rows: np.ndarray,
+              at: np.ndarray, n_pad: int) -> None:
+    """Rewrite slab rows ``at`` of a host-mirror ELL in place with rows
+    ``rows`` of ``eff``, which fit its width (``_ell_overflows``)."""
     width = int(ell.indices.shape[1])
-    degs = eff.indptr[dirty + 1] - eff.indptr[dirty]
-    if len(degs) and int(degs.max()) > width:
-        return None
-    idx, w, counts = _ell_row_data(eff, dirty, width, n_pad)
-    _np(ell.indices)[dirty] = idx
-    _np(ell.degrees)[dirty] = counts
+    idx, w, counts = _ell_row_data(eff, rows, width, n_pad)
+    _np(ell.indices)[at] = idx
+    _np(ell.degrees)[at] = counts
     if ell.weights is not None:
-        _np(ell.weights)[dirty] = w
+        _np(ell.weights)[at] = w
     drop_derived(ell)
-    return ell
-
-
-def _build_ell_host(eff: CSRGraph, n_pad: int) -> EllGraph:
-    """Full host ELL at ``n_pad`` rows, the rebuild when a dirty row
-    overflows its slab. Width rule of ``ell_from_csr`` + ``pad_ell`` (max
-    degree rounded up to a multiple of 8; a genuine ``[n_pad, 0]`` slab
-    when edgeless), sentinel ``n_pad``."""
-    n = eff.n_nodes
-    degs = eff.degrees
-    cap = int(degs.max()) if n and len(degs) else 0
-    if cap > 0:
-        cap = -(-cap // 8) * 8
-    idx, w, counts = _ell_row_data(
-        eff, np.arange(n, dtype=np.int64), cap, n_pad
-    )
-    indices = np.full((n_pad, cap), n_pad, np.int32)
-    indices[:n] = idx
-    degrees = np.zeros(n_pad, np.int32)
-    degrees[:n] = counts
-    weights = None
-    if w is not None:
-        weights = np.zeros((n_pad, cap), np.float32)
-        weights[:n] = w
-    return EllGraph(
-        indices=torch.from_numpy(indices),
-        degrees=torch.from_numpy(degrees),
-        weights=None if weights is None else torch.from_numpy(weights),
-    )
 
 
 def _fold_binned(bn, rev: CSRGraph, dirty: np.ndarray, n_pad: int,
-                 max_overhead: float = 1.1):
+                 base: int = 0, row0: int = 0, max_overhead: float = 1.1):
     """Re-bin ``dirty`` (reverse) rows inside the existing slab shapes.
+    The mirror stacks shards ``base, base + 1, ...`` and ``rev`` holds the
+    reverse rows from ``row0`` on (the whole mirror: 0 and 0; a rank's
+    shard: its index and its first row).
 
     A dirty row stays in its bucket when the bucket still satisfies the
     builder's invariant for its new degree (``deg <= width <= max_overhead
@@ -379,18 +386,19 @@ def _fold_binned(bn, rev: CSRGraph, dirty: np.ndarray, n_pad: int,
     rows_b = np.asarray([int(s.shape[-2]) for s in slabs], np.int64)
     ends = np.cumsum(rows_b)
     starts = ends - rows_b
-    n = rev.n_nodes
-
     def fits(d: int, b: int) -> bool:
         w = widths[b]
         if d == 0:
             return b == 0
         return b > 0 and w >= d and w <= max_overhead * d + 1e-9
 
-    recs = []  # (row, shard, local, new_deg, binned_pos, bucket)
+    recs = []  # (reverse row, shard, local, new_deg, binned_pos, bucket)
     for r in map(int, dirty):
         k, l = divmod(r, rows_local)
-        d = int(rev.indptr[r + 1] - rev.indptr[r]) if r < n else 0
+        k -= base
+        r -= row0
+        d = (int(rev.indptr[r + 1] - rev.indptr[r]) if r < rev.n_nodes
+             else 0)
         p = int(inv[k, l])
         b = int(np.searchsorted(ends, p, side="right"))
         recs.append((r, k, l, d, p, b))
@@ -488,8 +496,9 @@ def _fold_pack(pack, bn, changed_cells, perm_changed: bool) -> None:
 
 
 def _fold_blocks(sb, new_eff: CSRGraph, added: np.ndarray,
-                 removed: np.ndarray, n_pad: int):
-    """Recompute only the ``[B, B]`` tiles touched by changed edges.
+                 removed: np.ndarray, shard: RankShard):
+    """Recompute only the ``[B, B]`` tiles of ``shard`` (the mirror's
+    stacked index 0) touched by changed edges.
 
     A tile that gains its first edge claims a free (sentinel-col) slot in
     its shard's tile list; a tile that empties is zeroed and its slot
@@ -499,18 +508,20 @@ def _fold_blocks(sb, new_eff: CSRGraph, added: np.ndarray,
     blocks = _np(sb.blocks)
     brows, bcols = _np(sb.block_rows), _np(sb.block_cols)
     K, nb, B, _ = (int(d) for d in blocks.shape)
-    rows_local = n_pad // K
+    base, rows_local, n_pad = shard.k, shard.rows_local, shard.n_pad
     G = n_pad // B  # sentinel col-block id of padding tiles
     n = new_eff.n_nodes
     keys = np.concatenate([added, removed])
     u = keys // n
     v = keys % n
+    k_of = u // rows_local - base
+    held = (k_of >= 0) & (k_of < K)
     tiles = sorted(
         set(
             zip(
-                (u // rows_local).tolist(),
-                ((u % rows_local) // B).tolist(),
-                (v // B).tolist(),
+                k_of[held].tolist(),
+                ((u[held] % rows_local) // B).tolist(),
+                (v[held] // B).tolist(),
             )
         )
     )
@@ -524,7 +535,7 @@ def _fold_blocks(sb, new_eff: CSRGraph, added: np.ndarray,
     changed = False
     ptr = new_eff.indptr
     for (k, rb, cb) in tiles:
-        r0 = k * rows_local + rb * B
+        r0 = (base + k) * rows_local + rb * B
         r1 = min(r0 + B, n)
         tile = np.zeros((B, B), np.int8)
         if r1 > r0:
@@ -561,7 +572,8 @@ def _fold_blocks(sb, new_eff: CSRGraph, added: np.ndarray,
 
 
 def fold_operands(host, old_eff: CSRGraph, new_eff: CSRGraph,
-                  diff: DeltaDiff):
+                  diff: DeltaDiff, shard: Optional[RankShard] = None,
+                  agree: Callable[[bool], bool] = bool):
     """Fold one delta's effective changes into a host-mirror operand
     bundle (CPU-tensor leaves, written in place where shapes allow).
 
@@ -570,61 +582,74 @@ def fold_operands(host, old_eff: CSRGraph, new_eff: CSRGraph,
     FoldReport)``: the dict maps each slot name to its post-fold structure,
     the mirror folded in place or a fresh rebuild for the slots the report
     marks ``reshaped``.
+
+    With ``shard`` the mirror holds that one policy shard (without it, the
+    whole graph: the one shard of one): only its rows and tiles are
+    folded, and ``agree(flag)`` must return the OR of ``flag`` over the
+    ranks holding the bundle's other shards (it is called in one order on
+    every rank). ``reshaped`` is then the same on every rank; ``changed``
+    and ``binned_moves`` are the shard's own (the caller reduces them
+    over the ranks).
     """
     del old_eff  # the diff already carries everything the folds need
-    n_pad = int(host.fwd.indices.shape[0])
+    if shard is None:
+        shard = RankShard(0, 1, int(host.fwd.indices.shape[0]))
+    n_pad, lo, hi = shard.n_pad, shard.lo, shard.hi
     changed = {s: False for s in STRUCTURES}
     reshaped = {s: False for s in STRUCTURES}
     moves = 0
 
+    def mine(rows: np.ndarray) -> np.ndarray:
+        return rows[(rows >= lo) & (rows < hi)]
+
     fwd = host.fwd
     if len(diff.fwd_dirty):
-        if _fold_ell(fwd, new_eff, diff.fwd_dirty, n_pad) is None:
-            fwd = _build_ell_host(new_eff, n_pad)
-            reshaped["fwd"] = True
-        changed["fwd"] = True
+        rows = mine(diff.fwd_dirty)
+        width = int(fwd.indices.shape[1])
+        reshaped["fwd"] = agree(_ell_overflows(new_eff, rows, width))
+        if not reshaped["fwd"]:
+            _fold_ell(fwd, new_eff, rows, rows - lo, n_pad)
+        changed["fwd"] = reshaped["fwd"] or bool(len(rows))
 
-    rev_csr = None
+    rev_rows = None  # the reverse rows [lo, hi) of the new graph
+
+    def rev_csr() -> CSRGraph:
+        nonlocal rev_rows
+        if rev_rows is None:
+            rev_rows = reverse_shard(new_eff, lo, hi)
+        return rev_rows
+
     rev = getattr(host, "rev", None)
     if rev is not None and len(diff.rev_dirty):
-        rev_csr = new_eff.reverse()
-        if _fold_ell(rev, rev_csr, diff.rev_dirty, n_pad) is None:
-            rev = _build_ell_host(rev_csr, n_pad)
-            reshaped["rev"] = True
-        changed["rev"] = True
+        rows = mine(diff.rev_dirty)
+        width = int(rev.indices.shape[1])
+        reshaped["rev"] = agree(_ell_overflows(rev_csr(), rows - lo, width))
+        if not reshaped["rev"]:
+            _fold_ell(rev, rev_csr(), rows - lo, rows - lo, n_pad)
+        changed["rev"] = reshaped["rev"] or bool(len(rows))
 
     bn = getattr(host, "rev_binned", None)
     pack = getattr(host, "rev_binned_pack", None)
     if bn is not None and len(diff.rev_dirty):
-        if rev_csr is None:
-            rev_csr = new_eff.reverse()
-        out = _fold_binned(bn, rev_csr, diff.rev_dirty, n_pad)
-        if out is None:
-            K = int(bn.perm.shape[0])
-            bn = binned_rev_csr(new_eff, n_pad, K)
-            reshaped["rev_binned"] = True
-            if pack is not None:
-                pack = build_pack(bn, n_pad)
-                reshaped["rev_binned_pack"] = True
-                changed["rev_binned_pack"] = True
+        rows = mine(diff.rev_dirty)
+        out = _fold_binned(bn, rev_csr(), rows, n_pad, base=shard.k,
+                           row0=lo)
+        reshaped["rev_binned"] = agree(out is None)
+        if reshaped["rev_binned"]:
+            reshaped["rev_binned_pack"] = pack is not None
+            changed["rev_binned_pack"] = pack is not None
         else:
             cells, perm_changed, moves = out
             if pack is not None and (cells or perm_changed):
                 _fold_pack(pack, bn, cells, perm_changed)
                 changed["rev_binned_pack"] = True
-        changed["rev_binned"] = True
+        changed["rev_binned"] = reshaped["rev_binned"] or bool(len(rows))
 
     sb = getattr(host, "blocks", None)
     if sb is not None and diff.n_changed_edges:
-        out = _fold_blocks(sb, new_eff, diff.added, diff.removed, n_pad)
-        if out is None:
-            K = int(sb.blocks.shape[0])
-            B = int(sb.blocks.shape[2])
-            sb = sharded_blocks_from_csr(new_eff, n_pad, K, B)
-            reshaped["blocks"] = True
-            changed["blocks"] = True
-        elif out:
-            changed["blocks"] = True
+        out = _fold_blocks(sb, new_eff, diff.added, diff.removed, shard)
+        reshaped["blocks"] = agree(out is None)
+        changed["blocks"] = reshaped["blocks"] or bool(out)
 
     structs = {
         "fwd": fwd,
@@ -633,6 +658,11 @@ def fold_operands(host, old_eff: CSRGraph, new_eff: CSRGraph,
         "rev_binned_pack": pack,
         "blocks": sb,
     }
+    names = tuple(s for s in STRUCTURES if reshaped[s])
+    if names:
+        structs.update(rebuild_shard(
+            new_eff, n_pad, shard.shards, shard.k, names,
+            128 if sb is None else sb.block_size))
     return structs, FoldReport(
         changed=changed, reshaped=reshaped, binned_moves=moves
     )
@@ -659,6 +689,11 @@ class DeltaReport:
     binned_moves: int  # rows re-binned between existing buckets
     engines_invalidated: int  # engines dropped from the cache
     ms: float = 0.0  # wall of the call: diff, folds and placement
+    ms_max: float = 0.0  # the slowest rank's ms (``ms`` on one rank)
+    wire_bytes: int = 0  # payload bytes this rank's collectives moved
+    # per bundle, in bundle order: (bundle key, FoldReport), the same on
+    # every rank of a mesh
+    folds: tuple = ()
 
     @property
     def same_shape(self) -> bool:

@@ -44,12 +44,16 @@ prints, ranks > 0 replay its dispatcher calls (``QueryDispatcher.follow``).
 The collective backend is NCCL when each rank takes its own card (no
 ``--device``) and gloo when every rank is given the one ``--device``:
 ``--device cpu``, or ``--device cuda:0`` for ranks that share one card.
-``--mutate-stream`` needs one rank::
+``--mutate-stream`` runs there too: rank 0 builds the seeded deltas and
+the followers get each one through the control channel, folding it into
+their own shards::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 \
         -m repro_torch.launch.serve --closed-loop --scale 10 --batches 8
     PYTHONPATH=src torchrun --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --closed-loop --scale 0.1
+    PYTHONPATH=src torchrun --nproc-per-node 2 \
+        -m repro_torch.launch.serve --device cpu --mutate-stream 2
 """
 from __future__ import annotations
 
@@ -213,10 +217,11 @@ def closed_loop_service(args, csr, mesh, family) -> QueryService:
 
 
 def run_open_loop(args, csr, mesh, family,
-                  on_stream: Callable[[StreamRecord], None] | None = None
-                  ) -> int:
+                  on_stream: Callable[[StreamRecord], None] | None = None,
+                  on_outcome=None) -> int:
     disp = open_loop_dispatcher(args, csr, mesh, family)
     disp.leading = True  # ranks > 0 replay its calls
+    disp.on_finalized = on_outcome
     loop = ServingLoop(
         dispatcher=disp,
         overlap=args.overlap, tenant_quota=args.quota,
@@ -286,6 +291,14 @@ def run_open_loop(args, csr, mesh, family,
             f"apply_delta ms {[round(r.ms, 1) for r in reps]}; final graph "
             f"{loop.dispatcher.csr.n_edges} edges"
         )
+        for i, r in enumerate(reps):
+            slowest = (f" (slowest rank {r.ms_max:.1f} ms)"
+                       if loop.dispatcher.mesh.size > 1 else "")
+            print(f"  delta {i}: {r.changed_edges} effective edges changed, "
+                  f"{r.structures_changed} structure(s) changed, "
+                  f"{r.structures_rebuilt} rebuilt, {r.binned_moves} "
+                  f"row(s) re-binned, {r.engines_invalidated} engine(s) "
+                  f"invalidated; {r.ms:.1f} ms{slowest}")
     _report_core(loop.dispatcher)
     if on_stream is not None:
         on_stream(StreamRecord(loop, arrivals, wall_s))
@@ -293,10 +306,11 @@ def run_open_loop(args, csr, mesh, family,
 
 
 def run_closed_loop(args, csr, mesh, family,
-                    on_batch: Callable[[BatchRecord], None] | None = None
-                    ) -> int:
+                    on_batch: Callable[[BatchRecord], None] | None = None,
+                    on_outcome=None) -> int:
     svc = closed_loop_service(args, csr, mesh, family)
     svc.scheduler.leading = True  # ranks > 0 replay its calls
+    svc.scheduler.on_finalized = on_outcome
     rng = np.random.default_rng(0)
     lat, warm_lat, p1_ms, p2_ms, used = [], [], [], [], {}
     redispatched, cold_ms = 0, 0.0
@@ -437,13 +451,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None,
          on_batch: Callable[[BatchRecord], None] | None = None,
-         on_stream: Callable[[StreamRecord], None] | None = None) -> int:
+         on_stream: Callable[[StreamRecord], None] | None = None,
+         on_outcome: Callable[[int, Any], None] | None = None) -> int:
     """Serve from the command line. ``on_batch`` receives each closed-loop
-    batch, ``on_stream`` the drained open-loop stream."""
+    batch, ``on_stream`` the drained open-loop stream (both on rank 0),
+    ``on_outcome`` every rank's finalized batches
+    (``QueryDispatcher.on_finalized``)."""
     args = build_parser().parse_args(argv)
     mesh, owned = _serving_mesh(args)
     try:
-        return _serve(args, mesh, on_batch, on_stream)
+        return _serve(args, mesh, on_batch, on_stream, on_outcome)
     finally:
         if owned:
             import torch.distributed as dist
@@ -462,11 +479,6 @@ def _serving_mesh(args) -> tuple[Mesh, bool]:
              else int(os.environ.get("WORLD_SIZE", "1")))
     if world == 1:
         return as_mesh(resolve_device(args.device)), False
-    if args.mutate_stream:
-        raise NotImplementedError(
-            "--mutate-stream on several ranks: graph deltas across ranks "
-            "are not ported (ROADMAP queue 1: deltas across ranks)"
-        )
     # one card a rank takes NCCL; ranks given one device (the CPU, or a
     # card they share, which NCCL refuses) take gloo
     backend = "nccl" if args.device is None else "gloo"
@@ -479,7 +491,7 @@ def _serving_mesh(args) -> tuple[Mesh, bool]:
     return make_mesh((1, world), ("data", "model"), device), owned
 
 
-def _serve(args, mesh: Mesh, on_batch, on_stream) -> int:
+def _serve(args, mesh: Mesh, on_batch, on_stream, on_outcome) -> int:
     device = mesh.device
     csr = PAPER_DATASETS[args.dataset](args.scale)
     if args.query_kind == "topk_paths" and csr.weights is None:
@@ -496,6 +508,7 @@ def _serve(args, mesh: Mesh, on_batch, on_stream) -> int:
         # a follower: the same dispatcher, driven by rank 0's calls
         disp = (closed_loop_service(args, csr, mesh, family).scheduler
                 if closed else open_loop_dispatcher(args, csr, mesh, family))
+        disp.on_finalized = on_outcome
         disp.follow()
         return 0
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -507,8 +520,10 @@ def _serve(args, mesh: Mesh, on_batch, on_stream) -> int:
         f"nodes, {csr.n_edges} edges, avg degree {csr.avg_degree:.0f}"
     )
     if closed:
-        return run_closed_loop(args, csr, mesh, family, on_batch=on_batch)
-    return run_open_loop(args, csr, mesh, family, on_stream=on_stream)
+        return run_closed_loop(args, csr, mesh, family, on_batch=on_batch,
+                               on_outcome=on_outcome)
+    return run_open_loop(args, csr, mesh, family, on_stream=on_stream,
+                         on_outcome=on_outcome)
 
 
 if __name__ == "__main__":

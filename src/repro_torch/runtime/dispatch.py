@@ -29,13 +29,19 @@ What differs from the JAX package:
   dispatcher may hold fewer bundles than JAX's and fold a delta into
   fewer of them;
 - ``apply_delta`` places each changed structure as new tensors (a copy,
-  also on the CPU) and times itself (``DeltaReport.ms``); on a mesh of
-  more than one rank it raises (deltas across ranks are not ported);
+  also on the CPU) and times itself (``DeltaReport.ms``, and the slowest
+  rank's ``ms_max``). On a mesh each rank folds a sharded bundle into its
+  own shard only (``graph.delta.RankShard``): the rebuild decisions are
+  OR'd over the ranks sharing the bundle, so epochs and engine
+  invalidations move together, and the report is reduced over them
+  (``changed`` OR'd, ``binned_moves`` summed) into the same
+  ``DeltaReport`` on every rank;
 - on a mesh of ranks every rank runs its own dispatcher over its own
   shards, either all making the same calls (SPMD, as the tests do) or
   with rank 0 leading (``leading=True``, as ``serve`` runs it): each
-  ``begin_batch`` / ``settle_batch`` / finalize it runs is first
-  broadcast, and ranks > 0 replay them in order in ``follow`` until
+  ``begin_batch`` / ``settle_batch`` / finalize / ``apply_delta`` it
+  runs is first broadcast, and ranks > 0 replay them in order in
+  ``follow`` until
   ``release_followers``. Every decision that
   picks a collective is the same on every rank: plans and learners feed
   only on global values (gathered iteration counts, stats summed over
@@ -87,13 +93,15 @@ from ..core import (
     recommend_k,
     recommend_policy,
 )
-from ..core.collectives import gang_handoff
+from ..core.collectives import any_over, gang_handoff, max_allreduce, psum
 from ..core.extend import GraphOperands, effective_csr
 from ..graph.csr import CSRGraph
 from ..graph.delta import (
     STRUCTURES,
     DeltaReport,
+    FoldReport,
     GraphDelta,
+    RankShard,
     apply_delta_csr,
     diff_effective,
     fold_operands,
@@ -348,6 +356,7 @@ class SettledBatch:
     _materialize: Callable[[], IFEResult] | None = None
     seq: int = 0  # the batch's number on the mesh's control channel
     _on_finalize: Callable[[], None] | None = None
+    _on_done: Callable[[int, QueryOutcome], None] | None = None
 
     @property
     def finalized(self) -> bool:
@@ -360,6 +369,9 @@ class SettledBatch:
         if self._materialize is not None:
             self.outcome.result = self._materialize()
             self._materialize = None
+        if self._on_done is not None:
+            done, self._on_done = self._on_done, None
+            done(self.seq, self.outcome)
         return self.outcome
 
 
@@ -452,6 +464,9 @@ class QueryDispatcher:
         self._seq = 0  # batches begun (the control channel's numbering)
         # rank 0 broadcasts its calls to followers (``serve``'s mode)
         self.leading = False
+        # called with (seq, outcome) as each batch is finalized, on every
+        # rank (a follower's replays included)
+        self.on_finalized: Callable[[int, QueryOutcome], None] | None = None
 
     # ------------------------------------------------------- rank 0 leads
 
@@ -478,6 +493,8 @@ class QueryDispatcher:
                 pending[seq] = self.settle_batch(pending.pop(seq))
             elif op == "finalize":
                 pending.pop(seq).finalize()
+            elif op == "delta":
+                self.apply_delta(kw["delta"])
             else:
                 raise RuntimeError(f"unknown control message {op!r}")
 
@@ -553,36 +570,31 @@ class QueryDispatcher:
         ``cache.compile_events`` flat, a reshaping one invalidates exactly
         the keys of engines scanning a rebuilt structure. Batches planned
         after this call see the new graph; batches in flight keep the
-        tensors they pinned at begin time."""
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                "graph deltas on a mesh of several ranks are not ported "
-                "(ROADMAP queue 1: deltas across ranks)"
-            )
+        tensors they pinned at begin time. On a mesh every rank calls it
+        (SPMD, or rank 0 leading and the followers replaying it)."""
+        if self.leads:
+            _bcast(("delta", self.operands_version, {"delta": delta}))
         t0 = time.perf_counter()
+        wire0 = self.mesh.wire.bytes
         new_csr = apply_delta_csr(self.csr, delta)
         old_eff = effective_csr(self.csr, self.max_deg)
         new_eff = effective_csr(new_csr, self.max_deg)
         diff = diff_effective(old_eff, new_eff, delta)
         self.operands_version += 1
-        n_changed = n_rebuilt = moves = 0
-        for bundle in self._graphs.values():
+        folds = []
+        for key, bundle in self._graphs.items():
             if bundle.host is None:
                 # the first delta against this bundle: one copy to the
                 # host, reused by every later fold
                 bundle.host = map_tensors(
                     lambda t: t.detach().to("cpu", copy=True), bundle.ops
                 )
-            structs, rep = fold_operands(bundle.host, old_eff, new_eff, diff)
-            bundle.host = GraphOperands(**structs)
-            bundle.ops = self._place_structures(bundle, rep)
+            rep = self._fold_bundle(key, bundle, old_eff, new_eff, diff)
             bundle.version = self.operands_version
             for s, r in rep.reshaped.items():
                 if r:
                     bundle.epochs[s] = bundle.epochs.get(s, 0) + 1
-            n_changed += rep.n_changed
-            n_rebuilt += rep.n_reshaped
-            moves += rep.binned_moves
+            folds.append((key, rep))
         self.csr = new_csr
         # stale-state sweep: measured cost rates were taken on the old
         # operands, and the learners are keyed to the old degree buckets
@@ -591,6 +603,14 @@ class QueryDispatcher:
         invalidated = self.cache.invalidate(self._engine_stale)
         self.stats.deltas += 1
         synchronize(self.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        wire_bytes = self.mesh.wire.bytes - wire0
+        ms_max = ms
+        if self.mesh.size > 1:
+            every = self.mesh.axes(self.mesh.axis_names)
+            ms_max = float(max_allreduce(torch.tensor(
+                [ms], dtype=torch.float64, device=self.mesh.wire_device),
+                every)[0])
         return DeltaReport(
             version=self.operands_version,
             n_adds=delta.n_adds,
@@ -599,12 +619,40 @@ class QueryDispatcher:
             dirty_fwd_rows=int(len(diff.fwd_dirty)),
             dirty_rev_rows=int(len(diff.rev_dirty)),
             bundles=len(self._graphs),
-            structures_changed=n_changed,
-            structures_rebuilt=n_rebuilt,
-            binned_moves=moves,
+            structures_changed=sum(r.n_changed for _, r in folds),
+            structures_rebuilt=sum(r.n_reshaped for _, r in folds),
+            binned_moves=sum(r.binned_moves for _, r in folds),
             engines_invalidated=invalidated,
-            ms=(time.perf_counter() - t0) * 1e3,
+            ms=ms,
+            ms_max=ms_max,
+            wire_bytes=wire_bytes,
+            folds=tuple(folds),
         )
+
+    def _fold_bundle(self, key, bundle: OperandBundle, old_eff, new_eff,
+                     diff) -> FoldReport:
+        """Fold one bundle's host mirror, place what changed and return
+        the bundle's report, the same on every rank. A bundle split over
+        graph axes of the mesh holds this rank's shard: the fold agrees
+        its rebuilds over those axes, and ``changed`` and the moves are
+        reduced over them."""
+        split = self.mesh.axes(key[0])
+        shard = None
+        if split.size > 1:
+            shard = RankShard(split.index(), split.size, bundle.n_pad)
+        structs, rep = fold_operands(
+            bundle.host, old_eff, new_eff, diff, shard=shard,
+            agree=lambda flag: any_over(flag, split))
+        bundle.host = GraphOperands(**structs)
+        bundle.ops = self._place_structures(bundle, rep)
+        if shard is None:
+            return rep
+        counts = psum(torch.tensor(
+            [int(rep.changed[s]) for s in STRUCTURES] + [rep.binned_moves],
+            dtype=torch.int64, device=self.mesh.wire_device), split).tolist()
+        return FoldReport(
+            changed={s: c > 0 for s, c in zip(STRUCTURES, counts)},
+            reshaped=rep.reshaped, binned_moves=int(counts[-1]))
 
     def invalidate_learned_state(self) -> None:
         """Reset the online learners whose keys or samples embed the old
@@ -621,11 +669,12 @@ class QueryDispatcher:
             self.direction_thresholds = None
 
     def _place_structures(self, bundle: OperandBundle, rep) -> GraphOperands:
-        """Place exactly the structures a fold changed, each as new
-        tensors copied from the host mirror (also on the CPU: the next
-        fold writes the mirror, and a batch in flight may still read the
-        old tensors); unchanged structures keep their tensors. A new
-        ``BinnedPullPack`` builds its own launch record."""
+        """Place exactly the structures a fold changed (on a mesh: in this
+        rank's shard), each as new tensors copied from the host mirror
+        (also on the CPU: the next fold writes the mirror, and a batch in
+        flight may still read the old tensors); unchanged structures keep
+        their tensors. A new ``BinnedPullPack`` builds its own launch
+        record."""
         dev = self.device
         old, host = bundle.ops, bundle.host
         pick = {
@@ -1216,6 +1265,7 @@ class QueryDispatcher:
         self._learn(settled.outcome, inflight.buckets, inflight.n_real)
         self.stats.record(settled.outcome)
         settled.seq = inflight.seq
+        settled._on_done = self.on_finalized
         if self.leads:
             settled._on_finalize = lambda: _bcast(
                 ("finalize", settled.seq, {}))

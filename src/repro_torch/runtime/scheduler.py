@@ -34,7 +34,9 @@ class AdaptiveScheduler(QueryDispatcher):
     def apply_delta(self, delta):
         """Graph mutation through the dispatcher, plus the façade's own
         refresh: its admission queue keyed its pooled-policy decision on
-        the ``avg_degree`` of the graph it was built with."""
+        the ``avg_degree`` of the graph it was built with. A follower
+        replays the delta through this method too, so every rank
+        refreshes."""
         report = super().apply_delta(delta)
         self._admission.avg_degree = float(self.csr.avg_degree)
         return report

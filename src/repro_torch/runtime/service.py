@@ -351,7 +351,10 @@ class ServingLoop:
         every query admitted after sees the new one. The settled but
         unfinalized tail may ride through the delta: its device work is
         done, and its payload keeps the old tensors alive until the
-        stitch. Returns the dispatcher's ``DeltaReport``."""
+        stitch. Returns the dispatcher's ``DeltaReport``. On a mesh the
+        fence drains here, on rank 0, and the leading dispatcher sends the
+        delta to the followers behind the batches drained, so every rank
+        folds it at the same point of the stream."""
         while self.admission.pending():
             self.pump()
         report = self.dispatcher.apply_delta(delta)

@@ -702,3 +702,36 @@ def test_ranks_sharing_the_card_match_one_cpu_device(cuda_device):
             for r in ranks:
                 np.testing.assert_array_equal(r[f"{be}/{f}"][:, :n], want,
                                               err_msg=f"{be}/{f}")
+
+
+def test_ranks_sharing_the_card_fold_reshaping_deltas(cuda_device):
+    """Four gloo ranks on the card fold the edit script (a forward ELL
+    overflow and full tile lists rebuild structures on every rank) into
+    their own shards; after every delta their levels equal the one-device
+    port's on the CPU, and both kernels launch on the folded shards."""
+    from repro_torch.graph.delta import GraphDelta, apply_delta_csr
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    import test_torch_ranks as TR
+
+    ranks = run_ranks(TR.card_delta_rank, 4, timeout_s=300)
+    csr = TR.local_graph(csr_from_edges)
+    one = QueryDispatcher("cpu", csr, max_iters=64, phase1_iters=2)
+    want = {}
+    TR.card_delta_queries(one, want, "0", TR.SOURCES_70)
+    script = TR.delta_script(csr, GraphDelta, apply_delta_csr)
+    for step, (_, d) in enumerate(script, 1):
+        one.apply_delta(d)
+        TR.card_delta_queries(one, want, f"{step}", TR.SOURCES_70)
+    assert any(int(ranks[0][f"{s}/rebuilt"]) for s in range(1, 5))
+    for r in ranks:
+        assert int(r["staged"]) > 0
+        for step in range(1, len(script) + 1):
+            assert (r[f"{step}/launches"] > 0).all(), (
+                step, r[f"{step}/launches"])
+        for key, v in want.items():
+            if key.endswith("/levels"):
+                n = csr.n_nodes  # ranks pad rows for four shards
+                np.testing.assert_array_equal(r[key][:, :n], v[:, :n],
+                                              err_msg=key)

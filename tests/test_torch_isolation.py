@@ -266,16 +266,3 @@ def test_mesh_entry_points_raise_without_cuda_unless_cpu(no_cuda):
                                   state_layout=layout)
         assert res.state.levels.device.type == "cpu"
 
-
-def test_deltas_on_a_mesh_of_ranks_name_the_roadmap_item(monkeypatch):
-    from repro_torch.graph.delta import random_delta
-
-    csr = erdos_renyi(64, 3.0, seed=0)
-    d = QueryDispatcher("cpu", csr, max_iters=8)
-    monkeypatch.setattr(d.mesh, "size", 4)
-    with pytest.raises(NotImplementedError, match="deltas across ranks"):
-        d.apply_delta(random_delta(csr, 2, 2, seed=0))
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="deltas across ranks"):
-        serve.main(["--device", "cpu", "--scale", "0.05",
-                    "--mutate-stream", "1"])

@@ -360,3 +360,349 @@ def line_rank(rank: int, world: int) -> dict:
         out[f"line_gang_{lay}/counts"] = np.array(
             [o.hybrid, o.resumed_ganged, o.gang_width, o.resumed_serial])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Graph deltas on a mesh.
+# ---------------------------------------------------------------------------
+
+MESHES = {"2x2": MESH, "1x4": LINE_MESH}
+DELTA_N = 600
+DELTA_TILE = 128
+#: (backend, layout) of every reach case after each delta, under nTkS
+#: (phase 1 on the 'model' split, the gang phase 2 over both axes)
+DELTA_CASES = [(be, lay) for be in ("pull_binned", "dopt", "block_mxu",
+                                    "ell_pull")
+               for lay in ("replicated", "sharded")] + [
+    ("pull_binned_fused", "replicated"), ("dopt_fused", "sharded")]
+DELTA_SOURCES = np.array([0, 3, 17, 44, 90, 123, 200, 250, 333, 470, 512,
+                          599], np.int32)
+WEIGHTED_KINDS = (("topk_paths", "dists"), ("ppr", "mass"))
+
+
+def local_graph(csr_from_edges, weighted: bool = False):
+    """600 nodes, out-degrees 2 + geometric (capped at 40), each target
+    within 100 rows of its source: the tiles sit near the diagonal, so
+    tile lists have free slots and a far edge opens a new tile."""
+    rng = np.random.default_rng(11)
+    n = DELTA_N
+    deg = np.minimum(1 + rng.geometric(0.3, n), 40)
+    src = np.repeat(np.arange(n), deg)
+    dst = np.clip(src + rng.integers(-100, 101, len(src)), 0, n - 1)
+    w = rng.uniform(0.1, 2.0, len(src)).astype(np.float32) if weighted \
+        else None
+    return csr_from_edges(n, src, dst, weights=w)
+
+
+def _edge_set(csr) -> set:
+    s, t = csr.edge_list()
+    return set(zip(s.tolist(), t.tolist()))
+
+
+def _same_shape_delta(csr, GraphDelta, n_swaps: int, rng):
+    """Double edge swaps (u->v, x->y) => (u->y, x->v) with v and y in one
+    column block: every degree and every tile's presence stays, only
+    content changes."""
+    edges = _edge_set(csr)
+    s, t = csr.edge_list()
+    used, dels, adds = set(), [], []
+    while len(dels) < 2 * n_swaps:
+        i, j = rng.integers(0, len(s), 2)
+        (u, v), (x, y) = (int(s[i]), int(t[i])), (int(s[j]), int(t[j]))
+        new = [(u, y), (x, v)]
+        if (v // DELTA_TILE != y // DELTA_TILE or u == x or v == y
+                or any(e in edges or e in used for e in new)
+                or (u, v) in used or (x, y) in used):
+            continue
+        used.update([(u, v), (x, y), *new])
+        dels += [(u, v), (x, y)]
+        adds += new
+    (ds, dd), (as_, ad) = zip(*dels), zip(*adds)
+    return GraphDelta(add_src=as_, add_dst=ad, del_src=ds, del_dst=dd)
+
+
+def _rebin_delta(csr, GraphDelta):
+    """Moves in-edges from a row of higher in-degree to one of lower
+    in-degree, both in the first 96 rows (shard 0 of every split, one
+    column block), from the same sources: the two rows trade degree
+    buckets and every out-degree stays."""
+    indeg = np.bincount(csr.indices, minlength=csr.n_nodes)[:96]
+    rev = csr.reverse()
+    ins = lambda v: set(rev.indices[rev.indptr[v]:rev.indptr[v + 1]]
+                        .tolist())
+    order = np.argsort(indeg, kind="stable")
+    for t in order:
+        for t2 in order[::-1]:
+            a, b = int(indeg[t]), int(indeg[t2])
+            if a < 1 or b - a < 2:
+                continue
+            movers = sorted(ins(t2) - ins(t))[: b - a]
+            if len(movers) == b - a:
+                return GraphDelta(add_src=movers, add_dst=[t] * len(movers),
+                                  del_src=movers,
+                                  del_dst=[t2] * len(movers))
+    raise AssertionError("no pair of rows to rebin")
+
+
+def _overflow_delta(csr, GraphDelta):
+    """New out-edges for the node of highest out-degree, one past its
+    forward ELL width."""
+    u = int(np.argmax(csr.degrees))
+    width = -(-int(csr.degrees[u]) // 8) * 8
+    have = set(csr.neighbors(u).tolist())
+    near = sorted(range(csr.n_nodes), key=lambda v: (abs(v - u), v))
+    new = [v for v in near if v not in have][: width - int(csr.degrees[u])
+                                             + 1]
+    return GraphDelta(add_src=[u] * len(new), add_dst=new)
+
+
+def _tiles_full_delta(csr, GraphDelta):
+    """One far edge into every empty tile of every row block that holds
+    edges, each from another low-degree source of the block: every
+    shard's tile list has to grow."""
+    n, B = csr.n_nodes, DELTA_TILE
+    s, t = csr.edge_list()
+    have = set(zip((s // B).tolist(), (t // B).tolist()))
+    degs = csr.degrees
+    adds = []
+    for rb in range(-(-n // B)):
+        rows = [r for r in range(rb * B, min((rb + 1) * B, n))
+                if degs[r] < 8]
+        empty = [cb for cb in range(-(-n // B)) if (rb, cb) not in have]
+        for r, cb in zip(rows, empty):
+            adds.append((r, min(cb * B + (r % B), n - 1)))
+    a_s, a_d = zip(*adds)
+    return GraphDelta(add_src=a_s, add_dst=a_d)
+
+
+def delta_script(csr, GraphDelta, apply_delta_csr) -> list:
+    """The seeded edit script, ``[(name, delta)]``, each delta built on
+    the graph the ones before it left (either package's classes give the
+    same arrays)."""
+    rng = np.random.default_rng(21)
+    out = []
+    for name, make in (
+            ("same_shape", lambda g: _same_shape_delta(g, GraphDelta, 8,
+                                                       rng)),
+            ("rebin", lambda g: _rebin_delta(g, GraphDelta)),
+            ("ell_overflow", lambda g: _overflow_delta(g, GraphDelta)),
+            ("tiles_full", lambda g: _tiles_full_delta(g, GraphDelta))):
+        d = make(csr)
+        out.append((name, d))
+        csr = apply_delta_csr(csr, d)
+    return out
+
+
+def weighted_script(wcsr, GraphDelta, apply_delta_csr, random_delta) -> list:
+    """A seeded weighted delta, then the same edges at new weights."""
+    d = random_delta(wcsr, 16, 16, seed=3)
+    g = apply_delta_csr(wcsr, d)
+    s, t = g.edge_list()
+    pick = np.unique(np.random.default_rng(4).integers(0, g.n_edges, 8))
+    w = np.random.default_rng(5).uniform(0.1, 2.0, len(pick))
+    return [("weighted", d),
+            ("reweighted", GraphDelta(add_src=s[pick], add_dst=t[pick],
+                                      del_src=s[pick], del_dst=t[pick],
+                                      add_weights=w.astype(np.float32)))]
+
+
+def bundle_name(key, shape: dict) -> str:
+    """A bundle key's name, its split axes filtered to those of size
+    above 1 (the port keys bundles so; the JAX package keeps every
+    axis)."""
+    split = [a for a in key[0] if shape.get(a, 1) > 1]
+    flags = [f for f, on in zip(("rev", "binned", "pack", "blocks"),
+                                key[1:5]) if on]
+    return "+".join(split or ["whole"]) + ":" + "+".join(["fwd"] + flags) \
+        + f":{key[5]}"
+
+
+def operand_leaves(ops) -> dict:
+    """Copies of the numpy leaves of a port ``GraphOperands`` under
+    ``operands_from_numpy``'s names (a fold writes a mirror in place)."""
+    out = {}
+    for p, g in (("fwd", ops.fwd), ("rev", ops.rev)):
+        if g is not None:
+            out[f"{p}.indices"] = g.indices.cpu().numpy().copy()
+            out[f"{p}.degrees"] = g.degrees.cpu().numpy().copy()
+            if g.weights is not None:
+                out[f"{p}.weights"] = g.weights.cpu().numpy().copy()
+    for p, x, rows in (("bn", ops.rev_binned, ("perm", "inv")),
+                       ("pack", ops.rev_binned_pack,
+                        ("inv_pad", "perm_pad"))):
+        if x is None:
+            continue
+        for f in rows:
+            out[f"{p}.{f}"] = getattr(x, f).cpu().numpy().copy()
+        for b, sl in enumerate(x.slabs):
+            out[f"{p}.slab{b}"] = sl.cpu().numpy().copy()
+        for b, w in enumerate(x.slab_weights or ()):
+            out[f"{p}.w{b}"] = w.cpu().numpy().copy()
+    if ops.blocks is not None:
+        out["blocks.blocks"] = ops.blocks.blocks.cpu().numpy().copy()
+        out["blocks.rows"] = ops.blocks.block_rows.cpu().numpy().copy()
+        out["blocks.cols"] = ops.blocks.block_cols.cpu().numpy().copy()
+    return out
+
+
+STRUCTURES = ("fwd", "rev", "rev_binned", "rev_binned_pack", "blocks")
+
+
+def fold_row(rep) -> np.ndarray:
+    """A ``FoldReport`` (either package's) as ``[changed x 5, reshaped x
+    5, moves]``."""
+    return np.array([rep.changed[s] for s in STRUCTURES]
+                    + [rep.reshaped[s] for s in STRUCTURES]
+                    + [rep.binned_moves], np.int64)
+
+
+def _record_step(out, dq, prefix, rep, shape):
+    """One delta's per-bundle reports, host mirrors and epochs."""
+    for key, frep in rep.folds:
+        out[f"{prefix}/fold/{bundle_name(key, shape)}"] = fold_row(frep)
+    for key, bundle in dq._graphs.items():
+        name = bundle_name(key, shape)
+        for leaf, a in operand_leaves(bundle.host).items():
+            out[f"{prefix}/host/{name}/{leaf}"] = a
+        # the placed tensors are the mirror's
+        for leaf, a in operand_leaves(bundle.ops).items():
+            assert np.array_equal(a, out[f"{prefix}/host/{name}/{leaf}"]), (
+                prefix, name, leaf)
+        out[f"{prefix}/epochs/{name}"] = np.array(
+            [bundle.epochs.get(s, 0) for s in STRUCTURES])
+    out[f"{prefix}/report"] = np.array(
+        [rep.version, rep.changed_edges, rep.dirty_fwd_rows,
+         rep.dirty_rev_rows, rep.structures_changed,
+         rep.structures_rebuilt, rep.binned_moves,
+         rep.engines_invalidated, len(dq.cache)])
+
+
+def delta_rank(rank: int, world: int, mesh_name: str) -> dict:
+    """The edit script on one mesh: after each delta every bundle's
+    mirror, every bundle's report, and every reach case's levels and
+    iterations; then the weighted script with the non-reach kinds."""
+    from repro_torch.graph.csr import csr_from_edges
+    from repro_torch.graph.delta import (
+        GraphDelta,
+        apply_delta_csr,
+        random_delta,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    mesh = make_mesh(*MESHES[mesh_name], "cpu")
+    shape = mesh.shape
+    csr = local_graph(csr_from_edges)
+    dq = QueryDispatcher(mesh, csr, max_iters=64, phase1_iters=2)
+    script = delta_script(csr, GraphDelta, apply_delta_csr)
+    out = {}
+    for step in range(len(script) + 1):
+        if step:
+            rep = dq.apply_delta(script[step - 1][1])
+            _record_step(out, dq, f"{step}", rep, shape)
+        for be, lay in DELTA_CASES:
+            o = dq.query(DELTA_SOURCES, policy="ntks", backend=be,
+                         state_layout=lay)
+            out[f"{step}/{be}/{lay}/levels"] = o.result.state.levels.numpy()
+            out[f"{step}/{be}/{lay}/iterations"] = o.result.iterations.numpy()
+        o = dq.query(DELTA_SOURCES, policy="1t1s", backend="pull_binned")
+        out[f"{step}/1t1s/levels"] = o.result.state.levels.numpy()
+        out[f"{step}/1t1s/iterations"] = o.result.iterations.numpy()
+    wcsr = local_graph(csr_from_edges, weighted=True)
+    wq = QueryDispatcher(mesh, wcsr, max_iters=512, phase1_iters=14)
+    wscript = weighted_script(wcsr, GraphDelta, apply_delta_csr,
+                              random_delta)
+    srcs = DELTA_SOURCES[:4]
+    for step in range(len(wscript) + 1):
+        if step:
+            rep = wq.apply_delta(wscript[step - 1][1])
+            _record_step(out, wq, f"w{step}", rep, shape)
+        for kind, leaf in WEIGHTED_KINDS:
+            for lay in ("replicated", "sharded"):
+                o = wq.query(srcs, query_kind=kind, state_layout=lay)
+                out[f"w{step}/{kind}/{lay}/{leaf}"] = getattr(
+                    o.result.state, leaf).numpy()
+                out[f"w{step}/{kind}/{lay}/iterations"] = (
+                    o.result.iterations.numpy())
+        o = wq.query(srcs, policy="ntks", backend="pull_binned_fused",
+                     state_layout="sharded")
+        out[f"w{step}/reach/levels"] = o.result.state.levels.numpy()
+    out["wire/calls"] = np.asarray(mesh.wire.calls)
+    return out
+
+
+STREAM_ARGV = ["--device", "cpu", "--dataset", "ldbc", "--scale", "0.1",
+               "--arrivals", "10", "--rate", "200", "--mutate-stream", "2"]
+
+
+def stream_rank(rank: int, world: int, argv: list) -> dict:
+    """Open-loop ``serve.main`` with deltas on this rank: every rank's
+    finalized batches by control-channel number; rank 0 also each query's
+    levels, the schedule and the delta reports."""
+    from repro_torch.launch import serve
+
+    batches, streams = {}, []
+
+    def on_outcome(seq, outcome):
+        batches[seq] = (outcome.result.state.levels.cpu().numpy(),
+                        outcome.result.iterations.numpy())
+
+    assert serve.main(argv, on_stream=streams.append,
+                      on_outcome=on_outcome) == 0
+    out = {"batches": batches}
+    if streams:
+        loop = streams[0].loop
+        out["results"] = dict(loop.results)
+        out["arrivals"] = streams[0].arrivals
+        out["reports"] = [(r.version, r.structures_changed,
+                           r.structures_rebuilt, r.binned_moves,
+                           r.engines_invalidated, r.ms_max >= r.ms)
+                          for r in loop.delta_reports]
+        out["avg_degree"] = loop.admission.avg_degree
+    return out
+
+
+CARD_DELTA_CASES = (("dopt_fused", "sharded"),
+                    ("pull_binned_fused", "replicated"),
+                    ("block_mxu", "sharded"))
+
+
+def card_delta_queries(dq, out: dict, prefix: str, lanes_srcs) -> None:
+    """The card delta cases through ``dq``, levels into ``out``."""
+    for be, lay in CARD_DELTA_CASES:
+        pol, srcs = (("ntkms", lanes_srcs) if be == "block_mxu"
+                     else ("ntks", DELTA_SOURCES))
+        o = dq.query(srcs, policy=pol, backend=be, state_layout=lay)
+        out[f"{prefix}/{be}/levels"] = o.result.state.levels.cpu().numpy()
+        out[f"{prefix}/{be}/iterations"] = o.result.iterations.numpy()
+
+
+def card_delta_rank(rank: int, world: int) -> dict:
+    """Ranks sharing cuda:0 over gloo fold the edit script's deltas (the
+    forward ELL overflow and the full tile lists rebuild) into their
+    shards on the card; levels after each delta and the kernels' launches
+    on the folded operands."""
+    from repro_torch.graph.csr import csr_from_edges
+    from repro_torch.graph.delta import GraphDelta, apply_delta_csr
+    from repro_torch.kernels.binned_pull.binned_pull import fused_binned_pull
+    from repro_torch.kernels.msbfs_extend.msbfs_extend import (
+        msbfs_extend_blocks,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    mesh = make_mesh(*MESH, "cuda:0")
+    csr = local_graph(csr_from_edges)
+    dq = QueryDispatcher(mesh, csr, max_iters=64, phase1_iters=2)
+    out = {}
+    card_delta_queries(dq, out, "0", SOURCES_70)
+    for step, (_, d) in enumerate(
+            delta_script(csr, GraphDelta, apply_delta_csr), 1):
+        rep = dq.apply_delta(d)
+        out[f"{step}/rebuilt"] = np.asarray(rep.structures_rebuilt)
+        fused_binned_pull.launches = msbfs_extend_blocks.launches = 0
+        card_delta_queries(dq, out, f"{step}", SOURCES_70)
+        out[f"{step}/launches"] = np.array([fused_binned_pull.launches,
+                                            msbfs_extend_blocks.launches])
+    out["staged"] = np.asarray(mesh.wire.staged_bytes)
+    return out

@@ -76,8 +76,10 @@ Phases (any failure exits non-zero and prints no result):
    reverse CSR with the frontier as a float32 column (the gather without
    the visited skip); ``binned_pull``'s lane ops (``reach_lanes``,
    ``min_parent_lanes``) at nTkMS's pull shape, the 64 lanes of the
-   first nTkMS batch at level 2, each beside its byte bound; then release
-   every serve-run operand;
+   first nTkMS batch at level 2, each beside its byte bound and, for
+   ``reach_lanes``, ``torch.sparse.mm`` of the reverse CSR with the 64
+   lanes as a float32 ``[n, 64]`` matrix; then release every serve-run
+   operand;
 5. drive the op entry points of the GNN/LM kernels at full width, each
    kernel's launch counter set to 0 just before and read just after:
    ``spmm_blocks_from_csr(ldbc scale 10, block 128, normalize="mean")``
@@ -96,6 +98,24 @@ Phases (any failure exits non-zero and prints no result):
    counts the work's bytes (the nonzeros, offsets, X and Y), and its
    L2 gather of source rows is printed beside it; two ``spmm`` launches
    must give the same bits;
+6b. the LM serving path at full width: MiniCPM-2B (40 layers, d 2304, 36
+   MHA heads of 64, vocab 122,753; 2,725,173,504 parameters) in bfloat16
+   with seeded weights (``models.transformer.init`` on the card). (1)
+   ``prefill`` of seeded prompts ``[4, 4096]`` (``prefill_32k`` cut from
+   32 x 32,768) into a cache of 4,128 slots, then 32 greedy ``decode``
+   steps (``decode_32k`` cut to 4 x 4,128); ``mha``'s counter is set to 0
+   before the prefill and must read exactly 40 after it, with no
+   scan-route call; prefill ms and tokens/s, decode ms a step and tokens/s,
+   each beside its bound; (2) the same on the forced scan route, fed the
+   kernel route's tokens: every logits row's cosine similarity at least
+   0.999; (3) both again in float32 on 2 prompts (``mha``'s ``f32_fma``,
+   TF32 off): logits and every cache leaf within 1e-4 of the scan route's,
+   relative to their largest magnitude; (4) a kernel-route prefill of 1 x
+   32,768 (a 12.1 GB cache): finite logits, 40 launches; (5) ``mha`` at
+   the served shape (4, 36, 4096, 64) against its plain version and beside
+   SDPA and its bound; ``torch.profiler`` over one prefill and four decode
+   steps (``mha``'s share of the prefill, kernels a decode step); (6)
+   release everything;
 7. ranks: four processes share the card over gloo (every message staged
    through host memory and counted), each building only its own shards
    of the scale-10 operands. On a ``(2, 2)`` mesh each runs
@@ -142,7 +162,10 @@ the kernel's design: ``row_classes`` for ``binned_pull``, ``csr_chunks``
 for ``spmm``, ``wgmma`` for bf16 attention; ``binned_pull`` also carries
 ``graph_ms``, ``device_us``, a ``full_pass`` object, a ``min_dist``
 object with that op's launches and timings and a ``lanes`` object with
-the lane ops' timings; ``binned_pull`` and ``msbfs_extend`` carry a
+the lane ops' timings and their library yardstick; ``flash_attention``
+carries a ``served`` object (phase 6b's launches, and ``mha`` at the
+served shape beside SDPA and its bound); ``binned_pull`` and
+``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), the card's
 name
 and power limit, and as the last line
@@ -1376,6 +1399,364 @@ def phase_7(csr, oracle) -> dict:
     return summary
 
 
+LM_ARCH = "minicpm-2b"  # launch/train.py's default arch: 40 global MHA layers
+LM_PROMPTS = (4, 4096)  # prefill_32k's 32 x 32,768 cut to 4 x 4,096
+LM_STEPS = 32  # greedy decode steps: decode_32k's cache cut to 4 x 4,128
+LM_F32_PROMPTS = 2  # the float32 repeat serves the first 2 prompts
+LM_LONG = 32768  # prefill_32k's own length, one sequence
+LM_COS = 0.999  # bfloat16 kernel route against the scan route, per row
+LM_F32_TOL = 1e-4  # float32 routes, relative to the largest magnitude
+
+
+def lm_config():
+    from repro_torch.configs import base
+
+    return base.get(LM_ARCH).full_config()
+
+
+def lm_work(cfg, n_params: int, b: int, s: int, max_seq: int):
+    """(operations, bytes) of a prefill of ``[b, s]`` into a cache of
+    ``max_seq`` slots, and of one decode step over that whole cache: each
+    weight read once, the cache written (prefill) or read (decode) once,
+    the logits written once; projections and MLP as 2 operations a
+    weight a token, causal attention as 4 * d_head a (query, key) pair a
+    head, the unembedding for the last position only."""
+    el = torch.tensor([], dtype=cfg.dtype).element_size()
+    d, n_l, h, hd = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.d_head
+    per_layer = 2 * d * h * hd + 2 * d * cfg.n_kv_heads * hd + 3 * d * cfg.d_ff
+    head = 2 * cfg.vocab_padded * d * b
+    cache = 2 * n_l * b * max_seq * cfg.n_kv_heads * hd * el
+    pairs = s * (s + 1) // 2
+    prefill = (2 * per_layer * n_l * b * s + 4 * hd * pairs * b * h * n_l
+               + head,
+               n_params * el + cache + 8 * b * s + 4 * b * cfg.vocab_padded)
+    decode = (2 * per_layer * n_l * b + 4 * hd * max_seq * b * h * n_l + head,
+              n_params * el + cache + 8 * b + 4 * b * cfg.vocab_padded)
+    return prefill, decode
+
+
+def bound(work, rate):
+    ops, nbytes = work
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def lm_serve(tfm, model, cfg, prompts, max_seq, route=None, forced=None,
+             counters=None):
+    """``prefill`` then ``LM_STEPS`` decode steps, greedy or fed the
+    tokens ``forced`` ``[b, LM_STEPS]``. Returns the last-position logits
+    and every step's (real vocab, float32), the final caches, the tokens
+    fed, the prefill's and each step's CUDA-event ms, and ``counters()``
+    read just after the prefill."""
+    v = cfg.vocab
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    last, caches = tfm.prefill(model, cfg, prompts, max_seq=max_seq,
+                               route=route)
+    ev[1].record()
+    after_prefill = counters() if counters else None
+    logits = [last[:, :v].float()]
+    tok = logits[0].argmax(-1, keepdim=True)
+    toks, steps = [], []
+    for t in range(LM_STEPS):
+        if forced is not None:
+            tok = forced[:, t:t + 1]
+        toks.append(tok)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out, caches = tfm.decode(model, cfg, caches, tok,
+                                 prompts.shape[1] + t)
+        e[1].record()
+        steps.append(e)
+        logits.append(out[:, 0, :v].float())
+        tok = logits[-1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    return {"logits": logits, "caches": caches,
+            "tokens": torch.cat(toks, dim=1),
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "step_ms": [a.elapsed_time(b) for a, b in steps],
+            "after_prefill": after_prefill}
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor):
+    """(max abs difference, that over the largest magnitude of ``b``)."""
+    diff = float((a.double() - b.double()).abs().max())
+    return diff, diff / max(float(b.double().abs().max()), 1e-30)
+
+
+def compare_runs(k_run, s_run) -> dict:
+    """Logit and cache differences of the kernel route's run against the
+    scan route's, and each logits row's cosine similarity."""
+    cos = [torch.nn.functional.cosine_similarity(
+        a.double(), b.double(), dim=-1)
+        for a, b in zip(k_run["logits"], s_run["logits"])]
+    lg = [rel_diff(a, b) for a, b in zip(k_run["logits"], s_run["logits"])]
+    cache = [rel_diff(getattr(kc, f), getattr(sc, f))
+             for kc, sc in zip(k_run["caches"], s_run["caches"])
+             for f in ("k", "v")]
+    same_pos = all(torch.equal(kc.slot_pos, sc.slot_pos)
+                   for kc, sc in zip(k_run["caches"], s_run["caches"]))
+    return {"min_cosine": float(torch.stack(cos).min()),
+            "logits_max_abs": max(d for d, _ in lg),
+            "logits_max_rel": max(r for _, r in lg),
+            "cache_max_abs": max(d for d, _ in cache),
+            "cache_max_rel": max(r for _, r in cache),
+            "slot_pos_equal": same_pos}
+
+
+def _union_ms(intervals) -> float:
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def top_kernels(dev_events, per: int = 1, n: int = 8) -> dict:
+    """The ``n`` device kernels (by name) that took the most time, in ms
+    (over ``per`` repeats)."""
+    by_name: dict = {}
+    for e in dev_events:
+        key = e.name[:60]
+        by_name[key] = by_name.get(key, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / per
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
+
+
+def lm_profile(tfm, model, cfg, prompts, max_seq, steps: int = 4) -> dict:
+    """``torch.profiler`` over one prefill and ``steps`` decode steps: the
+    device's busy ms in each, ``mha``'s kernel share of the prefill's
+    busy time, and device kernels per decode step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        spans = [(e.time_range.start, e.time_range.end) for e in dev]
+        return wall, dev, _union_ms(spans)
+
+    out = {}
+    holder = {}
+
+    def pre():
+        holder["logits"], holder["caches"] = tfm.prefill(
+            model, cfg, prompts, max_seq=max_seq)
+
+    wall, dev, busy = window(pre)
+    mha_ms = _union_ms((e.time_range.start, e.time_range.end) for e in dev
+                       if "flash_fwd" in e.name)
+    out["prefill"] = {"wall_ms": wall, "device_busy_ms": busy,
+                      "device_idle_share": 1 - busy / wall,
+                      "mha_ms": mha_ms, "mha_share": mha_ms / busy,
+                      "device_kernels": len(dev),
+                      "top_kernels_ms": top_kernels(dev)}
+    tok = holder["logits"][:, :cfg.vocab].argmax(-1, keepdim=True)
+
+    def dec():
+        nonlocal tok
+        caches = holder["caches"]
+        for t in range(steps):
+            out_t, caches = tfm.decode(model, cfg, caches, tok,
+                                       prompts.shape[1] + t)
+            tok = out_t[:, 0, :cfg.vocab].argmax(-1, keepdim=True)
+
+    wall, dev, busy = window(dec)
+    out["decode"] = {"steps": steps, "wall_ms_per_step": wall / steps,
+                     "device_busy_ms_per_step": busy / steps,
+                     "device_idle_share": 1 - busy / wall,
+                     "device_kernels_per_step": len(dev) / steps,
+                     "top_kernels_ms_per_step": top_kernels(dev, steps)}
+    return out
+
+
+def phase_6b(dev, check) -> dict:
+    """The LM serving path at full width: MiniCPM-2B in bfloat16 with
+    seeded weights, prefill attention through ``mha`` (steps in the
+    module docstring). Returns the report and the ``served`` entry of
+    ``flash_attention``'s kernels line."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.models import transformer as tfm
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.module import count_params
+
+    t_start = time.perf_counter()
+    fa = fa_mod.flash_attention
+    torch.cuda.reset_peak_memory_stats()
+
+    def counters():
+        return fa.launches, dict(attn.route_calls)
+
+    def zero_counters():
+        fa.launches = 0
+        fa.route_launches.update(dict.fromkeys(fa.route_launches, 0))
+        attn.route_calls.update(dict.fromkeys(attn.route_calls, 0))
+
+    cfg = lm_config()
+    n_l = cfg.n_layers
+    model = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = count_params(model)
+    b, s = LM_PROMPTS
+    max_seq = s + LM_STEPS
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    want = (n_l, {"kernel": n_l, "scan": 0})
+    # 1. the kernel route (after one warm-up prefill of the same shape)
+    tfm.prefill(model, cfg, prompts, max_seq=max_seq)
+    torch.cuda.synchronize()
+    zero_counters()
+    k_run = lm_serve(tfm, model, cfg, prompts, max_seq, counters=counters)
+    if k_run["after_prefill"] != want:
+        fail(f"the MiniCPM-2B prefill made (mha launches, route calls) "
+             f"{k_run['after_prefill']}, not {want}")
+    if counters()[0] != n_l:
+        fail("decode launched mha")
+    if not all(torch.isfinite(x).all() for x in k_run["logits"]):
+        fail("MiniCPM-2B logits are not finite")
+    prefill_ms = time_ms(lambda: tfm.prefill(model, cfg, prompts,
+                                             max_seq=max_seq),
+                         reps=1, rounds=3)
+    step_ms = float(np.median(k_run["step_ms"]))
+    pre_w, dec_w = lm_work(cfg, n_params, b, s, max_seq)
+    pre_bound, pre_by = bound(pre_w, BF16_OPS_PER_S)
+    dec_bound, dec_by = bound(dec_w, BF16_OPS_PER_S)
+    serve = {
+        "arch": cfg.name, "params": n_params, "dtype": "bfloat16",
+        "prompts": [b, s], "max_seq": max_seq, "decode_steps": LM_STEPS,
+        "launches_in_prefill": k_run["after_prefill"][0],
+        "route_calls_in_prefill": k_run["after_prefill"][1],
+        "prefill_ms": prefill_ms,
+        "prefill_first_ms": k_run["prefill_ms"],
+        "prefill_tokens_per_s": b * s / (prefill_ms / 1e3),
+        "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+        "prefill_tflop": pre_w[0] / 1e12,
+        "decode_ms_per_step": step_ms,
+        "decode_step_ms": k_run["step_ms"],
+        "decode_tokens_per_s": b / (step_ms / 1e3),
+        "decode_bound_ms": dec_bound, "decode_bound_by": dec_by,
+        "decode_gb_per_step": dec_w[1] / 1e9,
+        "cache_gb": sum(c.k.numel() + c.v.numel() for c in k_run["caches"])
+        * 2 / 1e9,
+    }
+    print(f"phase 6b: {cfg.name} ({n_params} params, bf16) prefill "
+          f"[{b}, {s}]: {prefill_ms:.2f} ms ({serve['prefill_tokens_per_s']:.0f}"
+          f" tokens/s; bound {pre_bound:.2f} ms by {pre_by}), decode "
+          f"{step_ms:.3f} ms a step ({serve['decode_tokens_per_s']:.0f} "
+          f"tokens/s; bound {dec_bound:.3f} ms by {dec_by}); "
+          f"{serve['launches_in_prefill']} mha launches, route calls "
+          f"{serve['route_calls_in_prefill']}", flush=True)
+    # 2. the same prompts on the forced scan route, fed the kernel route's
+    # tokens
+    zero_counters()
+    s_run = lm_serve(tfm, model, cfg, prompts, max_seq, route="scan",
+                     forced=k_run["tokens"], counters=counters)
+    if s_run["after_prefill"] != (0, {"kernel": 0, "scan": n_l}):
+        fail(f"the forced scan route made {s_run['after_prefill']}")
+    bf16_cmp = compare_runs(k_run, s_run)
+    if bf16_cmp["min_cosine"] < LM_COS or not bf16_cmp["slot_pos_equal"]:
+        fail(f"bf16 kernel route against scan route: {bf16_cmp}")
+    serve["bf16_vs_scan"] = bf16_cmp
+    del k_run, s_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6b: bf16 kernel route vs scan route, {LM_STEPS + 1} "
+          f"logits rows a prompt: {json.dumps(bf16_cmp)}", flush=True)
+    # 3. float32: the kernel route is mha's f32_fma kernel (TF32 off)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = tfm.init(cfg32, torch.Generator(device=dev).manual_seed(0),
+                       dev)
+    p32 = prompts[:LM_F32_PROMPTS]
+    zero_counters()
+    k32 = lm_serve(tfm, model32, cfg32, p32, max_seq, counters=counters)
+    if (k32["after_prefill"] != want
+            or fa.route_launches["f32_fma"] != n_l):
+        fail(f"the float32 prefill made {k32['after_prefill']}, routes "
+             f"{fa.route_launches}")
+    s32 = lm_serve(tfm, model32, cfg32, p32, max_seq, route="scan",
+                   forced=k32["tokens"])
+    f32_cmp = compare_runs(k32, s32)
+    if (f32_cmp["logits_max_rel"] > LM_F32_TOL
+            or f32_cmp["cache_max_rel"] > LM_F32_TOL
+            or not f32_cmp["slot_pos_equal"]):
+        fail(f"float32 kernel route against scan route: {f32_cmp}")
+    serve["f32_vs_scan"] = f32_cmp
+    del model32, k32, s32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6b: float32 kernel route (f32_fma) vs scan route, "
+          f"[{LM_F32_PROMPTS}, {s}]: {json.dumps(f32_cmp)}", flush=True)
+    # 4. prefill_32k's own length, one sequence
+    long_p = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_LONG))).to(
+        dev)
+    long_ms = []
+    for rep in range(2):
+        zero_counters()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        last, caches = tfm.prefill(model, cfg, long_p)
+        ev[1].record()
+        torch.cuda.synchronize()
+        long_ms.append(ev[0].elapsed_time(ev[1]))
+        if counters() != want or not torch.isfinite(
+                last[:, :cfg.vocab]).all():
+            fail(f"the 1 x {LM_LONG} prefill: counters {counters()}, "
+                 "logits finite "
+                 f"{bool(torch.isfinite(last[:, :cfg.vocab]).all())}")
+        long_cache = sum(c.k.numel() + c.v.numel() for c in caches) * 2
+        del last, caches
+    long_w, _ = lm_work(cfg, n_params, 1, LM_LONG, LM_LONG)
+    serve["long"] = {"prompts": [1, LM_LONG], "ms": long_ms[1],
+                     "first_ms": long_ms[0],
+                     "tokens_per_s": LM_LONG / (long_ms[1] / 1e3),
+                     "bound_ms": bound(long_w, BF16_OPS_PER_S)[0],
+                     "cache_gb": long_cache / 1e9, "launches": n_l}
+    print(f"phase 6b: 1 x {LM_LONG} prefill {long_ms[1]:.1f} ms (first "
+          f"{long_ms[0]:.1f}; bound {serve['long']['bound_ms']:.1f} ms), "
+          f"cache {long_cache / 1e9:.2f} GB, {n_l} mha launches", flush=True)
+    # 5. mha at the served shape, beside SDPA and its bound
+    shape = (b, cfg.n_heads, s, cfg.d_head)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qkv = [torch.randn(shape, generator=gen, device=dev,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    check("flash_attention", mha(*qkv, causal=True),
+          mha(*qkv, causal=True, use_ref=True),
+          f"MiniCPM served {shape} bf16 causal", ATTN_TOL[torch.bfloat16])
+    pairs = s * (s + 1) // 2
+    served = {
+        "launches": n_l,
+        "shape": list(shape),
+        "ms": time_ms(lambda: mha(*qkv, causal=True), reps=5),
+        "sdpa_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *qkv, is_causal=True), reps=5),
+        "bound_ms": bound((4 * cfg.d_head * pairs * b * cfg.n_heads,
+                           4 * 2 * qkv[0].numel()), BF16_OPS_PER_S)[0],
+    }
+    del qkv
+    # where the prefill's and the decode's time goes
+    serve["profile"] = lm_profile(tfm, model, cfg, prompts, max_seq)
+    serve["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # 6. release everything
+    del model, prompts, long_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve["seconds"] = time.perf_counter() - t_start
+    print(f"phase 6b: mha at {list(shape)}: {served['ms']:.4f} ms (SDPA "
+          f"{served['sdpa_ms']:.4f} ms, bound {served['bound_ms']:.4f} ms); "
+          f"profile {json.dumps(serve['profile'])}; peak device memory "
+          f"{serve['peak_gb']:.3f} GB ({serve['seconds']:.1f} s)",
+          flush=True)
+    return {"serve": serve, "served": served}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
@@ -1823,7 +2204,7 @@ def main() -> int:
         "library": "torch.sparse.mm(reverse CSR f32, frontier column), "
                    "TF32 off: the gather without the visited skip",
     }
-    del a_rev, col, eager
+    del col, eager
     bp = {
         "ms": time_ms(level2),
         "plain_ms": time_ms(lambda: binned_pull(
@@ -1884,8 +2265,23 @@ def main() -> int:
               f"{lane_ops[op]['bound_ms']:.6f} ms by "
               f"{lane_ops[op]['bound_by']}, plain "
               f"{lane_ops[op]['plain_ms']:.4f} ms", flush=True)
+    # the lane ops' library yardstick: the reverse CSR times the 64 lanes
+    # as a float32 [n, 64] matrix (the gather without the visited skip)
+    gl_f = gl.float()
+    if not torch.equal(
+            (torch.sparse.mm(a_rev, gl_f) > 0).to(torch.uint8),
+            binned_pull(ldbc_pack, gl, op="reach_lanes")):
+        fail("the torch.sparse.mm lane yardstick computes another reach")
+    lane_ops["reach_lanes"]["library_ms"] = time_ms(
+        lambda: torch.sparse.mm(a_rev, gl_f))
+    lane_ops["min_parent_lanes"]["library_ms"] = None
+    lane_ops["library"] = ("torch.sparse.mm(reverse CSR f32, 64 lanes as "
+                           "f32 [n, 64]), TF32 off: the gather without the "
+                           "visited skip")
+    print(f"timed: binned_pull lane yardstick torch.sparse.mm "
+          f"{lane_ops['reach_lanes']['library_ms']:.4f} ms", flush=True)
     bp["lanes"] = lane_ops
-    del gl, vl
+    del gl, vl, gl_f, a_rev
     print(f"timed: binned_pull level-2: wrapper {bp['ms']:.4f} ms, CUDA "
           f"graph {bp['graph_ms']:.4f} ms a call, kernel "
           f"{bp['device_us']} us; full pass: wrapper {full_pass['ms']:.4f} "
@@ -2088,6 +2484,10 @@ def main() -> int:
     }
     del qkv, o
 
+    # -- phase 6b: the LM serving path at full width --------------------------
+    lm = phase_6b(dev, check)
+    fa["served"] = lm["served"]
+
     # -- phase 7: ranks sharing the card, then one NCCL rank -----------------
     ranks = phase_7(csr, BFSOracle(csr))
 
@@ -2154,6 +2554,15 @@ def main() -> int:
               + (f"; ms per iteration {c['warm_ms_per_iteration']}"
                  if kind == "topk_paths" else ""))
     print(f"phase 3c peak device memory {kinds['peak_gb']:.3f} GB")
+    lm_s = lm["serve"]
+    print(f"LM serve {lm_s['arch']} bf16: prefill {lm_s['prompts']} "
+          f"{lm_s['prefill_ms']:.2f} ms, {lm_s['prefill_tokens_per_s']:.0f} "
+          f"tokens/s (bound {lm_s['prefill_bound_ms']:.2f} ms); decode "
+          f"{lm_s['decode_ms_per_step']:.3f} ms a step, "
+          f"{lm_s['decode_tokens_per_s']:.0f} tokens/s (bound "
+          f"{lm_s['decode_bound_ms']:.3f} ms); 1 x {LM_LONG} prefill "
+          f"{lm_s['long']['ms']:.1f} ms; peak {lm_s['peak_gb']:.3f} GB")
+    print("phase 6b: " + json.dumps(lm_s))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

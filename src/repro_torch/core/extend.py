@@ -64,6 +64,7 @@ from ..kernels.binned_pull.ops import (
     binned_pull as _fused_pull,
     build_pack as build_binned_pack,
 )
+from ..kernels.common import tensor_from_numpy
 from ..kernels.msbfs_extend.ops import extend_blocks
 from .collectives import min_allreduce, or_allreduce, psum
 from .edge_compute import (
@@ -264,10 +265,7 @@ def operands_from_numpy(leaves: dict, device="cpu") -> GraphOperands:
     dev = torch.device(device)
 
     def t(k):
-        a = np.ascontiguousarray(leaves[k])
-        if not a.flags.writeable:  # e.g. a view of a JAX array
-            a = a.copy()
-        return torch.from_numpy(a).to(dev)
+        return tensor_from_numpy(leaves[k], dev)
 
     def ell(p):
         if f"{p}.indices" not in leaves:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -45,6 +46,21 @@ def map_tensors(fn, obj):
     if isinstance(obj, dict):
         return {k: map_tensors(fn, v) for k, v in obj.items()}
     return obj
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A numpy leaf carried across from the JAX package as a tensor on
+    ``device``; a bfloat16 leaf (``ml_dtypes``) by its bits. On the CPU
+    the tensor shares memory with a writable contiguous ``a``
+    (``torch.from_numpy``): callers that write it, or whose source is
+    written later, copy."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # e.g. a view of a JAX array
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def to_device(obj, device):

@@ -1,0 +1,4 @@
+"""The LM's layers (port of ``repro.nn``): ``module`` (seeded inits,
+counts), ``layers`` (dense, norms, embedding, softcap), ``rope``,
+``attention`` (the ``mha`` kernel route and the scan, KV-cache decode)
+and ``moe`` (SwiGLU, capacity-dispatch MoE)."""

@@ -59,6 +59,13 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   ``QueryDispatcher.query`` on the card equal the CPU's bits (the port's
   float sums are elementwise adds in a fixed order on both), and a PPR
   batch run twice gives the same bits.
+- The LM serving path: a MiniCPM-smoke-shaped model at S 256 on the card,
+  prefill and teacher-forced decode with attention on the kernel route
+  (``mha``, one launch a layer, no scan call) against the same model on
+  the forced scan route: in float32 within 1e-4 of the largest logit and
+  cache magnitude, in bfloat16 a cosine of at least 0.999 per row; and a
+  GQA layer (8 query heads on 2 kv heads, ``repeat_interleave`` to 8)
+  through ``mha`` against the scan route.
 """
 import dataclasses
 
@@ -89,6 +96,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 )
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.kernels.msbfs_extend.msbfs_extend import msbfs_extend_blocks
+from repro_torch.models import transformer
+from repro_torch.nn import attention as attn
 from repro_torch.kernels.msbfs_extend.ops import (
     extend_blocks,
     kernel_blocks_from_csr,
@@ -735,3 +744,92 @@ def test_ranks_sharing_the_card_fold_reshaping_deltas(cuda_device):
                 n = csr.n_nodes  # ranks pad rows for four shards
                 np.testing.assert_array_equal(r[key][:, :n], v[:, :n],
                                               err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path: attention on the kernel route against the scan route
+# ---------------------------------------------------------------------------
+
+def rel_err(got, exp):
+    """Max abs difference over the largest magnitude of ``exp``."""
+    got, exp = got.double(), exp.double()
+    return float((got - exp).abs().max() / exp.abs().max().clamp_min(1e-30))
+
+
+def row_cosine(got, exp):
+    got, exp = got.double(), exp.double()
+    return torch.nn.functional.cosine_similarity(got, exp, dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_kernel_route_matches_scan_route(dtype, cuda_device):
+    """MiniCPM-smoke (2 layers, 4 MHA heads of 16) at S 256: prefill and 4
+    teacher-forced decode steps, kernel route against forced scan route.
+    float32: within 1e-4 of the largest magnitude (the two routes add the
+    softmax in other orders); bfloat16: per-row cosine >= 0.999 (the
+    routes round p and the output to bfloat16 at other places)."""
+    from repro_torch.configs.minicpm_2b import smoke_config
+
+    cfg = dataclasses.replace(smoke_config(), dtype=dtype)
+    model = transformer.init(cfg, torch.Generator().manual_seed(0),
+                             cuda_device)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 260))).to(
+        cuda_device)
+    v = cfg.vocab
+    launches, calls = flash_attention.launches, dict(attn.route_calls)
+    got, k_caches = transformer.prefill(model, cfg, toks[:, :256],
+                                        max_seq=260)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + cfg.n_layers
+    assert attn.route_calls == {"kernel": calls["kernel"] + cfg.n_layers,
+                                "scan": calls["scan"]}
+    exp, s_caches = transformer.prefill(model, cfg, toks[:, :256],
+                                        max_seq=260, route="scan")
+    assert flash_attention.launches == launches + cfg.n_layers
+    steps = [(got, exp)]
+    for p in range(256, 260):
+        step = toks[:, p:p + 1]
+        g, k_caches = transformer.decode(model, cfg, k_caches, step, p)
+        e, s_caches = transformer.decode(model, cfg, s_caches, step, p)
+        steps.append((g[:, 0], e[:, 0]))
+    for g, e in steps:
+        assert torch.isfinite(g[:, :v]).all()
+        if dtype == torch.float32:
+            assert rel_err(g[:, :v], e[:, :v]) <= 1e-4
+        else:
+            assert (row_cosine(g[:, :v], e[:, :v]) >= 0.999).all()
+    for kc, sc in zip(k_caches, s_caches):
+        assert torch.equal(kc.slot_pos, sc.slot_pos)
+        for a, b in ((kc.k, sc.k), (kc.v, sc.v)):
+            if dtype == torch.float32:
+                assert rel_err(a, b) <= 1e-4
+            else:
+                assert (row_cosine(a.flatten(1), b.flatten(1))
+                        >= 0.999).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_attention_through_mha_matches_scan(dtype, cuda_device):
+    """8 query heads on 2 kv heads of 64 at S 256: the kernel route expands
+    k and v with ``repeat_interleave`` and launches ``mha`` once; against
+    the scan route as in the model test above."""
+    s = attn.AttnSettings(d_model=256, n_heads=8, n_kv_heads=2, d_head=64,
+                          chunk_q=128)
+    p = attn.attn_init(torch.Generator().manual_seed(1), s, dtype,
+                       cuda_device)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 256, 256)).astype(
+        np.float32)).to(cuda_device, dtype)
+    pos = torch.arange(256, dtype=torch.int32,
+                       device=cuda_device).expand(2, 256)
+    assert attn.choose_route(s, x) == "kernel"
+    before = flash_attention.launches
+    got = attn.attention(p, s, x, pos)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    exp = attn.attention_scan(p, s, x, pos)
+    if dtype == torch.float32:
+        assert rel_err(got, exp) <= 1e-4
+    else:
+        assert (row_cosine(got.flatten(1), exp.flatten(1)) >= 0.999).all()

@@ -14,6 +14,10 @@
 - Kernel wrappers (all four: ``binned_pull``, ``msbfs_extend``, ``spmm``,
   ``mha``) take their plain PyTorch version for CPU tensors without
   touching the launch counters, and the launchers refuse CPU tensors.
+- The LM serving path (``configs/``, ``nn/``, ``models/``) is in the
+  scan; ``transformer.init`` (and the cache and carry-over entry points)
+  with no device raise without a GPU; on the CPU the kernel route's
+  ``mha`` runs its plain version and leaves the launch counter alone.
 """
 import ast
 import os
@@ -76,6 +80,13 @@ MUTATION_MODULES = ("graph/delta.py", "runtime/service.py",
                     "runtime/dispatch.py", "runtime/scheduler.py",
                     "launch/serve.py", "launch/mesh.py",
                     "core/collectives.py", "graph/partition.py")
+LM_MODULES = ("configs/__init__.py", "configs/base.py",
+              "configs/minicpm_2b.py", "configs/deepseek_coder_33b.py",
+              "configs/olmoe_1b_7b.py", "configs/gemma2_2b.py",
+              "configs/llama4_maverick.py", "nn/__init__.py",
+              "nn/module.py", "nn/layers.py", "nn/rope.py",
+              "nn/attention.py", "nn/moe.py", "models/__init__.py",
+              "models/transformer.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -84,6 +95,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
                for p in files if "repro_torch" in p.parts}
     assert set(MUTATION_MODULES) <= scanned
+    assert set(LM_MODULES) <= scanned
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files for mod in absolute_imports(p)
@@ -97,7 +109,8 @@ def test_serve_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.serve, repro_torch.core, "
             "repro_torch.launch.mesh, repro_torch.core.collectives, "
             "repro_torch.runtime.scheduler, repro_torch.runtime.service, "
-            "repro_torch.graph.delta; "
+            "repro_torch.graph.delta, repro_torch.models.transformer, "
+            "repro_torch.configs.base; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "raise SystemExit(1 if bad else 0)")
@@ -266,3 +279,52 @@ def test_mesh_entry_points_raise_without_cuda_unless_cpu(no_cuda):
                                   state_layout=layout)
         assert res.state.levels.device.type == "cpu"
 
+
+
+def test_lm_entry_points_raise_without_cuda_unless_cpu(no_cuda):
+    from repro_torch.configs import base
+    from repro_torch.models import transformer
+
+    cfg = base.get("minicpm-2b").smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init(cfg, gen, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_model_cache(cfg, 1, 16)
+    model = transformer.init(cfg, gen, "cpu")
+    tree = transformer.params_to_numpy(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.params_from_jax(cfg, tree)
+    assert model.embed.table.device.type == "cpu"
+    # the full width costs nothing on the meta device, with or without GPU
+    full = transformer.init(base.get("minicpm-2b").full_config(), None,
+                            "meta")
+    assert full.embed.table.shape == (122880, 2304)
+    with pytest.raises(ValueError, match="Generator"):
+        transformer.init(cfg, None, "cpu")
+
+
+def test_lm_kernel_route_on_cpu_takes_the_plain_mha():
+    from repro_torch.configs import base
+    from repro_torch.models import transformer
+    from repro_torch.nn import attention
+
+    cfg = base.get("minicpm-2b").smoke_config()
+    model = transformer.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    launches = (flash_attention.launches,
+                dict(flash_attention.route_launches))
+    calls = dict(attention.route_calls)
+    got, caches = transformer.prefill(model, cfg, toks, route="kernel")
+    assert attention.route_calls == {
+        "kernel": calls["kernel"] + cfg.n_layers, "scan": calls["scan"]}
+    assert (flash_attention.launches,
+            flash_attention.route_launches) == launches
+    # unforced, a CPU tensor takes the scan route
+    exp, _ = transformer.prefill(model, cfg, toks)
+    assert attention.route_calls["scan"] == calls["scan"] + cfg.n_layers
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-4)
+    assert caches[0].k.device.type == "cpu"

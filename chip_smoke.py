@@ -154,7 +154,29 @@ Phases (any failure exits non-zero and prints no result):
    that shows the NCCL group comes up and serves, but on one rank every
    collective is the identity, so no collective runs on NCCL. A rank's
    failure, or a group past ``RANKS_TIMEOUT_S``,
-   fails the run.
+   fails the run;
+8. LM training (``launch/train.py``; no kernel: JAX trains through
+   ``attention_scan``, the port through its scan route, and ``mha``'s
+   counter must stay 0). (8a) two MiniCPM-smoke steps (float32, TF32
+   off, batch [2, 64], lr 1e-3) on the card against the same steps on
+   the CPU from the same weights: losses and gradient norms within rtol
+   1e-5, every parameter within 0.1 lr and all but 0.1% within 1e-6;
+   (8b) ``build("minicpm-2b", smoke=False)``: MiniCPM-2B at full width,
+   bf16 parameters, float32 AdamW moments, ``train_4k`` cut to [2,
+   4096], four steps (step 0 at lr scale 0 moves no parameter, step 1
+   moves some; every loss and gradient norm finite; 40 scan-route calls
+   a forward and 40 more in the backward's recompute, no kernel-route
+   call), then one warm step under ``torch.profiler``; prints the warm
+   step's ms, tokens/s, the model-FLOP bound with its formula, the
+   optimizer's ms, peak device memory, the device idle share, the five
+   largest kernels and the scan attention's share of device time; (8c)
+   the full-width config cut to 2 layers, [2, 1024]: an uninterrupted run
+   of 4 steps, then ``TrainGuard`` with checkpoints every 2 steps and a
+   failure injected at step 3 after the step-2 checkpoint is on disk,
+   both under ``torch.use_deterministic_algorithms(True)``: the restored
+   state bitwise the saved one, every loss and gradient norm bitwise the
+   uninterrupted run's; prints checkpoint bytes and the snapshot, write
+   and restore seconds.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -166,13 +188,14 @@ the lane ops' timings and their library yardstick; ``flash_attention``
 carries a ``served`` object (phase 6b's launches, and ``mha`` at the
 served shape beside SDPA and its bound); ``binned_pull`` and
 ``msbfs_extend`` carry a
-``shard`` object with each rank's times at its shard shape), the card's
-name
+``shard`` object with each rank's times at its shard shape), phase 8's
+``phase 8:`` JSON lines, the card's name
 and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import gc
 import inspect
@@ -1757,12 +1780,501 @@ def phase_6b(dev, check) -> dict:
     return {"serve": serve, "served": served}
 
 
+# -- phase 8: LM training ----------------------------------------------------
+
+TRAIN_LR = 3e-3  # launch/train.py's --lr default
+TRAIN_SMOKE_BATCH = (2, 64)  # 8a: MiniCPM-smoke, card against the CPU
+TRAIN_SMOKE_LR = 1e-3
+TRAIN_BATCH = (2, 4096)  # 8b: train_4k's 256 x 4,096 cut to 2 x 4,096
+TRAIN_STEPS = 4  # 8b: step 0 (lr scale 0), step 1, two warm steps
+RESUME_LAYERS = 2  # 8c: the full-width config cut to 2 layers
+RESUME_BATCH = (2, 1024)
+RESUME_STEPS = 4  # 8c: checkpoints at 2 and 4, a failure injected at 3
+RESUME_SAVE_EVERY = 2
+RESUME_FAIL_AT = 3
+SCAN_LABEL = "scan_attention"  # 8b's profiled range around the scan
+# 8a tolerances (float32, TF32 off): loss and gradient norm rtol; every
+# parameter within 0.1 lr, and 1e-6 for all but 0.1% of them (the products
+# add in other orders on the card; an AdamW step turns a rounding
+# difference of a near-zero gradient into up to a tenth of lr)
+TRAIN_RTOL = 1e-5
+TRAIN_PARAM_ABS = 1e-6
+TRAIN_PARAM_LOOSE = 1e-3
+
+
+def _params_host(model) -> dict:
+    return {k: p.detach().to("cpu", copy=True)
+            for k, p in model.named_parameters()}
+
+
+def _params_diff(model, host: dict):
+    """(max abs difference, tensors that differ) of the model's parameters
+    against a host copy, one tensor at a time."""
+    worst, changed = 0.0, 0
+    for k, p in model.named_parameters():
+        p, ref = p.detach(), host[k].to(p.device)
+        if not torch.equal(p, ref):
+            changed += 1
+            worst = max(worst, float((p.float() - ref.float()).abs().max()))
+    return worst, changed
+
+
+def train_bound(cfg, b: int, s: int):
+    """(ms, formula, TFLOP) of a train step at the model-FLOP bound: 6 x
+    active parameters x tokens, plus causal attention (QK^T and PV, 4 x
+    d_head operations a (query, key) pair a head, three times: once
+    forward, twice backward), at the bf16 tensor-core rate; the
+    recompute is not model work."""
+    n = cfg.active_params()
+    pairs = s * (s + 1) // 2
+    dense = 6 * n * b * s
+    attn = 12 * cfg.d_head * pairs * b * cfg.n_heads * cfg.n_layers
+    formula = (f"(6 * {n} active params * {b * s} tokens + 12 * d_head "
+               f"{cfg.d_head} * {pairs} causal pairs * B {b} * H "
+               f"{cfg.n_heads} * L {cfg.n_layers}) / {BF16_OPS_PER_S:.0f} "
+               f"FLOP/s")
+    return (dense + attn) / BF16_OPS_PER_S * 1e3, formula, (dense + attn) / 1e12
+
+
+def _device_events(prof):
+    """The device kernels of a profile (not the device-side spans of
+    ``record_function`` ranges)."""
+    return [e for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and e.name != SCAN_LABEL]
+
+
+def _span_index(spans_by_thread: dict) -> dict:
+    """Per thread, the union of (start, end) spans as sorted disjoint
+    intervals. Events on one thread nest, so an event that starts inside
+    the union ends inside the same interval."""
+    out = {}
+    for thread, spans in spans_by_thread.items():
+        merged: list = []
+        for a, b in sorted(spans):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        out[thread] = ([m[0] for m in merged], merged)
+    return out
+
+
+def _within(e, index: dict) -> bool:
+    starts, merged = index.get(e.thread, ((), ()))
+    i = bisect.bisect_right(starts, e.time_range.start) - 1
+    return i >= 0 and e.time_range.end <= merged[i][1]
+
+
+def scan_attention_ms(prof) -> float:
+    """Device ms of the kernels launched by the scan attention: by the CPU
+    ops inside the ``SCAN_LABEL`` ranges (its forward and its recompute)
+    and by the backward functions whose sequence number is one of those
+    ops'."""
+    events = [e for e in prof.events()
+              if not str(getattr(e, "device_type", "")).endswith("CUDA")]
+    spans: dict = {}
+    for e in events:
+        if e.name == SCAN_LABEL:
+            spans.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end))
+    index = _span_index(spans)
+    fwd = [e for e in events if e.name != SCAN_LABEL and _within(e, index)]
+    seqs = {(e.thread, e.sequence_nr) for e in fwd if e.sequence_nr >= 0}
+    bwd_spans: dict = {}
+    for e in events:
+        if (e.name.startswith("autograd::engine::evaluate_function")
+                and (e.fwd_thread, e.sequence_nr) in seqs):
+            bwd_spans.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end))
+    index = _span_index(bwd_spans)
+    bwd = [e for e in events if _within(e, index)]
+    if not fwd or not bwd:
+        fail(f"phase 8b: the profile holds {len(fwd)} scan-attention ops "
+             f"and {len(bwd)} of their backward")
+    seen = {id(e): e for e in fwd + bwd}
+    return sum(k.duration for e in seen.values() for k in e.kernels) / 1e3
+
+
+def phase_8a(dev, train) -> dict:
+    """Two MiniCPM-smoke train steps on the card against the same steps on
+    the CPU from the same weights (float32, TF32 off)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.nn import attention as attn
+
+    b, s = TRAIN_SMOKE_BATCH
+    lr = TRAIN_SMOKE_LR
+    runs = {}
+    for where in ("cpu", dev):
+        cfg, model, opt, _, stream, step = train.build(
+            LM_ARCH, True, b, s, lr, where)
+        if where != "cpu":
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(runs["cpu"]["init"][k])
+        init = _params_host(model)
+        batch = train.device_batch(stream.batch(0), where)
+        calls = dict(attn.route_calls)
+        out = []
+        for _ in range(2):
+            _, opt, loss, gnorm = step(model, opt, batch, 1.0)
+            out.append((loss.item(), gnorm.item(), _params_host(model)))
+        if attn.route_calls["kernel"] != calls["kernel"]:
+            fail("phase 8a: a train step took the kernel route")
+        runs[str(where)] = {"init": init, "steps": out}
+    cpu, card = runs["cpu"]["steps"], runs[str(dev)]["steps"]
+    rep = {"config": f"{cfg.name} float32, batch [{b}, {s}], lr {lr}",
+           "loss_cpu": [x[0] for x in cpu], "loss_card": [x[0] for x in card],
+           "gnorm_cpu": [x[1] for x in cpu],
+           "gnorm_card": [x[1] for x in card]}
+    worst, loose, n = 0.0, 0, 0
+    for (l0, g0, p0), (l1, g1, p1) in zip(cpu, card):
+        if not (np.isfinite(l1) and np.isfinite(g1)):
+            fail(f"phase 8a: card loss {l1}, gradient norm {g1}")
+        if (abs(l1 - l0) > TRAIN_RTOL * abs(l0)
+                or abs(g1 - g0) > TRAIN_RTOL * abs(g0)):
+            fail(f"phase 8a: card against CPU: {rep}")
+        for k in p0:
+            d = (p1[k] - p0[k]).abs()
+            worst = max(worst, float(d.max()))
+            loose += int((d > TRAIN_PARAM_ABS).sum())
+            n += d.numel()
+    rep.update(param_max_abs=worst, params_over_1e6=loose, params=n,
+               tol={"loss_gnorm_rtol": TRAIN_RTOL,
+                    "param_abs_all": 0.1 * lr,
+                    "param_abs": TRAIN_PARAM_ABS,
+                    "param_loose_share": TRAIN_PARAM_LOOSE})
+    if worst > 0.1 * lr or loose > TRAIN_PARAM_LOOSE * n:
+        fail(f"phase 8a: card parameters against the CPU's: {rep}")
+    if not card[1][0] < card[0][0]:
+        fail("phase 8a: the same batch twice did not descend")
+    print("phase 8: 8a card vs cpu " + json.dumps(rep), flush=True)
+    return rep
+
+
+def phase_8b(dev, train) -> dict:
+    """MiniCPM-2B at full width through ``train.build(smoke=False)``: four
+    bf16 steps at ``TRAIN_BATCH``, then one warm step under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.nn import attention as attn
+
+    t_phase = time.perf_counter()
+    fa = fa_mod.flash_attention
+    torch.cuda.reset_peak_memory_stats()
+    b, s = TRAIN_BATCH
+    cfg, model, opt, sched, stream, step = train.build(
+        LM_ARCH, False, b, s, TRAIN_LR, dev)
+    n_l = cfg.n_layers
+    t_build = time.perf_counter() - t_phase
+    opt_ms: list = []
+    fwd_calls: list = []
+    adamw, loss_fn = train.adamw_update, tfm.loss_fn
+
+    def timed_adamw(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = adamw(*a, **kw)
+        ev[1].record()
+        opt_ms.append(ev)
+        return out
+
+    def counted_loss(*a, **kw):
+        out = loss_fn(*a, **kw)
+        fwd_calls.append(dict(attn.route_calls))
+        return out
+
+    train.adamw_update, tfm.loss_fn = timed_adamw, counted_loss
+    try:
+        steps = []
+        host = _params_host(model)
+        for i in range(TRAIN_STEPS + 1):
+            batch = train.device_batch(stream.batch(i), dev)
+            lr_scale = sched(i)
+            attn.route_calls.update(dict.fromkeys(attn.route_calls, 0))
+            fa.launches = 0
+            torch.cuda.synchronize()
+            if i < TRAIN_STEPS:
+                t0 = time.perf_counter()
+                _, opt, loss, gnorm = step(model, opt, batch, lr_scale)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            else:  # one more warm step, under the profiler
+                scan = attn._attend_scan
+
+                def ranged(*a, **kw):
+                    with record_function(SCAN_LABEL):
+                        return scan(*a, **kw)
+
+                attn._attend_scan = ranged
+                try:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        _, opt, loss, gnorm = step(model, opt, batch,
+                                                   lr_scale)
+                        torch.cuda.synchronize()
+                        ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    attn._attend_scan = scan
+            rec = {"step": i, "ms": ms, "loss": loss.item(),
+                   "grad_norm": gnorm.item(), "lr_scale": float(lr_scale),
+                   "optimizer_ms": opt_ms[-1][0].elapsed_time(opt_ms[-1][1]),
+                   "route_calls_forward": fwd_calls[-1],
+                   "route_calls_step": dict(attn.route_calls),
+                   "mha_launches": fa.launches}
+            if not (np.isfinite(rec["loss"]) and np.isfinite(
+                    rec["grad_norm"])):
+                fail(f"phase 8b: step {i} not finite: {rec}")
+            if (rec["route_calls_forward"] != {"kernel": 0, "scan": n_l}
+                    or rec["route_calls_step"] != {"kernel": 0,
+                                                   "scan": 2 * n_l}
+                    or fa.launches):
+                fail(f"phase 8b: step {i} routes: {rec}")
+            if i == 0:  # lr scale 0: the parameters must not move
+                worst, changed = _params_diff(model, host)
+                if rec["lr_scale"] != 0.0 or changed:
+                    fail(f"phase 8b: step 0 moved {changed} parameters")
+            if i == 1:
+                worst, changed = _params_diff(model, host)
+                rec.update(params_changed=changed, max_change=worst)
+                if changed == 0:
+                    fail("phase 8b: step 1 changed no parameter")
+                del host
+            steps.append(rec)
+    finally:
+        train.adamw_update, tfm.loss_fn = adamw, loss_fn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bound_ms, formula, tflop = train_bound(cfg, b, s)
+    warm = steps[2:TRAIN_STEPS]
+    warm_ms = float(np.median([r["ms"] for r in warm]))
+    dev_ev = _device_events(prof)
+    busy = _union_ms((e.time_range.start, e.time_range.end) for e in dev_ev)
+    t_parse = time.perf_counter()
+    scan_ms = scan_attention_ms(prof)
+    prof_step = steps[TRAIN_STEPS]
+    rep = {
+        "arch": cfg.name, "params": sum(p.numel()
+                                        for p in model.parameters()),
+        "dtype": "bfloat16 parameters, float32 AdamW moments",
+        "batch": [b, s], "reduced": {"train_4k": "256 x 4096 -> "
+                                     f"{b} x {s} sequences"},
+        "remat": cfg.remat, "ce_chunk": cfg.ce_chunk,
+        "build_s": t_build,
+        "steps": steps[:TRAIN_STEPS],
+        "warm_ms": warm_ms,
+        "tokens_per_s": b * s / (warm_ms / 1e3),
+        "optimizer_ms": float(np.median([r["optimizer_ms"] for r in warm])),
+        "bound_ms": bound_ms, "bound_by": "operations",
+        "bound_formula": formula, "tflop_per_step": tflop,
+        "bound_share": bound_ms / warm_ms,
+        "peak_gb": peak,
+        "profile": {
+            "step": prof_step["step"], "wall_ms": prof_step["ms"],
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / prof_step["ms"],
+            "device_kernels": len(dev_ev),
+            "top5_kernels_ms": top_kernels(dev_ev, n=5),
+            "scan_attention_ms": scan_ms,
+            "scan_attention_share": scan_ms / busy,
+            "optimizer_ms": prof_step["optimizer_ms"],
+            "parse_s": time.perf_counter() - t_parse,
+        },
+    }
+    del model, opt, prof, dev_ev
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8: 8b {cfg.name} full width bf16 [{b}, {s}]: warm step "
+          f"{warm_ms:.1f} ms ({rep['tokens_per_s']:.0f} tokens/s; bound "
+          f"{bound_ms:.1f} ms = {formula}), optimizer "
+          f"{rep['optimizer_ms']:.1f} ms, peak {peak:.2f} GB, device idle "
+          f"{rep['profile']['device_idle_share']:.3f}, scan attention "
+          f"{rep['profile']['scan_attention_share']:.3f} of busy",
+          flush=True)
+    print("phase 8: 8b " + json.dumps(rep), flush=True)
+    return rep
+
+
+def phase_8c(dev, train) -> dict:
+    """Crash and resume at full width cut to ``RESUME_LAYERS`` layers: an
+    uninterrupted run, then a ``TrainGuard`` run (checkpoints every
+    ``RESUME_SAVE_EVERY`` steps) whose step ``RESUME_FAIL_AT`` fails once
+    after the last checkpoint is on disk; the guard restores it in place.
+    Both under ``torch.use_deterministic_algorithms(True)``: the restored
+    state equals the saved one and the losses equal the uninterrupted
+    run's, bitwise."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.schedules import wsd_schedule
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.runtime.fault_tolerance import TrainGuard
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(base.get(LM_ARCH).full_config(),
+                              n_layers=RESUME_LAYERS)
+    ocfg = AdamWConfig(lr=TRAIN_LR)
+    step_fn_of = train.make_train_step(cfg, ocfg)
+    sched = wsd_schedule(warmup=20, total=10_000)
+    b, s = RESUME_BATCH
+    stream = TokenStream(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    ckdir = ROOT / "build" / "phase8_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def fresh():
+        model = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        model.requires_grad_(True)
+        return model, adamw_init(dict(model.named_parameters()), ocfg)
+
+    def one(model, live, i):
+        batch = train.device_batch(stream.batch(i), dev)
+        _, live["opt"], loss, gnorm = step_fn_of(model, live["opt"], batch,
+                                                 sched(i))
+        return loss.item(), gnorm.item()
+
+    class Recorded(CheckpointManager):
+        """Times each snapshot, write and restore; keeps the state the
+        first snapshot was taken of."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.secs = {"snapshot": [], "write": [], "restore": []}
+            self.saved = None
+
+        def save(self, step, tree, blocking=False):
+            if self.saved is None:
+                self.saved = (step, tfm.state_to_numpy(model, live["opt"]))
+            t0 = time.perf_counter()
+            super().save(step, tree, blocking)
+            self.secs["snapshot"].append(time.perf_counter() - t0)
+
+        def _write(self, step, leaves):
+            t0 = time.perf_counter()
+            super()._write(step, leaves)
+            self.secs["write"].append(time.perf_counter() - t0)
+
+        def restore(self, like, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(like, step)
+            torch.cuda.synchronize()
+            self.secs["restore"].append(time.perf_counter() - t0)
+            return out
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        model, opt = fresh()
+        live = {"opt": opt}
+        plain = [one(model, live, i) for i in range(RESUME_STEPS)]
+        del model, opt, live
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opt = fresh()
+        live = {"opt": opt}
+        n_params = sum(p.numel() for p in model.parameters())
+        ckpt = Recorded(str(ckdir), keep=3)
+        guarded: list = []
+        failed: list = []
+        restored_eq: dict = {}
+
+        def step_fn(state, i):
+            if i == RESUME_FAIL_AT and not failed:
+                ckpt.wait()  # the crash comes after the checkpoint is out
+                failed.append(i)
+                raise RuntimeError("injected failure")
+            if failed and not restored_eq:  # the first step after restore
+                step0, saved = ckpt.saved
+                now = tfm.state_to_numpy(model, live["opt"])
+                restored_eq.update(_states_equal(now, saved), step=step0)
+            guarded.append((i, *one(model, live, i)))
+            return tfm.state_tree(model, live["opt"])
+
+        state, end = TrainGuard(ckpt=ckpt, save_every=RESUME_SAVE_EVERY).run(
+            tfm.state_tree(model, live["opt"]), step_fn, RESUME_STEPS)
+        ckpt.wait()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nbytes = {d.name: sum(f.stat().st_size for f in d.iterdir())
+              for d in ckdir.iterdir()}
+    del model, opt, live, state, ckpt.saved
+    shutil.rmtree(ckdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = {
+        "config": f"{cfg.name} cut to {RESUME_LAYERS} layers (width kept), "
+                  f"bf16, batch [{b}, {s}]",
+        "params": n_params, "deterministic": True,
+        "failure_at": failed, "end_step": end,
+        "steps_run": [i for i, _, _ in guarded],
+        "loss_plain": [l for l, _ in plain],
+        "loss_guarded": [l for _, l, _ in guarded],
+        "restored_equal": restored_eq,
+        "checkpoint_bytes": nbytes,
+        "snapshot_s": ckpt.secs["snapshot"], "write_s": ckpt.secs["write"],
+        "restore_s": ckpt.secs["restore"],
+        "seconds": time.perf_counter() - t_phase,
+    }
+    want_steps = [*range(RESUME_FAIL_AT), *range(RESUME_SAVE_EVERY,
+                                                 RESUME_STEPS)]
+    if (failed != [RESUME_FAIL_AT] or end != RESUME_STEPS
+            or rep["steps_run"] != want_steps
+            or not restored_eq.get("equal")
+            or restored_eq.get("step") != RESUME_SAVE_EVERY):
+        fail(f"phase 8c: {rep}")
+    for i, l, g in guarded:
+        if (l, g) != plain[i]:
+            fail(f"phase 8c: step {i} gave loss {l}, gradient norm {g}; "
+                 f"the uninterrupted run {plain[i]}")
+    print("phase 8: 8c " + json.dumps(rep), flush=True)
+    return rep
+
+
+def _states_equal(now: dict, saved: dict) -> dict:
+    """Bitwise comparison of two ``state_to_numpy`` trees."""
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from flat(tree[k], f"{prefix}/{k}")
+        elif isinstance(tree, tuple):
+            for i, t in enumerate(tree):
+                yield from flat(t, f"{prefix}[{i}]")
+        else:
+            yield prefix, tree
+
+    a, b = dict(flat(now)), dict(flat(saved))
+    differ = [k for k in b if k not in a or a[k].shape != b[k].shape
+              or not np.array_equal(a[k], b[k])]
+    return {"equal": sorted(a) == sorted(b) and not differ,
+            "leaves": len(b), "differ": differ[:5]}
+
+
+def phase_8(dev) -> dict:
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    out = {"8a": phase_8a(dev, train), "8b": phase_8b(dev, train),
+           "8c": phase_8c(dev, train)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # phase 8c runs under torch.use_deterministic_algorithms, whose cuBLAS
+    # check asks for this setting (32 MiB of workspace, PyTorch's default
+    # on Hopper); set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.graph import csr as gcsr
     from repro_torch.graph.delta import GraphDelta, apply_delta_csr
     from repro_torch.graph.generators import (
@@ -2503,6 +3015,9 @@ def main() -> int:
             for op in ranks["ranks"][0]["kernels"] if op.startswith(kname)
         }
 
+    # -- phase 8: LM training at full width ----------------------------------
+    training = phase_8(dev)
+
     bp["shard"] = shard_times("binned_pull")
     mx["shard"] = shard_times("msbfs_extend")
     kernels = [
@@ -2563,6 +3078,13 @@ def main() -> int:
           f"{lm_s['decode_bound_ms']:.3f} ms); 1 x {LM_LONG} prefill "
           f"{lm_s['long']['ms']:.1f} ms; peak {lm_s['peak_gb']:.3f} GB")
     print("phase 6b: " + json.dumps(lm_s))
+    tr = training["8b"]
+    print(f"LM train {tr['arch']} bf16 {tr['batch']}: warm step "
+          f"{tr['warm_ms']:.1f} ms, {tr['tokens_per_s']:.0f} tokens/s "
+          f"(bound {tr['bound_ms']:.1f} ms), optimizer "
+          f"{tr['optimizer_ms']:.1f} ms, peak {tr['peak_gb']:.2f} GB; "
+          f"crash-resume bitwise over {training['8c']['steps_run']}; "
+          f"phase 8 {training['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -4,7 +4,9 @@ Same sub-package layout as the JAX package: ``graph`` (host builders that
 return tensors), ``core`` (IFE engine, extension backends, policies,
 single-device dispatcher), ``kernels`` (hand-written CUDA kernels with
 their plain PyTorch versions), ``runtime`` (engine cache, two-phase
-hybrid, admission) and ``launch`` (the serving driver).
+hybrid, admission, the trainer's fault tolerance), ``configs``, ``nn`` and
+``models`` (the LM family), ``optim``, ``data`` and ``checkpoint`` (the
+trainer's substrate) and ``launch`` (the serving and training drivers).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; this
 package never imports JAX.

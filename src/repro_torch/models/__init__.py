@@ -1,2 +1,2 @@
-"""Models of the port: ``transformer`` (the LM family's forward, loss
-value, prefill and decode)."""
+"""Models of the port: ``transformer`` (the LM family's forward, the
+training loss and its gradient path, prefill and decode)."""

@@ -1,5 +1,6 @@
 """Config-driven transformer LM family (port of ``repro.models.transformer``):
-forward, the loss value and the serving path (prefill, decode).
+forward, the training loss and its gradient path, and the serving path
+(prefill, decode).
 
 One composable definition covers the five LM archs, as in JAX: llama-style
 GQA + SwiGLU (deepseek-coder-33b, minicpm-2b), local/global alternation
@@ -13,13 +14,28 @@ group and scans over groups; the port holds a flat ``ModuleList``. Layer
 its kind and MoE-ness from ``j``. A parameter's dotted name in the port,
 ``blocks.{i}.attn.wq.kernel``, is JAX's path ``blocks/layer_{j}/attn/wq/
 kernel`` at index ``[i // group_size]`` (``jax_path``); ``params_from_jax``
-and ``params_to_numpy`` carry a model across both ways.
+and ``params_to_numpy`` carry a model across both ways, ``grads_to_numpy``
+its gradients, ``state_to_numpy``/``state_from_jax`` a train state (model
+and ``AdamWState``), and ``state_tree`` is that state in JAX's layout
+holding the live tensors (what the checkpoint saves and restores in place).
 
 Prefill and forward attention take the route ``nn.attention`` chooses per
 layer: the ``mha`` kernel on the card where it applies, the scan
-elsewhere. Decode attention and every projection stay ``torch.matmul`` /
-einsum, as JAX leaves them to XLA. Caches are a list of ``KVCache``, one
-per layer; decode writes them in place.
+elsewhere. The kernel has no backward, so the training loss takes the scan
+route by name, as JAX's ``loss_fn`` calls ``attention_scan``; ``prefill``
+and ``decode`` run under ``torch.no_grad()``, so a trained model (whose
+parameters require a gradient) serves without building a graph. Decode
+attention and every projection stay ``torch.matmul`` / einsum, as JAX
+leaves them to XLA. Caches are a list of ``KVCache``, one per layer;
+decode writes them in place.
+
+Training: ``loss_fn`` rematerializes each layer per ``cfg.remat`` (JAX's
+``none`` / ``dots`` / ``minimal`` / ``full``; every policy but ``none`` is
+a per-layer ``torch.utils.checkpoint`` here, which changes memory, not
+values) and streams the cross-entropy over ``ce_chunk`` slices, each under
+its own checkpoint, so the ``[B, S, vocab]`` float32 logits never exist.
+The non-reentrant checkpoint runs its first forward with grad enabled, so
+the recompute sees what the forward saw.
 """
 from __future__ import annotations
 
@@ -30,7 +46,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..checkpoint.checkpoint import Stacked, snapshot_leaf
 from ..kernels.common import resolve_device, tensor_from_numpy
 from ..nn.attention import (
     Attention,
@@ -45,6 +63,7 @@ from ..nn.attention import (
 from ..nn.layers import Embedding, RMSNorm, rmsnorm, softcap
 from ..nn.module import cast_scalar, shard_activation
 from ..nn.moe import MoE, MoESettings, SwiGLU, ffn, moe
+from ..optim.adamw import AdamWState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +91,7 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     zero_centered_norm: bool = False
     dtype: Any = torch.float32
-    remat: str = "dots"  # none | dots | full (training; unused when serving)
+    remat: str = "dots"  # none | dots | minimal | full (training)
     attn_chunk: int = 512
     query_scale: Optional[float] = None
     # cross-entropy sequence chunk: the [B, S, vocab] logits tensor is
@@ -142,6 +161,9 @@ class TransformerConfig:
             total += (3 * d * self.moe.d_ff
                       * (self.moe.n_experts - self.moe.top_k) * n_moe)
         return total
+
+
+REMAT_POLICIES = ("none", "dots", "minimal", "full")
 
 
 # ----------------------------------------------------------------- init ----
@@ -262,21 +284,35 @@ def _positions(b: int, seq: int, device) -> torch.Tensor:
     return torch.arange(seq, dtype=torch.int32, device=device).expand(b, seq)
 
 
+def _remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint where a graph is
+    being built (its activations recomputed in the backward pass)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def hidden_states(params: Transformer, cfg: TransformerConfig, tokens,
                   positions=None, route=None):
     """tokens [B, S] -> (final-norm hidden [B, S, d], total aux loss).
     Caller-given positions keep attention on the scan route unless
-    ``route`` says otherwise (the kernel masks by index)."""
+    ``route`` says otherwise (the kernel masks by index). Each layer is
+    rematerialized unless ``cfg.remat`` is ``none``."""
     b, seq = tokens.shape
     if positions is None:
         positions = _positions(b, seq, tokens.device)
     elif route is None:
         route = "scan"
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
     x = _embed_tokens(params, cfg, tokens)
     aux = torch.zeros((), device=x.device)
     for i, lp in enumerate(params.blocks):
-        x, a, _ = _layer_apply(lp, cfg, i % cfg.group_size, x, positions,
-                               route)
+        def layer(x, lp=lp, j=i % cfg.group_size):
+            return _layer_apply(lp, cfg, j, x, positions, route)[:2]
+
+        x, a = layer(x) if cfg.remat == "none" else _remat(layer, x)
         aux = aux + a
     return _norm(cfg, params.ln_final, x), aux
 
@@ -289,21 +325,29 @@ def forward(params: Transformer, cfg: TransformerConfig, tokens,
 
 
 def loss_fn(params: Transformer, cfg: TransformerConfig, batch):
-    """batch {"tokens": [B, S], "labels": [B, S]} -> the scalar loss value
-    (streamed cross-entropy over ``ce_chunk`` slices, plus aux). The
-    gradient comes with the training slice."""
-    x, aux = hidden_states(params, cfg, batch["tokens"])
+    """batch {"tokens": [B, S], "labels": [B, S]} -> scalar loss.
+
+    Attention takes the scan route by name (JAX's ``attention_scan``; the
+    ``mha`` kernel has no backward). Streamed cross-entropy: the logits of
+    each ``ce_chunk`` slice are computed under their own checkpoint, so
+    the full [B, S, vocab] tensor never exists, forward or backward; the
+    slices' log-likelihoods add into one float32 total in order, as JAX's
+    scan adds them."""
+    x, aux = hidden_states(params, cfg, batch["tokens"], route="scan")
     b, seq, _ = x.shape
     c = min(cfg.ce_chunk, seq)
     if seq % c:
         raise ValueError(f"S={seq} is not a multiple of ce_chunk {c}")
     labels = batch["labels"].long()
+
+    def chunk_ll(x_c, y_c):
+        logp = torch.log_softmax(_unembed(params, cfg, x_c), dim=-1)
+        return logp.gather(-1, y_c[..., None])[..., 0].sum()
+
     total = torch.zeros((), device=x.device)
     for start in range(0, seq, c):
-        logits = _unembed(params, cfg, x[:, start:start + c])
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = logp.gather(-1, labels[:, start:start + c, None])[..., 0]
-        total = total + ll.sum()
+        total = total + _remat(chunk_ll, x[:, start:start + c],
+                               labels[:, start:start + c])
     return -total / (b * seq) + aux
 
 
@@ -332,6 +376,7 @@ def _layer_decode(lp: Layer, cfg, j, x, cache: KVCache, pos: int):
     return _residual(cfg, x, h), cache
 
 
+@torch.no_grad()
 def decode(params: Transformer, cfg: TransformerConfig, caches, tokens,
            pos: int):
     """One decode step: tokens [B, 1], ``pos`` an int -> (logits [B, 1,
@@ -345,6 +390,7 @@ def decode(params: Transformer, cfg: TransformerConfig, caches, tokens,
     return _unembed(params, cfg, x), new_caches
 
 
+@torch.no_grad()
 def prefill(params: Transformer, cfg: TransformerConfig, tokens,
             max_seq=None, route=None):
     """tokens [B, S] -> (last-position logits [B, vocab_padded], caches
@@ -390,14 +436,10 @@ def _n_leaves(tree) -> int:
     return 1
 
 
-def params_from_jax(cfg: TransformerConfig, tree: dict,
-                    device=None) -> Transformer:
-    """The port's model holding the values of JAX's unboxed parameter tree
-    (nested dicts of numpy arrays, the block leaves stacked by group).
-    Every value is copied into the model's own storage."""
-    dev = resolve_device(device)
-    model = Transformer(cfg, None, "meta").to_empty(device=dev)
-    n_blocks = len(model.blocks)
+def _named_values(cfg: TransformerConfig, model: Transformer, tree: dict):
+    """(name, tensor on the CPU) for each port parameter, from JAX's tree
+    of numpy arrays laid out like the parameters (block leaves stacked by
+    group); checks every shape and that the tree holds no other leaf."""
     seen = set()
     for name, p in model.named_parameters():
         path, g = jax_path(cfg, name)
@@ -407,32 +449,110 @@ def params_from_jax(cfg: TransformerConfig, tree: dict,
         if tuple(val.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX leaf {'/'.join(path)} has shape "
                              f"{tuple(val.shape)}, the port {tuple(p.shape)}")
-        with torch.no_grad():
-            p.copy_(val)
+        yield name, val
     if len(seen) != _n_leaves(tree):
         raise ValueError(f"the JAX tree has {_n_leaves(tree)} leaves, the "
                          f"port's {cfg.name} model {len(seen)} "
-                         f"({n_blocks} blocks)")
+                         f"({len(model.blocks)} blocks)")
+
+
+def params_from_jax(cfg: TransformerConfig, tree: dict,
+                    device=None) -> Transformer:
+    """The port's model holding the values of JAX's unboxed parameter tree
+    (nested dicts of numpy arrays, the block leaves stacked by group).
+    Every value is copied into the model's own storage."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, None, "meta").to_empty(device=dev)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, val in _named_values(cfg, model, tree):
+            params[name].copy_(val)
     return model
+
+
+def named_tree(cfg: TransformerConfig, named: dict) -> dict:
+    """JAX's tree layout of ``named`` (port parameter name -> tensor),
+    holding the same tensors: block leaves as ``Stacked`` in group
+    order."""
+    stacks: dict = {}
+    tree: dict = {}
+    for name, t in named.items():
+        path, g = jax_path(cfg, name)
+        if g is None:
+            _set(tree, path, t)
+        else:
+            stacks.setdefault(path, {})[g] = t
+    for path, by_group in stacks.items():
+        _set(tree, path, Stacked(by_group[g] for g in sorted(by_group)))
+    return tree
+
+
+def state_tree(model: Transformer, opt: AdamWState) -> dict:
+    """The train state in JAX's layout, ``{"params", "opt": AdamWState(
+    step, mu, nu)}``, holding the model's and the optimizer's own tensors:
+    the tree ``CheckpointManager`` saves (the keys JAX's train state has)
+    and restores in place."""
+    cfg = model.cfg
+    return {"params": named_tree(cfg, dict(model.named_parameters())),
+            "opt": AdamWState(opt.step, named_tree(cfg, opt.mu),
+                              named_tree(cfg, opt.nu))}
+
+
+def _numpy_leaf(leaf) -> np.ndarray:
+    arr, dtype = snapshot_leaf(leaf)
+    if dtype == "bfloat16":  # exact in float32
+        return (arr.astype(np.uint32) << 16).view(np.float32)
+    return arr
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return _numpy_leaf(tree)
 
 
 def params_to_numpy(model: Transformer) -> dict:
     """JAX's tree layout (block leaves stacked by group) as numpy arrays;
     bfloat16 values come out as float32 (exact)."""
-    cfg = model.cfg
-    stacks: dict = {}
-    tree: dict = {}
-    for name, p in model.named_parameters():
-        path, g = jax_path(cfg, name)
-        a = p.detach().cpu()
-        a = (a.float() if a.dtype == torch.bfloat16 else a).numpy().copy()
-        if g is None:
-            _set(tree, path, a)
-        else:
-            stacks.setdefault(path, {})[g] = a
-    for path, by_group in stacks.items():
-        _set(tree, path, np.stack([by_group[g] for g in sorted(by_group)]))
-    return tree
+    return _numpy_tree(named_tree(model.cfg, dict(model.named_parameters())))
+
+
+def grads_to_numpy(model: Transformer) -> dict:
+    """The parameters' gradients in JAX's tree layout, as numpy arrays
+    (bfloat16 as float32); a parameter without one holds zeros, as
+    JAX's gradient of an unused leaf does."""
+    return _numpy_tree(named_tree(model.cfg, {
+        name: p.grad if p.grad is not None else torch.zeros_like(p)
+        for name, p in model.named_parameters()}))
+
+
+def state_to_numpy(model: Transformer, opt: AdamWState) -> dict:
+    """``state_tree`` as numpy arrays (bfloat16 as float32):
+    ``{"params", "opt": AdamWState(step, mu, nu)}``."""
+    tree = state_tree(model, opt)
+    o = tree["opt"]
+    return {"params": _numpy_tree(tree["params"]),
+            "opt": AdamWState(_numpy_leaf(o.step), _numpy_tree(o.mu),
+                              _numpy_tree(o.nu))}
+
+
+def state_from_jax(cfg: TransformerConfig, tree: dict, device=None):
+    """(model, AdamWState) holding JAX's train state ``{"params", "opt":
+    (step, mu, nu)}`` (numpy leaves, blocks stacked by group). The model's
+    parameters require a gradient; the moments keep their stored dtype;
+    the step count is a 0-d int32 CPU tensor."""
+    model = params_from_jax(cfg, tree["params"], device)
+    model.requires_grad_(True)
+    step, mu, nu = tree["opt"]
+    dev = next(model.parameters()).device
+
+    def moments(t):
+        return {name: val.to(dev, copy=True)
+                for name, val in _named_values(cfg, model, t)}
+
+    return model, AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+        mu=moments(mu), nu=moments(nu))
 
 
 def _set(tree, path, val):

@@ -28,6 +28,13 @@ be ``0..S-1`` on every row, as ``prefill`` and ``forward`` give them.
 the kernel route where it applies (on a CPU tensor ``mha`` runs its plain
 version, ``attention_ref``); that is how the tests hold the wiring.
 
+The kernel has no backward (nor has the JAX package's Pallas kernel: JAX
+trains through ``attention_scan``). So ``attend`` raises when the kernel
+route is chosen, forced or by default, while autograd records and q, k or
+v requires a gradient: the gradient to ``wq``/``wk``/``wv`` would be lost
+without an error. Nothing switches routes in silence; the training loss
+asks for the scan by name.
+
 Decode writes the new slot into the cache's tensors in place (JAX returns
 a new cache; a copy of a full-width cache per step would move more bytes
 than the step itself) and returns the cache.
@@ -208,6 +215,12 @@ def attend(p: Attention, s: AttnSettings, q, k, v, positions,
     """Projected q, k, v -> the layer's output [B, S, d] through the
     chosen route, then ``wo``."""
     route = choose_route(s, q, route)
+    if route == "kernel" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the mha kernel route has no backward: train through the scan "
+            "route (route='scan', as loss_fn does) or run under "
+            "torch.no_grad()")
     route_calls[route] += 1
     if route == "kernel":
         out = _attend_kernel(s, q, k, v)

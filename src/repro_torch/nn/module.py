@@ -10,8 +10,9 @@ own device and place the result on the target device; on the ``meta``
 device nothing is drawn (shapes only, any model size). The logical-axis
 sharding rules (``sharding_rules``, ``logical_to_spec``) are GSPMD and
 belong to the LM's mesh slice; here ``shard_activation`` is the identity,
-as it is in JAX without installed rules. This is the serving slice:
-parameters hold no gradient (``requires_grad=False``).
+as it is in JAX without installed rules. Parameters are created without a
+gradient (``requires_grad=False``), for serving; the trainer switches them
+on for its model (``requires_grad_(True)``).
 """
 from __future__ import annotations
 

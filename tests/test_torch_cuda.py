@@ -66,6 +66,18 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   cache magnitude, in bfloat16 a cosine of at least 0.999 per row; and a
   GQA layer (8 query heads on 2 kv heads, ``repeat_interleave`` to 8)
   through ``mha`` against the scan route.
+- The LM training path: two MiniCPM-smoke train steps
+  (``launch.train.build``'s step: forward on the scan route, backward,
+  AdamW) on the card against the same steps on the CPU from the same
+  weights, in float32 with TF32 off: losses and gradient norms within
+  rtol 1e-5, parameters within 0.1 lr everywhere and 1e-6 for 99.9% of
+  them (the products add in other orders; an AdamW step turns a rounding
+  difference of a near-zero gradient into up to a tenth of lr); the
+  kernel route under autograd on the card raises, forced or chosen by
+  default, while ``prefill`` under ``no_grad`` still launches ``mha``;
+  a train state of CUDA tensors (bfloat16 parameters, float32 moments)
+  through ``CheckpointManager``: saved, overwritten, restored in place on
+  the card, bitwise.
 """
 import dataclasses
 
@@ -833,3 +845,116 @@ def test_gqa_attention_through_mha_matches_scan(dtype, cuda_device):
         assert rel_err(got, exp) <= 1e-4
     else:
         assert (row_cosine(got.flatten(1), exp.flatten(1)) >= 0.999).all()
+
+
+# ---------------------------------------------------------------------------
+# The LM training path on the card
+# ---------------------------------------------------------------------------
+
+def train_pair(device, lr=1e-3):
+    """MiniCPM-smoke trainers on the CPU and on ``device`` holding the same
+    weights (``build`` draws them on its own device)."""
+    from repro_torch.launch import train
+
+    cpu = train.build("minicpm-2b", True, 2, 64, lr, "cpu")
+    card = train.build("minicpm-2b", True, 2, 64, lr, device)
+    with torch.no_grad():
+        for (name, p), q in zip(cpu[1].named_parameters(),
+                                card[1].parameters()):
+            q.copy_(p)
+    return cpu, card
+
+
+def test_smoke_train_steps_on_card_match_cpu(cuda_device):
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as tfm
+
+    lr = 1e-3
+    runs = []
+    for cfg, model, opt, sched, stream, step in train_pair(cuda_device, lr):
+        dev = next(model.parameters()).device
+        batch = device_batch(stream.batch(0), dev)
+        out = []
+        for _ in range(2):
+            _, opt, loss, gnorm = step(model, opt, batch, 1.0)
+            out.append((loss.item(), gnorm.item(),
+                        tfm.params_to_numpy(model)))
+        runs.append(out)
+    for (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) in zip(*runs):
+        assert np.isfinite(l_card) and np.isfinite(g_card)
+        np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+        np.testing.assert_allclose(g_card, g_cpu, rtol=1e-5)
+        n = loose = 0
+        for a, b in zip(_flat(p_card), _flat(p_cpu)):
+            d = np.abs(a - b)
+            assert d.max() <= 0.1 * lr
+            n, loose = n + d.size, loose + int((d > 1e-6).sum())
+        assert loose <= 1e-3 * n, (loose, n)
+    assert runs[1][1][0] < runs[1][0][0]  # the same batch twice descends
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _flat(t)]
+    return [tree]
+
+
+def test_kernel_route_under_grad_raises_on_card(cuda_device):
+    from repro_torch.configs.minicpm_2b import smoke_config
+
+    cfg = smoke_config()
+    model = transformer.init(cfg, torch.Generator().manual_seed(0),
+                             cuda_device)
+    model.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 129))).to(
+        cuda_device)
+    toks = seq[:, :128]  # S % 128 == 0: the kernel route applies
+    for route in (None, "kernel"):  # chosen by default, or forced
+        with pytest.raises(RuntimeError, match="no backward"):
+            transformer.forward(model, cfg, toks, route=route)
+    calls, launches = dict(attn.route_calls), flash_attention.launches
+    loss = transformer.loss_fn(model, cfg, {"tokens": toks,
+                                            "labels": seq[:, 1:]})
+    loss.backward()
+    assert attn.route_calls["kernel"] == calls["kernel"]
+    assert flash_attention.launches == launches
+    assert model.blocks[0].attn.wq.kernel.grad.abs().sum() > 0
+    last, _ = transformer.prefill(model, cfg, toks)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + cfg.n_layers
+    assert last.grad_fn is None
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(cuda_device, tmp_path):
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.minicpm_2b import smoke_config
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(smoke_config(), dtype=torch.bfloat16)
+    model = transformer.init(cfg, torch.Generator().manual_seed(0),
+                             cuda_device)
+    opt = adamw_init(dict(model.named_parameters()), AdamWConfig())
+    with torch.no_grad():
+        for m in (*opt.mu.values(), *opt.nu.values()):
+            m.normal_()
+    opt = opt._replace(step=torch.tensor(7, dtype=torch.int32))
+    saved = transformer.state_to_numpy(model, opt)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(7, transformer.state_tree(model, opt))
+    with torch.no_grad():  # the next step's in-place writes
+        for t in (*model.parameters(), *opt.mu.values(), *opt.nu.values(),
+                  opt.step):
+            t.zero_()
+    mgr.wait()
+    _, step = mgr.restore(transformer.state_tree(model, opt))
+    assert step == 7 and int(opt.step) == 7
+    assert model.embed.table.device == opt.mu["embed.table"].device
+    assert model.embed.table.device.type == "cuda"
+    assert model.embed.table.dtype == torch.bfloat16
+    got = transformer.state_to_numpy(model, opt)
+    for a, b in zip(_flat(got["params"]) + _flat(got["opt"][1:]),
+                    _flat(saved["params"]) + _flat(saved["opt"][1:])):
+        np.testing.assert_array_equal(a, b)

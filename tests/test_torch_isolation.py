@@ -18,6 +18,14 @@
   scan; ``transformer.init`` (and the cache and carry-over entry points)
   with no device raise without a GPU; on the CPU the kernel route's
   ``mha`` runs its plain version and leaves the launch counter alone.
+- The training path (``optim/``, ``data/``, ``checkpoint/``,
+  ``runtime/fault_tolerance.py``, ``launch/train.py``) is in the scan,
+  which also refuses ``ml_dtypes`` (the card's machine has none), and
+  importing the trainer leaves ``jax`` unloaded; ``train.build`` and
+  ``train.main`` without ``--device cpu`` raise without a GPU; the
+  kernel route, forced or chosen, raises under autograd (it has no
+  backward); ``prefill`` and ``decode`` of a model whose parameters
+  require a gradient build no graph.
 """
 import ast
 import os
@@ -52,7 +60,7 @@ from repro_torch.runtime.scheduler import AdaptiveScheduler
 from repro_torch.runtime.service import ServingLoop
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def port_files():
@@ -87,6 +95,10 @@ LM_MODULES = ("configs/__init__.py", "configs/base.py",
               "nn/module.py", "nn/layers.py", "nn/rope.py",
               "nn/attention.py", "nn/moe.py", "models/__init__.py",
               "models/transformer.py")
+TRAIN_MODULES = ("optim/__init__.py", "optim/schedules.py", "optim/adamw.py",
+                 "data/__init__.py", "data/pipeline.py",
+                 "checkpoint/__init__.py", "checkpoint/checkpoint.py",
+                 "runtime/fault_tolerance.py", "launch/train.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -96,6 +108,7 @@ def test_port_never_imports_jax_or_the_jax_package():
                for p in files if "repro_torch" in p.parts}
     assert set(MUTATION_MODULES) <= scanned
     assert set(LM_MODULES) <= scanned
+    assert set(TRAIN_MODULES) <= scanned
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files for mod in absolute_imports(p)
@@ -328,3 +341,83 @@ def test_lm_kernel_route_on_cpu_takes_the_plain_mha():
     assert attention.route_calls["scan"] == calls["scan"] + cfg.n_layers
     torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-4)
     assert caches[0].k.device.type == "cpu"
+
+
+def test_train_import_leaves_jax_unloaded():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.launch.train, repro_torch.optim.adamw, "
+            "repro_torch.optim.schedules, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.checkpoint, "
+            "repro_torch.runtime.fault_tolerance; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "raise SystemExit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_train_entry_points_raise_without_cuda_unless_cpu(no_cuda, tmp_path):
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.build("minicpm-2b", True, 2, 16, 1e-3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.build("minicpm-2b", True, 2, 16, 1e-3, "cuda")
+    argv = ["--steps", "1", "--batch", "2", "--seq", "16", "--ckpt-dir",
+            str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(argv)
+    assert not any(tmp_path.iterdir())  # nothing ran
+    cfg, model, opt, *_ = train.build("minicpm-2b", True, 2, 16, 1e-3, "cpu")
+    assert model.embed.table.device.type == "cpu"
+    assert all(p.requires_grad for p in model.parameters())
+    assert opt.mu["embed.table"].device.type == "cpu"
+
+
+def test_kernel_route_refuses_autograd():
+    """``mha`` has no backward: a kernel route, forced here (on the CPU
+    its plain version would differentiate), raises while autograd records
+    a gradient to q, k or v; under ``no_grad`` or with inputs that need no
+    gradient it runs."""
+    from repro_torch.nn import attention
+
+    s = attention.AttnSettings(d_model=64, n_heads=4, n_kv_heads=2,
+                               d_head=16)
+    p = attention.attn_init(torch.Generator().manual_seed(0), s)
+    p.requires_grad_(True)
+    x = torch.randn(2, 128, 64)
+    pos = torch.arange(128, dtype=torch.int32).expand(2, 128)
+    calls = dict(attention.route_calls)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.attention(p, s, x, pos, route="kernel")
+    q = torch.randn(2, 128, 4, 16, requires_grad=True)
+    kv = torch.randn(2, 128, 2, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.attend(p, s, q, kv, kv, pos, route="kernel")
+    assert attention.route_calls == calls  # refused before counting
+    with torch.no_grad():
+        attention.attention(p, s, x, pos, route="kernel")
+    assert attention.route_calls["kernel"] == calls["kernel"] + 1
+    # the scan route differentiates, and reaches wq
+    attention.attention_scan(p, s, x, pos).sum().backward()
+    assert p.wq.kernel.grad is not None and p.wq.kernel.grad.abs().sum() > 0
+
+
+def test_trained_model_serves_without_a_graph():
+    from repro_torch.configs import base
+    from repro_torch.models import transformer
+
+    cfg = base.get("minicpm-2b").smoke_config()
+    model = transformer.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    model.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    for route in (None, "kernel"):
+        last, caches = transformer.prefill(model, cfg, toks, max_seq=130,
+                                           route=route)
+        assert last.grad_fn is None and not last.requires_grad
+        assert all(not c.k.requires_grad for c in caches)
+        out, caches = transformer.decode(model, cfg, caches, toks[:, :1], 128)
+        assert out.grad_fn is None and not out.requires_grad
+    assert model.embed.table.grad is None

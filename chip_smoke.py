@@ -176,7 +176,35 @@ Phases (any failure exits non-zero and prints no result):
    both under ``torch.use_deterministic_algorithms(True)``: the restored
    state bitwise the saved one, every loss and gradient norm bitwise the
    uninterrupted run's; prints checkpoint bytes and the snapshot, write
-   and restore seconds.
+   and restore seconds;
+9. GNN training (``launch/steps.py``; no kernel: JAX's GNNs aggregate with
+   XLA scatters, the port with ``index_add``/``scatter_reduce``, and all
+   four kernels' counters must not move). (9c) each arch's smoke config on
+   ``molecule`` in float32, card against CPU from the same weights: the
+   forward's ``node_out``/``graph_out`` within 1e-5 (relative plus a
+   share of the largest magnitude), one train step's loss within 1e-5,
+   its gradient norm and each leaf's AdamW moments within 1e-3 (plus
+   1e-3 of the leaf's largest), parameters within 1e-6 where the gradient
+   clears that bound (else 2 lr: a first AdamW step moves a parameter by
+   about lr * sign(g)); (9a) sampled PNA at
+   full width (``minibatch_lg``'s cell: 4 layers, d 75, ``d_feat`` 100,
+   47 outputs): 1,024 ``GraphSeedStream`` seeds a batch, fanouts (15,
+   10), sampled on the card by ``graph.sampler`` from the scale-10 LDBC
+   proxy's forward ELL (Reddit's graph cut to the proxy), 169,984 nodes
+   and 168,960 edges a batch; the card's sampler against the CPU's on the
+   same raw slots, bitwise; under ``torch.use_deterministic_algorithms``
+   the first step on the card against a CPU step on the same batch, in
+   float64 leaf by leaf within 1e-6 (see ``GNN_F64_TOL``), and in float32
+   against that float64 step, each leaf's moments as accurate as the
+   CPU's float32 step's (see ``GNN_EXACT_RATIO``); the card's
+   deterministic ``index_add`` against the CPU's; then a cold,
+   three warm and one profiled step: step ms, sampling ms apart, seeds/s,
+   the bound (3 x ``gnn_flops`` at 67 TFLOP/s beside the gathers' and
+   scatters' bytes), peak memory, the device idle share; (9b) every arch
+   at its full config on ``molecule`` (128 graphs of 30 nodes and 64
+   edges) and PNA on ``full_graph_sm``, the same timings, and for SchNet,
+   MACE and EquiformerV2 ``graph_out`` under a random rotation within
+   2e-3.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -189,7 +217,7 @@ carries a ``served`` object (phase 6b's launches, and ``mha`` at the
 served shape beside SDPA and its bound); ``binned_pull`` and
 ``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), phase 8's
-``phase 8:`` JSON lines, the card's name
+``phase 8:`` and phase 9's ``phase 9:`` JSON lines, the card's name
 and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2265,6 +2293,529 @@ def phase_8(dev) -> dict:
     return out
 
 
+# -- phase 9: GNN training ----------------------------------------------------
+
+GNN_ARCHS = ("schnet", "pna", "mace", "equiformer-v2")
+GNN_WARM = 3  # timed warm steps after a cold one; then one under the profiler
+GNN_FEAT_SEED = 2  # node-feature table of the sampled cell
+# card against CPU (float32, TF32 off; ``index_add`` adds with atomics on
+# the card): loss and forward outputs at rtol plus a share of the largest
+# magnitude; the gradient norm at PNA's gradient bound's rtol and AdamW's
+# moments at that bound leaf by leaf, rtol plus a share of the leaf's own
+# largest moment (its std aggregator multiplies a rounding difference
+# 500-fold where a node's messages have no variance); parameters within
+# 1e-6 where the gradient clears that bound, else 2 lr (a first AdamW
+# step moves a parameter by about lr * sign(g))
+GNN_TOL = (1e-5, 1e-5)
+GNN_GRAD_TOL = (1e-3, 1e-3)
+GNN_PARAM_ABS = 1e-6
+# 9a at full width, under torch.use_deterministic_algorithms (the card's
+# sums add in edge order, bitwise the CPU's; only products and elementwise
+# functions round otherwise). A sampled tree's leaves have in-degree 0, so
+# PNA's attenuation scaler there is 3 / 1e-6 and activations reach
+# 1e3-1e4: float32 rounding swamps the gradient of the first layers (the
+# CPU's own float32 step is off its float64 step by a third of
+# ``feat_proj``'s largest moment). So the step runs in float64 on both,
+# card against CPU at GNN_F64_TOL per leaf (AdamW keeps its moments in
+# float32); and the float32 steps are held against that float64 CPU step:
+# per leaf, the card's error within GNN_EXACT_RATIO times the CPU's plus
+# GNN_EXACT_FLOOR of the leaf's largest moment (as accurate as the CPU)
+GNN_F64_TOL = (1e-6, 1e-6)
+GNN_EXACT_RATIO = 4.0
+GNN_EXACT_FLOOR = 1e-5
+GNN_ROT_TOL = (2e-3, 2e-3)  # JAX's own rotation bound (test_gnn_smoke.py)
+
+
+def _gnn_close(got, exp, tol):
+    """(ok, worst abs difference): |got - exp| <= rtol |exp| + share
+    max|exp| everywhere."""
+    g = torch.as_tensor(got).detach().double().cpu()
+    e = torch.as_tensor(exp).detach().double().cpu()
+    diff = (g - e).abs()
+    lim = tol[0] * e.abs() + tol[1] * float(e.abs().max())
+    return bool((diff <= lim).all()), float(diff.max())
+
+
+def _gnn_step_check(what, cpu, card, lr, tol=GNN_GRAD_TOL, leaves=5):
+    """Card step against CPU step, each ``(loss, gnorm, params, mu, nu)``:
+    the loss at ``GNN_TOL``, the gradient norm at ``tol``'s rtol, each
+    leaf's AdamW moments at ``tol`` (rtol plus a share of that leaf's own
+    largest moment), the parameters within ``GNN_PARAM_ABS`` where the
+    gradient clears its bound and within 2 lr elsewhere. Reports each
+    leaf's worst difference as a share of its own largest moment (the
+    ``leaves`` worst leaves; every leaf when None). Fails with every
+    number gathered."""
+    out, bad = {}, []
+    for i, name, t in ((0, "loss", GNN_TOL), (1, "grad_norm", tol)):
+        ok, _ = _gnn_close(card[i], cpu[i], (t[0], 0.0))
+        out[name] = {"cpu": float(cpu[i]), "card": float(card[i])}
+        if not ok or not np.isfinite(float(card[i])):
+            bad.append(name)
+    shares = {}
+    worst_p = 0.0
+    noise = n = 0
+    for k, p in cpu[2].items():
+        shares[k] = []
+        for j, m in enumerate((3, 4)):
+            e = cpu[m][k].double()
+            d = (card[m][k].cpu().double() - e).abs()
+            scale = float(e.abs().max())
+            shares[k].append(float(d.max()) / max(scale, 1e-30))
+            if (d > tol[0] * e.abs() + tol[1] * scale).any():
+                bad.append(f"moment {j} of {k} ({shares[k][-1]:.3g} of its "
+                           "largest)")
+        # a first AdamW step moves p by about lr * sign(g): where the
+        # (clipped) gradient, read from the CPU's first moment, is within
+        # twice its bound of 0 its sign is rounding, and the two steps may
+        # part by up to 2 lr; elsewhere they agree within GNN_PARAM_ABS
+        g = cpu[3][k].double().abs()
+        signal = g > 2 * (tol[0] * g + tol[1] * float(g.max()))
+        d = (card[2][k].cpu() - p).abs()
+        worst_p = max(worst_p, float(d[signal].max()) if signal.any() else 0)
+        noise += int((~signal).sum())
+        n += d.numel()
+        if (d[signal] > GNN_PARAM_ABS).any() or (d > 2 * lr + 1e-6).any():
+            bad.append(f"parameter {k} ({float(d.max()):.3g})")
+    ranked = sorted(shares.items(), key=lambda kv: -max(kv[1]))
+    out.update(param_max_abs=worst_p,
+               moment_max_share=[max(v[j] for v in shares.values())
+                                 for j in (0, 1)],
+               leaf_moment_share=dict(ranked[:leaves] if leaves else ranked),
+               params_in_gradient_noise=noise, params=n, tol=tol)
+    if bad:
+        fail(f"phase 9: {what}: {bad[:8]}: {json.dumps(out)}")
+    return out
+
+
+def _gnn_exact_check(what, cpu, card, exact, lr):
+    """Float32 steps on the CPU and the card, each ``(loss, gnorm, params,
+    mu, nu)``, against the float64 CPU step from the same weights
+    (``exact``): the loss and gradient norm, and each leaf's moments as
+    the worst error over the leaf's largest exact moment, the card's
+    within ``GNN_EXACT_RATIO`` times the CPU's plus ``GNN_EXACT_FLOOR``
+    (the card's distance from the CPU on the same scale reported);
+    parameters within ``GNN_PARAM_ABS`` of the exact step where the exact
+    gradient clears twice the card's bound, within 2 lr elsewhere. Fails
+    with every number gathered."""
+    out, bad = {}, []
+    for i, name in ((0, "loss"), (1, "grad_norm")):
+        e = float(exact[i])
+        err = [abs(float(x[i]) - e) / abs(e) for x in (cpu, card)]
+        out[name] = {"exact": e, "cpu": float(cpu[i]), "card": float(card[i])}
+        if not (np.isfinite(err[1])
+                and err[1] <= GNN_EXACT_RATIO * err[0] + GNN_TOL[0]):
+            bad.append(name)
+    shares = {}
+    worst_p = 0.0
+    noise = n = 0
+    for k, p in exact[2].items():
+        shares[k] = []
+        for j, m in enumerate((3, 4)):
+            e = exact[m][k].double()
+            scale = max(float(e.abs().max()), 1e-30)
+            c, g = (float((x[m][k].cpu().double() - e).abs().max()) / scale
+                    for x in (cpu, card))
+            apart = (card[m][k].cpu().double() - cpu[m][k].double()).abs()
+            shares[k].append({"cpu": c, "card": g,
+                              "card_vs_cpu": float(apart.max()) / scale})
+            if not g <= GNN_EXACT_RATIO * c + GNN_EXACT_FLOOR:
+                bad.append(f"moment {j} of {k} (card {g:.3g}, cpu {c:.3g} "
+                           "of its largest)")
+        # where the exact first moment clears twice the bound the card's
+        # is held to, the card's has its sign, and a first AdamW step
+        # moves p by about lr * sign(g)
+        e = exact[3][k].double().abs()
+        bound = (GNN_EXACT_RATIO * shares[k][0]["cpu"]
+                 + GNN_EXACT_FLOOR) * float(e.max())
+        signal = e > 2 * bound
+        d = (card[2][k].cpu().double() - p.double()).abs()
+        worst_p = max(worst_p, float(d[signal].max()) if signal.any() else 0)
+        noise += int((~signal).sum())
+        n += d.numel()
+        if (d[signal] > GNN_PARAM_ABS).any() or (d > 2 * lr + 1e-6).any():
+            bad.append(f"parameter {k} ({float(d.max()):.3g})")
+    out.update(param_max_abs=worst_p, leaf_moment_share_vs_float64=shares,
+               params_in_gradient_noise=noise, params=n,
+               ratio=GNN_EXACT_RATIO, floor=GNN_EXACT_FLOOR)
+    if bad:
+        fail(f"phase 9: {what}: {bad[:8]}: {json.dumps(out)}")
+    return out
+
+
+def _gnn_snapshot(model, opt, loss, gnorm):
+    def host(d):
+        return {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+
+    return (loss.item(), gnorm.item(), host(dict(model.named_parameters())),
+            host(opt.mu), host(opt.nu))
+
+
+def _gnn_pair(steps, cell, batch, dev, seed, dtype=torch.float32):
+    """One train step from the same seeded float32 weights, held in
+    ``dtype``, on the CPU and on the card: (cpu snapshot, card snapshot,
+    the card's (model, opt, step))."""
+    from repro_torch.models.gnn import common as gcom
+    from repro_torch.optim.adamw import adamw_init
+
+    mod = steps.GNN_MODULES[cell.arch_id]
+    cpu_model = steps.init_model(cell, torch.Generator().manual_seed(seed),
+                                 "cpu")
+    card_model = mod.params_from_jax(
+        cell.cfg, gcom.params_to_numpy(cpu_model), dev).requires_grad_(True)
+    cpu_model, card_model = cpu_model.to(dtype), card_model.to(dtype)
+    step = steps.make_train_step(cell)
+    snaps = []
+    for model, where in ((cpu_model, "cpu"), (card_model, dev)):
+        opt = adamw_init(steps.params_dict(model), steps.GNN_ADAMW)
+        b = {k: v.to(where) for k, v in batch.items()}
+        _, opt, loss, gnorm = step(model, opt, b)
+        snaps.append(_gnn_snapshot(model, opt, loss, gnorm))
+    return snaps[0], snaps[1], (card_model, opt, step)
+
+
+def gnn_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms, device busy ms
+    (the union of kernel spans), idle share, kernels, the five largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = _device_events(prof)
+    busy = _union_ms((e.time_range.start, e.time_range.end) for e in ev)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall, "device_kernels": len(ev),
+            "top5_kernels_ms": top_kernels(ev, n=5)}
+
+
+def gnn_train_timed(step, model, opt, batches, label) -> dict:
+    """A cold step, ``GNN_WARM`` timed warm steps and one profiled step;
+    ``batches(i)`` gives step i's batch on the card (its time apart)."""
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    for i in range(GNN_WARM + 2):
+        batch, prep_ms = batches(i)
+        holder = {}
+
+        def run():
+            holder["out"] = step(model, opt, batch)
+
+        if i <= GNN_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            rec = {"step": i, "ms": (time.perf_counter() - t0) * 1e3}
+        else:
+            prof = gnn_profile(run)
+            rec = {"step": i, "ms": prof["wall_ms"]}
+        _, opt, loss, gnorm = holder["out"]
+        rec.update(loss=loss.item(), grad_norm=gnorm.item(),
+                   prep_ms=prep_ms)
+        if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
+            fail(f"phase 9: {label} step {i} not finite: {rec}")
+        recs.append(rec)
+    warm_ms = float(np.median([r["ms"] for r in recs[1:GNN_WARM + 1]]))
+    # the profiler slows the host, so its step idles more than a warm one:
+    # the warm step's idle share, from the profiled step's device time (a
+    # negative share says the two steps' device times disagree)
+    prof["warm_idle_share"] = 1 - prof["device_busy_ms"] / warm_ms
+    if prof["warm_idle_share"] < 0:
+        print(f"phase 9: {label}: the profiled step's device time "
+              f"{prof['device_busy_ms']:.3f} ms exceeds the warm step's "
+              f"{warm_ms:.3f} ms: its warm idle share is no share",
+              flush=True)
+    return {"steps": recs, "cold_ms": recs[0]["ms"], "warm_ms": warm_ms,
+            "profile": prof,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def pna_bytes(cell, n: int, e: int) -> float:
+    """Bytes the PNA train step's gathers and scatters move at least,
+    float32, three times a forward's (forward, recompute, backward): per
+    layer two gathers of ``E x d`` read and written, four segment
+    reductions of ``E x d`` into ``N x d`` (sum, sum of squares, max,
+    min) and one count of ``E`` into ``N``."""
+    d = cell.cfg.d_hidden
+    per = 2 * 2 * e * d + 4 * (e * d + n * d) + (e + n)
+    return 3.0 * 4 * cell.cfg.n_layers * per
+
+
+def phase_9a(dev, csr, steps) -> dict:
+    """Sampled PNA at full width: ``minibatch_lg``'s 1,024 seeds a batch
+    (``GraphSeedStream``), fanouts (15, 10), sampled on the card from the
+    scale-10 LDBC proxy's forward ELL."""
+    from repro_torch.data.pipeline import GraphSeedStream
+    from repro_torch.graph import sampler
+    from repro_torch.graph.csr import ell_from_csr
+    from repro_torch.kernels.common import to_device
+    from repro_torch.models.gnn import common as gcom
+
+    t_phase = time.perf_counter()
+    cell = steps.gnn_cell("pna", "minibatch_lg")
+    t0 = time.perf_counter()
+    ell_cpu = ell_from_csr(csr)
+    ell = to_device(ell_cpu, dev)
+    ell_s = time.perf_counter() - t0
+    feats = torch.randn((csr.n_nodes, cell.cfg.d_feat),
+                        generator=torch.Generator().manual_seed(GNN_FEAT_SEED))
+    feats_dev = feats.to(dev)
+    eye = torch.eye(cell.cfg.n_out)
+    stream = GraphSeedStream(n_nodes=csr.n_nodes, batch_nodes=cell.seeds,
+                             n_classes=cell.cfg.n_out)
+    sgen = torch.Generator(device=dev).manual_seed(1)
+    fanout = cell.fanout
+
+    def sampled(i):
+        sb = stream.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sub = sampler.sample_subgraph(ell, sb["seeds"], fanout, sgen,
+                                      device=dev)
+        batch = {"edge_src": sub.edge_src, "edge_dst": sub.edge_dst,
+                 "node_feat": feats_dev[sub.nodes.long()],
+                 "targets": eye[torch.from_numpy(sb["labels"]).long()].to(
+                     dev)}
+        torch.cuda.synchronize()
+        return sub, batch, (time.perf_counter() - t0) * 1e3
+
+    # the sampler on the card against the CPU's on the same raw slots
+    sb = stream.batch(0)
+    raws = []
+    n_front = cell.seeds
+    for f in fanout:
+        raws.append(sampler.draw_slots(sgen, n_front, f))
+        n_front *= f
+    sub_card = sampler.sample_subgraph(ell, sb["seeds"], fanout,
+                                       raw_slots=raws, device=dev)
+    sub_cpu = sampler.sample_subgraph(ell_cpu, sb["seeds"], fanout,
+                                      raw_slots=[r.cpu() for r in raws],
+                                      device="cpu")
+    for name in ("nodes", "edge_src", "edge_dst"):
+        if not torch.equal(getattr(sub_card, name).cpu(),
+                           getattr(sub_cpu, name)):
+            fail(f"phase 9a: sampled {name} on the card differ from the "
+                 f"CPU's")
+    del ell_cpu, sub_cpu
+    gc.collect()
+    # the first train step on the card against the CPU on that batch
+    sub, batch, _ = sampled(0)
+    if (sub.nodes.shape[0], sub.edge_src.shape[0]) != (cell.n_nodes,
+                                                       cell.n_edges):
+        fail(f"phase 9a: sampled {sub.nodes.shape[0]} nodes, "
+             f"{sub.edge_src.shape[0]} edges, not the cell's")
+    t0 = time.perf_counter()
+    # deterministic sums on the card: what differs from the CPU is only
+    # the products' and elementwise functions' rounding
+    torch.use_deterministic_algorithms(True)
+    try:
+        cpu, card, (model, opt, step) = _gnn_pair(steps, cell, batch, dev, 0)
+        cpu64, card64, _ = _gnn_pair(steps, cell, batch, dev, 0,
+                                     torch.float64)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pair_s = time.perf_counter() - t0
+    lr = steps.GNN_ADAMW.lr
+    check = {
+        "float64": _gnn_step_check("9a float64 card vs cpu", cpu64, card64,
+                                   lr, GNN_F64_TOL, leaves=None),
+        "float32": _gnn_exact_check("9a float32 against the float64 cpu "
+                                    "step", cpu, card, cpu64, lr)}
+    del cpu, card, cpu64, card64
+    # deterministic sums: the card's index_add in edge order
+    msg = torch.randn((cell.n_edges, cell.cfg.d_hidden),
+                      generator=torch.Generator().manual_seed(3))
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = gcom.aggregate(msg.to(dev), batch["edge_dst"].long(),
+                             cell.n_nodes, "sum").cpu()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    atomic = gcom.aggregate(msg.to(dev), batch["edge_dst"].long(),
+                            cell.n_nodes, "sum").cpu()
+    host = gcom.aggregate(msg, batch["edge_dst"].long().cpu(), cell.n_nodes,
+                          "sum")
+    sums = {"deterministic_bitwise_cpu": bool(torch.equal(det, host)),
+            "atomic_max_abs_vs_cpu": max_abs_err(atomic, host)}
+    del msg, det, atomic, host
+
+    def batches(i):
+        _, b, ms = sampled(i + 1)
+        return b, ms
+
+    run = gnn_train_timed(step, model, opt, batches, "9a")
+    flops = cell.flops
+    ops_ms = flops / F32_OPS_PER_S * 1e3
+    nbytes = pna_bytes(cell, cell.n_nodes, cell.n_edges)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sample_ms = float(np.median([r["prep_ms"] for r in run["steps"][1:]]))
+    rep = {
+        "arch": "pna", "cell": "minibatch_lg",
+        "config": dataclasses.asdict(cell.cfg),
+        "batch": {"seeds": cell.seeds, "fanout": list(fanout),
+                  "nodes": cell.n_nodes, "edges": cell.n_edges},
+        "reduced": {"graph": "Reddit (232,965 nodes, 114,615,892 edges) -> "
+                             f"LDBC proxy scale {SCALE:g} ({csr.n_nodes} "
+                             f"nodes, {csr.n_edges} edges), sampled from its "
+                             "forward ELL; nothing downloaded"},
+        "ell_build_s": ell_s, "cpu_pair_s": pair_s,
+        "card_vs_cpu": check, "card_vs_cpu_deterministic": True,
+        "tol": {"loss": GNN_TOL, "float64_per_leaf": GNN_F64_TOL,
+                "float32_vs_float64": [GNN_EXACT_RATIO, GNN_EXACT_FLOOR],
+                "param_abs": GNN_PARAM_ABS},
+        "sums": sums,
+        **run,
+        "sample_ms": sample_ms,
+        "seeds_per_s": cell.seeds / (run["warm_ms"] / 1e3),
+        "seeds_per_s_with_sampling": cell.seeds / (
+            (run["warm_ms"] + sample_ms) / 1e3),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+        "bound_formula": f"max(3 x gnn_flops {flops / 3:.4g} / "
+                         f"{F32_OPS_PER_S:.3g} FLOP/s, gathers and scatters "
+                         f"{nbytes:.4g} B / {HBM_BYTES_PER_S:.3g} B/s)",
+    }
+    rep["bound_share"] = rep["bound_ms"] / run["warm_ms"]
+    del model, opt, ell, feats_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: 9a sampled PNA [{cell.seeds} seeds, {fanout}]: warm "
+          f"step {run['warm_ms']:.2f} ms + sampling {sample_ms:.2f} ms, "
+          f"{rep['seeds_per_s']:.0f} seeds/s (bound {rep['bound_ms']:.2f} ms "
+          f"by {rep['bound_by']}), peak {run['peak_gb']:.3f} GB, device "
+          f"idle {run['profile']['warm_idle_share']:.3f} (profiled step "
+          f"{run['profile']['device_idle_share']:.3f})", flush=True)
+    print("phase 9: 9a " + json.dumps(rep), flush=True)
+    return rep
+
+
+def _rotated(batch, seed=5):
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    out = dict(batch)
+    rot = torch.from_numpy(q.T.astype(np.float32)).to(
+        batch["positions"].device)
+    out["positions"] = batch["positions"] @ rot
+    return out
+
+
+def phase_9b(dev, steps) -> dict:
+    """Each arch at its full config on ``molecule`` (128 graphs of 30 nodes
+    and 64 edges, ``graph_out`` readout), and PNA on ``full_graph_sm``; for
+    the geometric archs ``graph_out`` under a random rotation."""
+    out = {}
+    cases = [(a, "molecule") for a in GNN_ARCHS] + [("pna", "full_graph_sm")]
+    for arch, shape in cases:
+        t0 = time.perf_counter()
+        cell = steps.gnn_cell(arch, shape)
+        _, model, opt, step = steps.build(
+            arch, shape, torch.Generator(device=dev).manual_seed(0), dev)
+        batches_np = [steps.cell_batch(cell, seed=i)
+                      for i in range(GNN_WARM + 2)]
+
+        def batches(i):
+            t = time.perf_counter()
+            b = steps.batch_to(batches_np[i], dev)
+            torch.cuda.synchronize()
+            return b, (time.perf_counter() - t) * 1e3
+
+        run = gnn_train_timed(step, model, opt, batches, f"9b {arch}")
+        ops_ms = cell.flops / F32_OPS_PER_S * 1e3
+        rep = {"arch": arch, "cell": shape, "nodes": cell.n_nodes,
+               "edges": cell.n_edges,
+               "params": sum(p.numel() for p in model.parameters()),
+               **{k: v for k, v in run.items() if k != "steps"},
+               "losses": [r["loss"] for r in run["steps"]],
+               "bound_ms": ops_ms, "bound_by": "operations",
+               "bound_formula": f"3 x gnn_flops {cell.flops / 3:.4g} / "
+                                f"{F32_OPS_PER_S:.3g} FLOP/s",
+               "bound_share": ops_ms / run["warm_ms"]}
+        if cell.geometric:
+            b = steps.batch_to(batches_np[0], dev)
+            b["n_graphs"] = cell.n_graphs
+            mod = steps.GNN_MODULES[arch]
+            with torch.no_grad():
+                g1 = mod.apply(model, cell.cfg, b)["graph_out"]
+                g2 = mod.apply(model, cell.cfg, _rotated(b))["graph_out"]
+            ok, worst = _gnn_close(g2, g1, GNN_ROT_TOL)
+            rep["rotation"] = {"max_abs": worst, "tol": GNN_ROT_TOL,
+                               "graph_out_max": float(g1.abs().max())}
+            if not ok or not bool(torch.isfinite(g1).all()):
+                fail(f"phase 9b: {arch} graph_out not rotation invariant: "
+                     f"{rep['rotation']}")
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["seconds"] = time.perf_counter() - t0
+        print(f"phase 9: 9b {arch} {shape}: warm step {run['warm_ms']:.2f} "
+              f"ms (bound {ops_ms:.4f} ms), peak {run['peak_gb']:.3f} GB, "
+              f"device idle {run['profile']['warm_idle_share']:.3f} "
+              f"(profiled step {run['profile']['device_idle_share']:.3f})"
+              + (f", rotation max abs {rep['rotation']['max_abs']:.3g}"
+                 if "rotation" in rep else ""), flush=True)
+        print("phase 9: 9b " + json.dumps(rep), flush=True)
+        out[f"{arch}/{shape}"] = rep
+    return out
+
+
+def phase_9c(dev, steps) -> dict:
+    """Smoke configs in float32, card against CPU from the same weights:
+    the forward's outputs and one train step, every arch."""
+    from repro_torch.models.gnn import common as gcom
+
+    out = {}
+    for arch in GNN_ARCHS:
+        cell = steps.gnn_cell(arch, "molecule", smoke=True)
+        batch = steps.batch_to(steps.cell_batch(cell, seed=7), "cpu")
+        mod = steps.GNN_MODULES[arch]
+        cpu_model = steps.init_model(cell, torch.Generator().manual_seed(1),
+                                     "cpu")
+        card_model = mod.params_from_jax(cell.cfg,
+                                         gcom.params_to_numpy(cpu_model), dev)
+        fwd = {}
+        with torch.no_grad():
+            b = dict(batch, n_graphs=cell.n_graphs)
+            o_cpu = mod.apply(cpu_model, cell.cfg, b)
+            o_card = mod.apply(card_model, cell.cfg,
+                               {k: (v.to(dev) if torch.is_tensor(v) else v)
+                                for k, v in b.items()})
+        for key in ("node_out", "graph_out"):
+            ok, worst = _gnn_close(o_card[key], o_cpu[key], GNN_TOL)
+            fwd[key] = worst
+            if not ok:
+                fail(f"phase 9c: {arch} {key} card vs CPU off by {worst}")
+        cpu, card, _ = _gnn_pair(steps, cell, batch, dev, 1)
+        rep = {"forward_max_abs": fwd,
+               "step": _gnn_step_check(f"9c {arch}", cpu, card,
+                                       steps.GNN_ADAMW.lr)}
+        print(f"phase 9: 9c {arch} smoke card vs cpu " + json.dumps(rep),
+              flush=True)
+        out[arch] = rep
+    return out
+
+
+def phase_9(dev, csr, launches_before) -> dict:
+    """GNN training (no kernel: JAX's GNNs aggregate with XLA scatters, the
+    port with ``index_add``/``scatter_reduce``)."""
+    from repro_torch.launch import steps
+
+    t0 = time.perf_counter()
+    out = {"9c": phase_9c(dev, steps), "9a": phase_9a(dev, csr, steps),
+           "9b": phase_9b(dev, steps)}
+    out["kernel_launches"] = launches_before()
+    if any(out["kernel_launches"].values()):
+        fail(f"phase 9 launched a port kernel: {out['kernel_launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
@@ -3018,6 +3569,15 @@ def main() -> int:
     # -- phase 8: LM training at full width ----------------------------------
     training = phase_8(dev)
 
+    # -- phase 9: GNN training ---------------------------------------------
+    counters = {"binned_pull": bp_mod.fused_binned_pull,
+                "msbfs_extend": mx_mod.msbfs_extend_blocks,
+                "block_spmm": bs_mod.block_spmm,
+                "flash_attention": fa_mod.flash_attention}
+    before = {k: f.launches for k, f in counters.items()}
+    gnn = phase_9(dev, csr, lambda: {k: f.launches - before[k]
+                                     for k, f in counters.items()})
+
     bp["shard"] = shard_times("binned_pull")
     mx["shard"] = shard_times("msbfs_extend")
     kernels = [
@@ -3085,6 +3645,15 @@ def main() -> int:
           f"{tr['optimizer_ms']:.1f} ms, peak {tr['peak_gb']:.2f} GB; "
           f"crash-resume bitwise over {training['8c']['steps_run']}; "
           f"phase 8 {training['seconds']:.1f} s")
+    g9 = gnn["9a"]
+    print(f"GNN train sampled PNA {g9['batch']['seeds']} seeds "
+          f"{g9['batch']['fanout']}: warm step {g9['warm_ms']:.2f} ms + "
+          f"sampling {g9['sample_ms']:.2f} ms, {g9['seeds_per_s']:.0f} "
+          f"seeds/s (bound {g9['bound_ms']:.2f} ms), peak "
+          f"{g9['peak_gb']:.2f} GB; molecule warm steps "
+          + ", ".join(f"{k} {v['warm_ms']:.2f} ms"
+                      for k, v in gnn["9b"].items())
+          + f"; phase 9 {gnn['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

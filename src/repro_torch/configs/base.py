@@ -2,7 +2,7 @@
 
 Each arch module registers an ``ArchSpec`` carrying its full published config,
 a reduced smoke config, its shape set, and documented skips. The port's
-registry holds the LM family only (``_ensure_loaded``); the GNN, recsys and
+registry holds the LM and GNN families (``_ensure_loaded``); the recsys and
 paper configs join it with their slices.
 """
 from __future__ import annotations
@@ -119,8 +119,12 @@ def _ensure_loaded():
     _LOADED = True
     from . import (  # noqa: F401
         deepseek_coder_33b,
+        equiformer_v2,
         gemma2_2b,
         llama4_maverick,
+        mace,
         minicpm_2b,
         olmoe_1b_7b,
+        pna,
+        schnet,
     )

@@ -28,6 +28,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def init_device(device) -> torch.device:
+    """``resolve_device``, and ``meta`` for shapes without storage (a
+    model's init builds any size there)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def map_tensors(fn, obj):
     """Apply ``fn`` to every tensor in a tree of dataclasses, tuples,
     lists, dicts and NamedTuples; other leaves pass through."""

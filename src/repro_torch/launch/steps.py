@@ -1,0 +1,257 @@
+"""Per-cell train steps of the GNN family (the GNN part of
+``repro.launch.steps``).
+
+``gnn_cell(arch_id, shape_name)`` makes JAX's per-shape config change
+(``_gnn_cell``): a ``full_graph`` cell reads raw node features (PNA: 40
+classes, 47 on ``ogb_products``; the geometric archs project them into
+their scalar channels and predict 8 outputs), a ``minibatch`` cell is a
+sampled fanout tree whose seeds carry the loss (PNA: ``d_feat`` 100, 47
+classes), a ``batched`` cell a disjoint union of small molecules read out
+per graph (``graph_out``). ``make_train_step`` is the cell's train step:
+the MSE of ``graph_out[:, 0]``, ``node_out[:seeds]`` or ``node_out``
+against the targets, its gradient, and AdamW (``lr=1e-3``,
+``weight_decay=0``, JAX's other defaults) in place. ``gnn_flops`` is
+JAX's analytic count of a forward's dense contractions.
+
+Left out: the mesh shardings and edge slabs of a cell, the dry-run's
+lowering and HLO analysis, and the LM, recsys and paper-engine cells
+(ROADMAP section 1, item 5). ``cell_batch`` makes a seeded batch of a
+cell's shapes, for tests and the smoke run (JAX's cells carry abstract
+shapes only).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs import base as cfgbase
+from ..graph.sampler import tree_edges
+from ..kernels.common import resolve_device
+from ..models.gnn import equiformer_v2 as eqv2_m
+from ..models.gnn import mace as mace_m
+from ..models.gnn import pna as pna_m
+from ..models.gnn import schnet as schnet_m
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+GNN_MODULES = {
+    "mace": mace_m,
+    "equiformer-v2": eqv2_m,
+    "pna": pna_m,
+    "schnet": schnet_m,
+}
+GNN_ADAMW = AdamWConfig(lr=1e-3, weight_decay=0.0)
+
+
+def gnn_flops(arch_id, cfg, n, e):
+    """Analytic useful FLOPs for one forward pass (JAX's ``_gnn_flops``:
+    documented approximations, 2 FLOPs per MAC). GNN message passing is
+    gather/scatter-bound, so these count only the dense contractions."""
+    d = cfg.d_hidden
+    if arch_id == "pna":
+        # per layer: 12 aggregated features of width d -> d (tower MLP) on
+        # nodes + per-edge message transform d->d
+        per = 2.0 * e * d * d + 2.0 * n * (12 * d) * d
+        return cfg.n_layers * per + 2.0 * n * cfg.d_feat * d
+    if arch_id == "schnet":
+        # interaction: edge filter (n_rbf->d->d) + node d->d mixes
+        per = 2.0 * e * (cfg.n_rbf * d + d * d) + 3 * 2.0 * n * d * d
+        return cfg.n_interactions * per
+    if arch_id == "mace":
+        lm = (cfg.l_max + 1) ** 2
+        # A-basis: edges contract rbf.Y.h (d.lm each); product basis:
+        # correlation-order Gaunt contractions on nodes (lm^2.d per order)
+        per = 2.0 * e * d * lm * (cfg.n_rbf + lm) + (
+            2.0 * n * d * lm * lm * cfg.correlation_order
+        ) + 2.0 * n * d * d * lm
+        return cfg.n_layers * per
+    if arch_id == "equiformer-v2":
+        lm = (cfg.l_max + 1) ** 2
+        m_width = 2 * cfg.m_max + 1
+        # eSCN SO(2) conv per edge: O(lm * m_width * d^2) after alignment,
+        # + attention scores/values per edge
+        per = 2.0 * e * (lm * m_width * d * d / max(cfg.l_max, 1) + 2 * d * d)
+        per += 2.0 * n * d * d * 4  # node FFN
+        return cfg.n_layers * per
+    raise ValueError(arch_id)
+
+
+@dataclasses.dataclass(frozen=True)
+class GnnCell:
+    arch_id: str
+    shape_name: str
+    kind: str  # full_graph | minibatch | batched
+    cfg: object
+    n_nodes: int
+    n_edges: int
+    seeds: Optional[int] = None  # minibatch: the loss reads these nodes
+    n_graphs: Optional[int] = None  # batched: graph_out rows
+    graph_size: Optional[tuple] = None  # batched: (nodes, edges) a graph
+    fanout: Optional[tuple] = None  # minibatch
+
+    @property
+    def geometric(self) -> bool:
+        return self.arch_id != "pna"
+
+    @property
+    def flops(self) -> float:
+        """A train step's model FLOPs: 3 x the forward's (JAX's cell)."""
+        return 3.0 * gnn_flops(self.arch_id, self.cfg, self.n_nodes,
+                               self.n_edges)
+
+
+def gnn_cell(arch_id: str, shape_name: str, smoke: bool = False,
+             dims: Optional[dict] = None) -> GnnCell:
+    """JAX's ``_gnn_cell`` config change for one (arch, shape) on one
+    device (no padding to a mesh). ``smoke`` starts from the smoke
+    config; ``dims`` overrides the shape's dimensions (a smaller cell of
+    the same kind)."""
+    spec = cfgbase.get(arch_id)
+    if spec.family != "gnn":
+        raise ValueError(f"{arch_id} is not a GNN arch")
+    shape = next(s for s in spec.shapes if s.name == shape_name)
+    d = {**shape.dims, **(dims or {})}
+    cfg = spec.smoke_config() if smoke else spec.full_config()
+    pna = arch_id == "pna"
+    if shape.kind == "full_graph":
+        if pna:
+            n_out = 47 if shape_name == "ogb_products" else 40
+            cfg = dataclasses.replace(cfg, d_feat=d["d_feat"], n_out=n_out)
+        else:
+            cfg = dataclasses.replace(cfg, d_feat=d["d_feat"], n_out=8)
+        return GnnCell(arch_id, shape_name, shape.kind, cfg, d["n_nodes"],
+                       d["n_edges"])
+    if shape.kind == "minibatch":
+        bn = d["batch_nodes"]
+        f1, f2 = d["fanout"]
+        cfg = (dataclasses.replace(cfg, d_feat=100, n_out=47) if pna
+               else dataclasses.replace(cfg, n_out=8))
+        return GnnCell(arch_id, shape_name, shape.kind, cfg,
+                       bn * (1 + f1 + f1 * f2), bn * (f1 + f1 * f2),
+                       seeds=bn, fanout=(f1, f2))
+    assert shape.kind == "batched"
+    bsz, npg, epg = d["batch"], d["n_nodes"], d["n_edges"]
+    cfg = (dataclasses.replace(cfg, d_feat=16, n_out=1) if pna
+           else dataclasses.replace(cfg, n_out=1))
+    return GnnCell(arch_id, shape_name, shape.kind, cfg, bsz * npg,
+                   bsz * epg, n_graphs=bsz, graph_size=(npg, epg))
+
+
+def init_model(cell: GnnCell, generator, device=None):
+    """The cell's model, seeded from ``generator``, with gradients on."""
+    model = GNN_MODULES[cell.arch_id].init(cell.cfg, generator, device)
+    return model.requires_grad_(True)
+
+
+def params_dict(model) -> dict:
+    """The parameters keyed by dotted name in JAX's tree order (keys
+    sorted at every level), the order AdamW's global norm adds them."""
+    named = dict(model.named_parameters())
+    return {k: named[k] for k in sorted(named, key=lambda k: k.split("."))}
+
+
+def loss_fn(cell: GnnCell, model, batch):
+    """MSE of the cell's prediction against ``batch["targets"]``."""
+    b = dict(batch)
+    targets = b.pop("targets")
+    if cell.n_graphs is not None:
+        b["n_graphs"] = cell.n_graphs
+    out = GNN_MODULES[cell.arch_id].apply(model, cell.cfg, b)
+    if cell.n_graphs is not None:
+        pred = out["graph_out"][:, 0]
+    elif cell.seeds is not None:
+        pred = out["node_out"][:cell.seeds]
+    else:
+        pred = out["node_out"]
+    return torch.mean(torch.square(pred - targets))
+
+
+def make_train_step(cell: GnnCell):
+    """``train_step(model, opt, batch) -> (model, opt, loss, grad_norm)``:
+    the loss and its gradient, AdamW on the parameters and moments in
+    place, then the gradients set to None."""
+
+    def train_step(model, opt, batch):
+        loss = loss_fn(cell, model, batch)
+        loss.backward()
+        params = params_dict(model)
+        _, opt, gnorm = adamw_update({k: p.grad for k, p in params.items()},
+                                     opt, params, GNN_ADAMW)
+        for p in params.values():
+            p.grad = None
+        return model, opt, loss.detach(), gnorm
+
+    return train_step
+
+
+def build(arch_id: str, shape_name: str, generator, device=None,
+          smoke: bool = False, dims: Optional[dict] = None):
+    """(cell, model, AdamW state, train_step) on ``device`` (``cuda``
+    unless the caller passes ``"cpu"``; raises without a GPU)."""
+    dev = resolve_device(device)
+    cell = gnn_cell(arch_id, shape_name, smoke, dims)
+    model = init_model(cell, generator, dev)
+    return cell, model, adamw_init(params_dict(model), GNN_ADAMW), \
+        make_train_step(cell)
+
+
+def _edges(rng, n: int, e: int):
+    """``e`` edges over ``n`` nodes with no self-loop: a ring through a
+    random order of the nodes first (every node has an in-edge), then
+    uniform ones."""
+    ring = min(n, e)
+    order = rng.permutation(n)[:ring]
+    src = [order, rng.integers(0, n, e - ring)]
+    dst = [np.roll(order, -1), None]
+    dst[1] = (src[1] + rng.integers(1, n, e - ring)) % n
+    return (np.concatenate(src).astype(np.int32),
+            np.concatenate(dst).astype(np.int32))
+
+
+def cell_batch(cell: GnnCell, seed: int = 0) -> dict:
+    """A seeded numpy batch of the cell's shapes. Edges have no self-loop
+    and reach every node (``batched``: within each molecule), as in
+    molecules and citation graphs; a ``minibatch`` cell's edges are its
+    fanout tree's (child -> parent, as ``graph.sampler`` lays them out).
+    Standard-normal node features and targets; for the geometric archs
+    positions ``2 * N(0, 1)`` and species below ``n_species``."""
+    rng = np.random.default_rng(seed)
+    n, e, cfg = cell.n_nodes, cell.n_edges, cell.cfg
+    if cell.kind == "batched":
+        npg, epg = cell.graph_size
+        parts = [_edges(rng, npg, epg) for _ in range(cell.n_graphs)]
+        off = np.repeat(np.arange(cell.n_graphs, dtype=np.int32) * npg, epg)
+        src = np.concatenate([p[0] for p in parts]) + off
+        dst = np.concatenate([p[1] for p in parts]) + off
+    elif cell.kind == "minibatch":
+        src, dst = (t.numpy() for t in tree_edges(cell.seeds, cell.fanout))
+    else:
+        src, dst = _edges(rng, n, e)
+    batch = {"edge_src": src, "edge_dst": dst}
+    if cfg.d_feat:
+        batch["node_feat"] = rng.standard_normal(
+            (n, cfg.d_feat)).astype(np.float32)
+    if cell.geometric:
+        batch["positions"] = (2.0 * rng.standard_normal((n, 3))).astype(
+            np.float32)
+        batch["species"] = rng.integers(0, cfg.n_species, n).astype(
+            np.int32)
+    if cell.n_graphs is not None:
+        batch["graph_ids"] = np.repeat(np.arange(cell.n_graphs),
+                                       cell.graph_size[0]).astype(np.int32)
+        batch["targets"] = rng.standard_normal(cell.n_graphs).astype(
+            np.float32)
+    else:
+        rows = cell.seeds if cell.seeds is not None else n
+        batch["targets"] = rng.standard_normal(
+            (rows, cfg.n_out)).astype(np.float32)
+    return batch
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A numpy batch as tensors on ``device``."""
+    dev = torch.device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}

@@ -1,2 +1,3 @@
 """Models of the port: ``transformer`` (the LM family's forward, the
-training loss and its gradient path, prefill and decode)."""
+training loss and its gradient path, prefill and decode) and ``gnn`` (the
+GNN family: SchNet, PNA, MACE, EquiformerV2 and their substrate)."""

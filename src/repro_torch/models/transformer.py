@@ -49,7 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..checkpoint.checkpoint import Stacked, snapshot_leaf
-from ..kernels.common import resolve_device, tensor_from_numpy
+from ..kernels.common import init_device, resolve_device, tensor_from_numpy
 from ..nn.attention import (
     Attention,
     AttnSettings,
@@ -208,19 +208,12 @@ class Transformer(nn.Module):
         return forward(self, self.cfg, tokens, positions, route)
 
 
-def _device(device) -> torch.device:
-    """``resolve_device``, and ``meta`` for shapes without storage."""
-    if device is not None and torch.device(device).type == "meta":
-        return torch.device("meta")
-    return resolve_device(device)
-
-
 def init(cfg: TransformerConfig, generator: Optional[torch.Generator],
          device=None) -> Transformer:
     """A model with seeded weights drawn from ``generator`` (on its own
     device) and placed on ``device`` (``cuda`` unless the caller passes
     ``"cpu"``; ``"meta"`` builds the shapes alone, with no generator)."""
-    dev = _device(device)
+    dev = init_device(device)
     if generator is None and dev.type != "meta":
         raise ValueError("init needs a torch.Generator for its weights")
     return Transformer(cfg, generator, dev)

@@ -78,6 +78,25 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   a train state of CUDA tensors (bfloat16 parameters, float32 moments)
   through ``CheckpointManager``: saved, overwritten, restored in place on
   the card, bitwise.
+- The GNN family: two train steps of ``launch/steps``' smoke cells (the
+  four archs on ``molecule``, PNA on a fanout tree, SchNet on a full
+  graph) on the card against the CPU from the same weights: the first
+  step's loss within rtol 1e-5, its gradient norm within 1e-3, each
+  leaf's AdamW moments within 1e-3 plus the larger of 1e-3 and four times
+  the CPU's own move under reordered edge lists of the leaf's largest
+  moment (the card adds its scatters with atomics, in another order;
+  PNA's std aggregator multiplies a rounding difference up to 500-fold,
+  and EquiformerV2's first SO(2) weights move by 5e-4 of their largest
+  when the CPU's edges are reordered), parameters within 1e-6 where the
+  gradient clears that bound and within 2 lr where it does not (a first
+  AdamW step moves a parameter by about lr * sign(g), so where the
+  gradient is rounding the steps may part); the second step from the
+  CPU's first-step state held the same way, its parameters within 0.1
+  lr; the card's own second step's loss within rtol 1e-4; the
+  sampler on the card equals the CPU's on the same raw slots, bitwise;
+  segment max/min and their gradient bitwise the CPU's, sums within
+  1e-5 with atomics and bitwise under
+  ``torch.use_deterministic_algorithms``.
 """
 import dataclasses
 
@@ -958,3 +977,188 @@ def test_checkpoint_round_trip_of_cuda_tensors(cuda_device, tmp_path):
     for a, b in zip(_flat(got["params"]) + _flat(got["opt"][1:]),
                     _flat(saved["params"]) + _flat(saved["opt"][1:])):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ GNN family ----
+
+GNN_PERMUTATIONS = (1, 2, 3)  # seeds of the CPU's reordered edge lists
+GNN_SPREAD_RATIO = 4.0
+
+
+def gnn_steps(arch, shape, device, dims=None):
+    """A smoke cell's GNN train step from given states, each state a
+    snapshot ``(loss, gnorm, params, mu, nu, step)`` on the CPU: the CPU's
+    first and second steps, the card's first step and its own second, the
+    card's second step from the CPU's first-step state, and the CPU's
+    first and second steps again on the edge list reordered (the same
+    function, its sums in other orders) once for each of
+    ``GNN_PERMUTATIONS``."""
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import common as gcom
+    from repro_torch.optim.adamw import AdamWState, adamw_init
+
+    cell = steps.gnn_cell(arch, shape, smoke=True, dims=dims)
+    batch = steps.batch_to(steps.cell_batch(cell, seed=3), "cpu")
+    init = steps.init_model(cell, torch.Generator().manual_seed(0), "cpu")
+    tree = gcom.params_to_numpy(init)
+    opt = adamw_init(steps.params_dict(init), steps.GNN_ADAMW)
+    start = (None, None, dict(init.named_parameters()), opt.mu, opt.nu,
+             opt.step)
+    step = steps.make_train_step(cell)
+
+    def run(state, b, where):
+        model = steps.GNN_MODULES[arch].params_from_jax(
+            cell.cfg, tree, where).requires_grad_(True)
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(state[2][k])
+        opt = AdamWState(step=state[5].clone(),
+                         mu={k: v.to(where, copy=True)
+                             for k, v in state[3].items()},
+                         nu={k: v.to(where, copy=True)
+                             for k, v in state[4].items()})
+        _, opt, loss, gnorm = step(model, opt, steps.batch_to(b, where))
+
+        def host(d):
+            return {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+
+        return (loss.item(), gnorm.item(),
+                host(dict(model.named_parameters())), host(opt.mu),
+                host(opt.nu), opt.step)
+
+    cpu1 = run(start, batch, "cpu")
+    card1 = run(start, batch, device)
+    out = {"cpu": [cpu1, run(cpu1, batch, "cpu")],
+           "card": [card1, run(card1, batch, device)],
+           "resumed": run(cpu1, batch, device), "reordered": []}
+    n_edges = batch["edge_src"].shape[0]
+    for seed in GNN_PERMUTATIONS:
+        perm = torch.randperm(n_edges,
+                              generator=torch.Generator().manual_seed(seed))
+        b = dict(batch, edge_src=batch["edge_src"][perm],
+                 edge_dst=batch["edge_dst"][perm])
+        out["reordered"].append([run(start, b, "cpu"), run(cpu1, b, "cpu")])
+    return out
+
+
+def gnn_spread(cpu, reordered):
+    """Each leaf's moments' worst move under the CPU's reordered sums, as a
+    share of the leaf's largest: {leaf: [mu share, nu share]}."""
+    out = {}
+    for k in cpu[3]:
+        out[k] = []
+        for j in (3, 4):
+            e = cpu[j][k]
+            top = max(float(e.abs().max()), 1e-30)
+            out[k].append(max(float((r[j][k] - e).abs().max()) / top
+                              for r in reordered))
+    return out
+
+
+def hold_gnn_step(cpu, card, first, spread):
+    """Card step against CPU step from the same state: loss within rtol
+    1e-5, gradient norm within 1e-3; each leaf's AdamW moments within 1e-3
+    plus a share of the leaf's largest, 1e-3 or ``GNN_SPREAD_RATIO`` times
+    the CPU's own move under reordered sums (``spread``), the larger;
+    after a first step the parameters within 1e-6 where the gradient
+    clears twice that bound and within 2 lr where it does not (a first
+    step moves a parameter by about lr * sign(g)), after a later one
+    within 0.1 lr everywhere."""
+    lr = 1e-3
+    (l0, g0, p0, m0, v0, _), (l1, g1, p1, m1, v1, _) = cpu, card
+    assert abs(l1 - l0) <= 1e-5 * abs(l0) and np.isfinite(l1)
+    assert abs(g1 - g0) <= 1e-3 * abs(g0)
+    for k in p0:
+        share = [max(1e-3, GNN_SPREAD_RATIO * x) for x in spread[k]]
+        for j, (e, g) in enumerate(((m0[k], m1[k]), (v0[k], v1[k]))):
+            lim = 1e-3 * e.abs() + share[j] * e.abs().max()
+            assert ((g - e).abs() <= lim).all(), (k, j, spread[k])
+        d = (p1[k] - p0[k]).abs()
+        if not first:
+            assert d.max() <= 0.1 * lr, k
+            continue
+        m = m0[k].abs()
+        signal = m > 2 * (1e-3 * m + share[0] * m.max())
+        assert not signal.any() or d[signal].max() <= 1e-6, k
+        assert d.max() <= 2 * lr + 1e-6, k
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("schnet", "molecule"), ("pna", "molecule"), ("mace", "molecule"),
+    ("equiformer-v2", "molecule"), ("pna", "minibatch_lg"),
+    ("schnet", "full_graph_sm")])
+def test_gnn_train_steps_on_card_match_cpu(arch, shape, cuda_device):
+    dims = {"minibatch_lg": dict(batch_nodes=32, fanout=(5, 3)),
+            "full_graph_sm": dict(n_nodes=300, n_edges=1200),
+            "molecule": dict(batch=8)}[shape]
+    run = gnn_steps(arch, shape, cuda_device, dims)
+    cpu, card = run["cpu"], run["card"]
+    hold_gnn_step(cpu[0], card[0], True,
+                  gnn_spread(cpu[0], [r[0] for r in run["reordered"]]))
+    # the second step from the CPU's first-step state: AdamW's moments and
+    # bias corrections at step 2 on the card
+    hold_gnn_step(cpu[1], run["resumed"], False,
+                  gnn_spread(cpu[1], [r[1] for r in run["reordered"]]))
+    # the card's own second step starts from parameters that may part by
+    # 2 lr where the first gradient was rounding; the loss barely feels
+    # those
+    l0, l1 = cpu[1][0], card[1][0]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0) and np.isfinite(l1)
+
+
+def test_sampler_on_card_matches_cpu(cuda_device):
+    from repro_torch.graph.csr import ell_from_csr
+    from repro_torch.graph.sampler import draw_slots, sample_subgraph
+
+    csr = powerlaw(2000, 6.0, seed=3)
+    g_cpu = ell_from_csr(csr)
+    g = to_device(g_cpu, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    raw = [draw_slots(gen, 64, 10), draw_slots(gen, 640, 5)]
+    assert raw[0].device.type == "cuda" and raw[0].dtype == torch.int32
+    assert int(raw[1].min()) >= 0 and int(raw[1].max()) < 1 << 30
+    seeds = np.arange(0, 2000, 2000 // 64)[:64].astype(np.int32)
+    got = sample_subgraph(g, seeds, (10, 5), raw_slots=raw)
+    exp = sample_subgraph(g_cpu, seeds, (10, 5),
+                          raw_slots=[r.cpu() for r in raw], device="cpu")
+    for name in ("nodes", "edge_src", "edge_dst"):
+        assert getattr(got, name).device.type == "cuda"
+        assert torch.equal(getattr(got, name).cpu(), getattr(exp, name))
+    sub = sample_subgraph(g, seeds, (10, 5), gen)
+    assert sub.nodes.shape == (64 * (1 + 10 + 50),)
+    with pytest.raises(ValueError, match="lies on cuda"):
+        sample_subgraph(g, seeds, (2,), gen, device="cpu")
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max", "min"])
+def test_gnn_reductions_on_card(op, cuda_device):
+    """Extrema and their gradient on the card are the CPU's bits (a max is
+    order-free; the tie counts are integers); sums under
+    ``torch.use_deterministic_algorithms`` too, and within 1e-5 with
+    atomics."""
+    from repro_torch.models.gnn import common as gcom
+
+    rng = np.random.default_rng(0)
+    dst = torch.from_numpy(rng.integers(0, 900, 20000).astype(np.int32))
+    msg = torch.from_numpy(np.round(rng.standard_normal((20000, 16)), 1)
+                           .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1000, 16)).astype(np.float32))
+
+    def run(device):
+        x = msg.to(device, copy=True).requires_grad_(True)
+        out = gcom.aggregate(x, dst.to(device), 1000, op)
+        (out * w.to(device)).sum().backward()
+        return out.detach().cpu(), x.grad.cpu()
+
+    exp = run("cpu")
+    got = run(cuda_device)
+    if op in ("max", "min"):
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    else:
+        torch.testing.assert_close(got[0], exp[0], rtol=1e-5, atol=1e-5)
+        torch.use_deterministic_algorithms(True)
+        try:
+            det = run(cuda_device)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert torch.equal(det[0], exp[0]) and torch.equal(det[1], exp[1])

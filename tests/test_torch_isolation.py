@@ -18,6 +18,11 @@
   scan; ``transformer.init`` (and the cache and carry-over entry points)
   with no device raise without a GPU; on the CPU the kernel route's
   ``mha`` runs its plain version and leaves the launch counter alone.
+- The GNN family (``graph/sampler.py``, ``models/gnn/``, its configs,
+  ``launch/steps.py``) is in the scan, and importing it leaves ``jax``
+  unloaded; every model's ``init`` and ``params_from_jax``, the sampler
+  and ``steps.build`` raise without a GPU unless ``device="cpu"``, and the
+  sampler refuses a graph on another device than the one asked for.
 - The training path (``optim/``, ``data/``, ``checkpoint/``,
   ``runtime/fault_tolerance.py``, ``launch/train.py``) is in the scan,
   which also refuses ``ml_dtypes`` (the card's machine has none), and
@@ -99,6 +104,12 @@ TRAIN_MODULES = ("optim/__init__.py", "optim/schedules.py", "optim/adamw.py",
                  "data/__init__.py", "data/pipeline.py",
                  "checkpoint/__init__.py", "checkpoint/checkpoint.py",
                  "runtime/fault_tolerance.py", "launch/train.py")
+GNN_MODULES = ("graph/sampler.py", "models/gnn/__init__.py",
+               "models/gnn/common.py", "models/gnn/schnet.py",
+               "models/gnn/pna.py", "models/gnn/irreps.py",
+               "models/gnn/mace.py", "models/gnn/equiformer_v2.py",
+               "configs/schnet.py", "configs/pna.py", "configs/mace.py",
+               "configs/equiformer_v2.py", "launch/steps.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -109,6 +120,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert set(MUTATION_MODULES) <= scanned
     assert set(LM_MODULES) <= scanned
     assert set(TRAIN_MODULES) <= scanned
+    assert set(GNN_MODULES) <= scanned
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files for mod in absolute_imports(p)
@@ -421,3 +433,76 @@ def test_trained_model_serves_without_a_graph():
         out, caches = transformer.decode(model, cfg, caches, toks[:, :1], 128)
         assert out.grad_fn is None and not out.requires_grad
     assert model.embed.table.grad is None
+
+
+def test_gnn_import_leaves_jax_unloaded():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.launch.steps, repro_torch.graph.sampler, "
+            "repro_torch.models.gnn.irreps, repro_torch.configs.base as b; "
+            "b.all_archs(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "raise SystemExit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("arch", ["equiformer-v2", "mace", "pna", "schnet"])
+def test_gnn_entry_points_raise_without_cuda_unless_cpu(arch, no_cuda):
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import common
+
+    mod = steps.GNN_MODULES[arch]
+    cfg = base.get(arch).smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.init(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.init(cfg, gen, "cuda")
+    model = mod.init(cfg, gen, "cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    tree = common.params_to_numpy(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.params_from_jax(cfg, tree)
+    back = mod.params_from_jax(cfg, tree, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 back.parameters()))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        steps.build(arch, "molecule", gen, smoke=True)
+    cell, model, opt, step = steps.build(arch, "molecule", gen, "cpu",
+                                         smoke=True, dims=dict(batch=2))
+    _, opt, loss, gnorm = step(model, opt, steps.batch_to(
+        steps.cell_batch(cell), "cpu"))
+    assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+    # the full width costs nothing on the meta device
+    full = mod.init(base.get(arch).full_config(), None, "meta")
+    assert all(p.device.type == "meta" for p in full.parameters())
+    with pytest.raises(ValueError, match="Generator"):
+        mod.init(cfg, None, "cpu")
+
+
+def test_sampler_follows_the_device_rule(no_cuda):
+    from repro_torch.graph.csr import ell_from_csr
+    from repro_torch.graph.sampler import sample_subgraph
+
+    g = ell_from_csr(erdos_renyi(64, 3.0, seed=0))
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sample_subgraph(g, [0, 5], (3, 2), gen)
+    sub = sample_subgraph(g, [0, 5], (3, 2), gen, device="cpu")
+    assert sub.nodes.device.type == "cpu" and sub.nodes.shape == (2 + 6 + 12,)
+    with pytest.raises(ValueError, match="Generator or raw_slots"):
+        sample_subgraph(g, [0, 5], (3, 2), device="cpu")
+
+
+def test_sampler_refuses_a_graph_on_another_device():
+    from repro_torch.graph.csr import ell_from_csr
+    from repro_torch.graph.sampler import sample_subgraph
+    from repro_torch.kernels.common import map_tensors
+
+    g = map_tensors(lambda t: t.to("meta"), ell_from_csr(
+        erdos_renyi(64, 3.0, seed=0)))
+    with pytest.raises(ValueError, match="lies on meta"):
+        sample_subgraph(g, [0], (2,), torch.Generator(), device="cpu")

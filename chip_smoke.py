@@ -204,7 +204,34 @@ Phases (any failure exits non-zero and prints no result):
    at its full config on ``molecule`` (128 graphs of 30 nodes and 64
    edges) and PNA on ``full_graph_sm``, the same timings, and for SchNet,
    MACE and EquiformerV2 ``graph_out`` under a random rotation within
-   2e-3.
+   2e-3;
+10. recsys and the mesh substrate's compression and pipeline
+   (``launch/steps.py``'s recsys cells, ``optim/compression.py``,
+   ``parallel/pipeline.py``; no kernel: JAX's EmbeddingBag is ``take``
+   and ``segment_sum``, its products plain ``@``, and all four kernels'
+   counters must not move). (10c) DCN-v2's smoke config in float32, card
+   against CPU from the same weights, under
+   ``torch.use_deterministic_algorithms``: logits within 1e-5 (relative
+   plus a share of the largest), one train step's loss within 1e-5, each
+   leaf's AdamW moments within 1e-3 plus 1e-3 of the leaf's largest,
+   ``embedding_bag`` sum and mean within 1e-6, retrieval top-k indices
+   equal where the scores are distinct; (10a) the full config at Criteo
+   width (35,900,000 table rows, 2.30 GB; 576,998,850 parameters, seeded
+   on the card): the B 512 forward and one B 2,048 train step against the
+   CPU from the same weights (a 2.30 GB copy; the step deterministic),
+   then ``train_batch`` (B 65,536 from ``RecsysStream``: a cold, three
+   warm and one profiled step; step ms, examples/s, AdamW ms by CUDA
+   events, peak memory, device idle share), ``serve_p99`` (B 512, host
+   batch to host logits, p50 and p99 over 60 warm calls), ``serve_bulk``
+   (B 262,144, ms and rows/s) and ``retrieval_cand`` (1 query against
+   1,000,000 seeded candidates of width 64, top 100 against a float64
+   sort), each beside its bound (``dcn_flops`` at 67 TFLOP/s float32; the
+   candidates' bytes); (10d) four gloo ranks sharing the card (spawned as
+   in phase 7): ``pipeline_apply`` over 4 stages of ``tanh(x @ W)``, 8
+   microbatches of ``[512, 2304]``, against the serial oracle within
+   1e-6, and ``compressed_psum`` of one MiniCPM-2B layer's gradient
+   shapes on the card against the same ranks' sum of CPU tensors,
+   bitwise, with ms and the wire's and staged bytes.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -217,13 +244,15 @@ carries a ``served`` object (phase 6b's launches, and ``mha`` at the
 served shape beside SDPA and its bound); ``binned_pull`` and
 ``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), phase 8's
-``phase 8:`` and phase 9's ``phase 9:`` JSON lines, the card's name
+``phase 8:``, phase 9's ``phase 9:`` and phase 10's ``phase 10:`` JSON
+lines, the card's name
 and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import bisect
+import copy
 import dataclasses
 import gc
 import inspect
@@ -2336,15 +2365,18 @@ def _gnn_close(got, exp, tol):
     return bool((diff <= lim).all()), float(diff.max())
 
 
-def _gnn_step_check(what, cpu, card, lr, tol=GNN_GRAD_TOL, leaves=5):
+def _gnn_step_check(what, cpu, card, lr, tol=GNN_GRAD_TOL, leaves=5,
+                    where="cpu"):
     """Card step against CPU step, each ``(loss, gnorm, params, mu, nu)``:
     the loss at ``GNN_TOL``, the gradient norm at ``tol``'s rtol, each
     leaf's AdamW moments at ``tol`` (rtol plus a share of that leaf's own
     largest moment), the parameters within ``GNN_PARAM_ABS`` where the
     gradient clears its bound and within 2 lr elsewhere. Reports each
     leaf's worst difference as a share of its own largest moment (the
-    ``leaves`` worst leaves; every leaf when None). Fails with every
-    number gathered."""
+    ``leaves`` worst leaves; every leaf when None). The comparisons run
+    on ``where`` (the card for a full-width model: its float64 passes
+    over 577M parameters take the CPU seconds). Fails with every number
+    gathered."""
     out, bad = {}, []
     for i, name, t in ((0, "loss", GNN_TOL), (1, "grad_norm", tol)):
         ok, _ = _gnn_close(card[i], cpu[i], (t[0], 0.0))
@@ -2357,8 +2389,8 @@ def _gnn_step_check(what, cpu, card, lr, tol=GNN_GRAD_TOL, leaves=5):
     for k, p in cpu[2].items():
         shares[k] = []
         for j, m in enumerate((3, 4)):
-            e = cpu[m][k].double()
-            d = (card[m][k].cpu().double() - e).abs()
+            e = cpu[m][k].to(where).double()
+            d = (card[m][k].to(where).double() - e).abs()
             scale = float(e.abs().max())
             shares[k].append(float(d.max()) / max(scale, 1e-30))
             if (d > tol[0] * e.abs() + tol[1] * scale).any():
@@ -2368,9 +2400,9 @@ def _gnn_step_check(what, cpu, card, lr, tol=GNN_GRAD_TOL, leaves=5):
         # (clipped) gradient, read from the CPU's first moment, is within
         # twice its bound of 0 its sign is rounding, and the two steps may
         # part by up to 2 lr; elsewhere they agree within GNN_PARAM_ABS
-        g = cpu[3][k].double().abs()
+        g = cpu[3][k].to(where).double().abs()
         signal = g > 2 * (tol[0] * g + tol[1] * float(g.max()))
-        d = (card[2][k].cpu() - p).abs()
+        d = (card[2][k].to(where) - p.to(where)).abs()
         worst_p = max(worst_p, float(d[signal].max()) if signal.any() else 0)
         noise += int((~signal).sum())
         n += d.numel()
@@ -2383,7 +2415,7 @@ def _gnn_step_check(what, cpu, card, lr, tol=GNN_GRAD_TOL, leaves=5):
                leaf_moment_share=dict(ranked[:leaves] if leaves else ranked),
                params_in_gradient_noise=noise, params=n, tol=tol)
     if bad:
-        fail(f"phase 9: {what}: {bad[:8]}: {json.dumps(out)}")
+        fail(f"phase {what}: {bad[:8]}: {json.dumps(out)}")
     return out
 
 
@@ -2517,7 +2549,7 @@ def gnn_train_timed(step, model, opt, batches, label) -> dict:
         rec.update(loss=loss.item(), grad_norm=gnorm.item(),
                    prep_ms=prep_ms)
         if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
-            fail(f"phase 9: {label} step {i} not finite: {rec}")
+            fail(f"phase {label} step {i} not finite: {rec}")
         recs.append(rec)
     warm_ms = float(np.median([r["ms"] for r in recs[1:GNN_WARM + 1]]))
     # the profiler slows the host, so its step idles more than a warm one:
@@ -2525,7 +2557,7 @@ def gnn_train_timed(step, model, opt, batches, label) -> dict:
     # negative share says the two steps' device times disagree)
     prof["warm_idle_share"] = 1 - prof["device_busy_ms"] / warm_ms
     if prof["warm_idle_share"] < 0:
-        print(f"phase 9: {label}: the profiled step's device time "
+        print(f"phase {label}: the profiled step's device time "
               f"{prof['device_busy_ms']:.3f} ms exceeds the warm step's "
               f"{warm_ms:.3f} ms: its warm idle share is no share",
               flush=True)
@@ -2814,6 +2846,545 @@ def phase_9(dev, csr, launches_before) -> dict:
         fail(f"phase 9 launched a port kernel: {out['kernel_launches']}")
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+RECSYS_ARCH = "dcn-v2"
+RECSYS_SMOKE_B = 512  # 10c: the smoke config's batch, card against CPU
+RECSYS_CHECK_B = 512  # 10a: the full-width forward, card against CPU
+RECSYS_CHECK_TRAIN_B = 2048  # 10a: one full-width train step, card vs CPU
+RECSYS_SERVE_CALLS = 60  # serve_p99: warm calls, host batch to host logits
+RECSYS_BULK_CALLS = 3  # serve_bulk: warm calls
+RECSYS_RETRIEVAL_CALLS = 20
+# card against CPU (float32, TF32 off): logits and the loss at rtol plus a
+# share of the largest magnitude; the gradient norm at GNN_GRAD_TOL's rtol,
+# AdamW's moments leaf by leaf at GNN_GRAD_TOL (rtol plus a share of the
+# leaf's largest moment); embedding bags within RECSYS_BAG_TOL
+RECSYS_TOL = (1e-5, 1e-5)
+RECSYS_BAG_TOL = 1e-6
+# 10a's full-width step runs in float64 on the card and the CPU, held at
+# 1e-6 per leaf: at B 2,048 the float32 forwards of the card and the CPU
+# put a few of the 5.2M MLP pre-activations on opposite sides of 0 (their
+# products add in other orders), and each such ReLU kink sends one
+# example's whole gradient another way: up to 3% of the table's largest
+# first moment (measured on an H100). In float64 the two sides agree to
+# about 1e-16, so a kink between them is some 1e-9 as likely; AdamW keeps
+# its moments in float32
+RECSYS_F64_TOL = (1e-6, 1e-6)
+PIPE_MICRO = (8, 512, 2304)  # 10d: M microbatches of [512, 2304], S = RANKS
+PIPE_TOL = 1e-6
+PHASE10_TIMEOUT_S = 300
+
+
+def _distinct_equal(idx, ref_vals, ref_idx, gap=1e-5) -> bool:
+    """Top-k indices equal to the reference's wherever a reference score
+    stands more than ``gap`` from its neighbours (ties may swap)."""
+    d = torch.diff(ref_vals.double().cpu(), dim=1).abs()
+    inf = torch.full_like(d[:, :1], np.inf)
+    distinct = torch.minimum(torch.cat([inf, d], dim=1),
+                             torch.cat([d, inf], dim=1)) > gap
+    return bool(torch.equal(idx.cpu()[distinct], ref_idx.cpu()[distinct]))
+
+
+def _live_snapshot(model, opt, loss, gnorm):
+    """``_gnn_snapshot`` without copies (the model and state are not
+    used again): the card's leaves stay on the card until the check."""
+    return (loss.item(), gnorm.item(),
+            {k: p.detach() for k, p in model.named_parameters()},
+            opt.mu, opt.nu)
+
+
+def _recsys_step_pair(steps, cell, cpu_model, card_model, card_off, batch,
+                      dev, snapshot=_gnn_snapshot):
+    """One train step from the same weights on the CPU and on the card
+    (``recsys_step``, AdamW from zero moments): the two snapshots
+    ``(loss, gnorm, params, mu, nu)``."""
+    from repro_torch.models import dcn_v2 as dcn
+    from repro_torch.optim.adamw import adamw_init
+
+    snaps = []
+    for model, off, where in ((cpu_model, dcn.field_offsets(cell.cfg, "cpu"),
+                               "cpu"), (card_model, card_off, dev)):
+        model.requires_grad_(True)
+        opt = adamw_init(steps.params_dict(model), steps.RECSYS_ADAMW)
+        _, opt, loss, gnorm = steps.recsys_step(cell, off)(
+            model, opt, steps.batch_to(batch, where))
+        snaps.append(snapshot(model, opt, loss, gnorm))
+        del opt
+    return snaps
+
+
+def phase_10c(dev, steps) -> dict:
+    """The smoke config, card against CPU from the same weights, under
+    ``torch.use_deterministic_algorithms``: logits, one train step,
+    ``embedding_bag`` sum and mean, retrieval top-k."""
+    from repro_torch.models import dcn_v2 as dcn
+    from repro_torch.models.gnn.common import params_to_numpy
+    from repro_torch.nn.embedding_bag import embedding_bag
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        cell = steps.recsys_cell(RECSYS_ARCH, "train_batch", smoke=True,
+                                 dims=dict(batch=RECSYS_SMOKE_B))
+        cpu_model, cpu_off = dcn.init(cell.cfg,
+                                      torch.Generator().manual_seed(1), "cpu")
+        card_model, card_off = dcn.params_from_jax(
+            params_to_numpy(cpu_model), cell.cfg, dev)
+        batch = steps.recsys_batch(cell, seed=7)
+        with torch.no_grad():
+            exp = dcn.forward(cpu_model, cell.cfg,
+                              steps.batch_to(batch, "cpu"), cpu_off)
+            got = dcn.forward(card_model, cell.cfg,
+                              steps.batch_to(batch, dev), card_off)
+        ok, logit_err = _gnn_close(got, exp, RECSYS_TOL)
+        if not ok:
+            fail(f"phase 10c: smoke logits card vs CPU off by {logit_err}")
+        cpu, card = _recsys_step_pair(steps, cell, cpu_model, card_model,
+                                      card_off, batch, dev)
+        step = _gnn_step_check("10c dcn-v2 smoke", cpu, card,
+                               steps.RECSYS_ADAMW.lr)
+        rng = np.random.default_rng(8)
+        nnz, n_bags = 20000, 1000
+        fids = torch.from_numpy(rng.integers(0, cell.cfg.n_sparse, nnz)
+                                .astype(np.int32))
+        ids = torch.from_numpy(rng.integers(0, 97, nnz).astype(np.int32))
+        bags = torch.from_numpy(np.sort(rng.integers(0, n_bags, nnz))
+                                .astype(np.int32))
+        bag_err = {}
+        with torch.no_grad():
+            for mode in ("sum", "mean"):
+                e = embedding_bag(cpu_model.embed, cpu_off, ids, fids, bags,
+                                  n_bags, mode)
+                g = embedding_bag(card_model.embed, card_off, ids.to(dev),
+                                  fids.to(dev), bags.to(dev), n_bags, mode)
+                bag_err[mode] = float((g.cpu() - e).abs().max())
+                if not bag_err[mode] <= RECSYS_BAG_TOL:
+                    fail(f"phase 10c: embedding_bag {mode} card vs CPU off "
+                         f"by {bag_err[mode]}")
+        rcell = steps.recsys_cell(RECSYS_ARCH, "retrieval_cand", smoke=True,
+                                  dims=dict(batch=4, n_candidates=100_000))
+        cand = steps.retrieval_candidates(rcell,
+                                          torch.Generator().manual_seed(9))
+        rb = steps.recsys_batch(rcell, seed=9)
+        v0, i0 = steps.recsys_step(rcell, cpu_off)(
+            cpu_model, steps.batch_to(rb, "cpu"), cand)
+        v1, i1 = steps.recsys_step(rcell, card_off)(
+            card_model, steps.batch_to(rb, dev), cand.to(dev))
+        if not _distinct_equal(i1, v0, i0):
+            fail("phase 10c: retrieval top-k indices differ from the CPU's")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rep = {"logits_max_abs": logit_err, "step": step,
+           "embedding_bag_max_abs": bag_err,
+           "retrieval_top_k_equal": True,
+           "retrieval_scores_max_abs": float((v1.cpu() - v0).abs().max())}
+    print("phase 10: 10c dcn-v2 smoke card vs cpu " + json.dumps(rep),
+          flush=True)
+    return rep
+
+
+def _relu_sign_flips(dcn, steps, cfg, runs, batch) -> list:
+    """For each MLP layer, the pre-activations whose sign differs between
+    the float32 forwards of ``runs`` (``(model, offsets, device)``, the
+    CPU's and the card's) on ``batch``: each is a ReLU kink that sends one
+    example's gradient another way."""
+    signs = []
+    for model, off, where in runs:
+        b = steps.batch_to(batch, where)
+        with torch.no_grad():
+            x0 = dcn.features(model, cfg, b, off)
+            x = x0
+            for i in range(cfg.n_cross_layers):
+                p = model.cross[f"w_{i}"]
+                x = x0 * (x @ p.kernel + p.bias) + x
+            s = []
+            for i in range(len(cfg.mlp)):
+                z = x @ model.mlp[f"w_{i}"].kernel
+                s.append((z > 0).cpu())
+                x = torch.relu(z)
+        signs.append(s)
+    return [int((a != b).sum()) for a, b in zip(*signs)]
+
+
+def recsys_train_bytes(cfg, n_params: int, table_rows: int) -> float:
+    """Bytes a train step moves at least beyond the products, float32:
+    the table's dense gradient written (zeros, then the adds), and AdamW
+    reading the gradient and reading and writing the parameters and both
+    moments, over every parameter."""
+    return 4.0 * (table_rows * cfg.embed_dim + 7 * n_params)
+
+
+def phase_10a(dev, steps) -> dict:
+    """The full config at Criteo width (35.9M rows, seeded on the card):
+    the B 512 forward and one B 2,048 train step against the CPU from the
+    same weights, then ``train_batch``, ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` timed beside their bounds."""
+    from repro_torch.models import dcn_v2 as dcn
+    from repro_torch.models.gnn.common import params_to_numpy
+
+    t_phase = time.perf_counter()
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell, model, opt, step = steps.build(
+        RECSYS_ARCH, "train_batch", torch.Generator(device=dev).manual_seed(0),
+        dev)
+    del opt  # a fresh state after the check step below
+    cfg = cell.cfg
+    off = dcn.field_offsets(cfg, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    rows = int(sum(cfg.field_vocabs))
+    out["params"] = n_params
+    out["table_rows"] = rows
+    out["build_s"] = time.perf_counter() - t_phase
+
+    # -- the full width against the CPU from the same weights ---------------
+    t0 = time.perf_counter()
+    cpu_model, cpu_off = dcn.params_from_jax(params_to_numpy(model), cfg,
+                                             "cpu")
+    fcell = steps.recsys_cell(RECSYS_ARCH, "serve_p99",
+                              dims=dict(batch=RECSYS_CHECK_B))
+    fb = steps.recsys_batch(fcell, seed=11)
+    with torch.no_grad():
+        exp = dcn.forward(cpu_model, cfg, steps.batch_to(fb, "cpu"), cpu_off)
+        got = dcn.forward(model, cfg, steps.batch_to(fb, dev), off)
+    ok, fwd_err = _gnn_close(got, exp, RECSYS_TOL)
+    if not ok or not bool(torch.isfinite(got).all()):
+        fail(f"phase 10a: full-width logits card vs CPU off by {fwd_err}")
+    tcell = steps.recsys_cell(RECSYS_ARCH, "train_batch",
+                              dims=dict(batch=RECSYS_CHECK_TRAIN_B))
+    tb = steps.recsys_batch(tcell, seed=12)
+    flips = _relu_sign_flips(dcn, steps, cfg, ((cpu_model, cpu_off, "cpu"),
+                                               (model, off, dev)), tb)
+    # the step in float64 on both (see RECSYS_F64_TOL)
+    cpu64 = cpu_model.double()
+    card64 = copy.deepcopy(model).double()
+    del cpu_model
+    torch.use_deterministic_algorithms(True)
+    try:
+        cpu, card = _recsys_step_pair(steps, tcell, cpu64, card64, off, tb,
+                                      dev, snapshot=_live_snapshot)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del cpu64, card64
+    out["check"] = {
+        "forward_batch": RECSYS_CHECK_B, "logits_max_abs": fwd_err,
+        "train_batch": RECSYS_CHECK_TRAIN_B,
+        "float32_relu_sign_flips": flips,
+        "float64_step": _gnn_step_check("10a dcn-v2 full width float64",
+                                        cpu, card, steps.RECSYS_ADAMW.lr,
+                                        tol=RECSYS_F64_TOL, where=dev),
+        "seconds": time.perf_counter() - t0}
+    del cpu, card
+    gc.collect()
+    opt = steps.adamw_init(steps.params_dict(model), steps.RECSYS_ADAMW)
+    torch.cuda.empty_cache()
+
+    # -- train_batch ---------------------------------------------------------
+    B = cell.batch
+    opt_ev: list = []
+    adamw = steps.adamw_update
+
+    def timed_adamw(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        r = adamw(*a, **kw)
+        ev[1].record()
+        opt_ev.append(ev)
+        return r
+
+    host = [steps.recsys_batch(cell, step=i) for i in range(GNN_WARM + 2)]
+
+    def batches(i):
+        t = time.perf_counter()
+        b = steps.batch_to(host[i], dev)
+        torch.cuda.synchronize()
+        return b, (time.perf_counter() - t) * 1e3
+
+    steps.adamw_update = timed_adamw
+    try:
+        run = gnn_train_timed(step, model, opt, batches, "10a train_batch")
+    finally:
+        steps.adamw_update = adamw
+    torch.cuda.synchronize()
+    adamw_ms = [a.elapsed_time(b) for a, b in opt_ev]
+    ops_ms = cell.flops / F32_OPS_PER_S * 1e3
+    byte_ms = recsys_train_bytes(cfg, n_params, rows) / HBM_BYTES_PER_S * 1e3
+    out["train_batch"] = {
+        "batch": B, **{k: v for k, v in run.items() if k != "steps"},
+        "losses": [r["loss"] for r in run["steps"]],
+        "h2d_ms": [r["prep_ms"] for r in run["steps"]],
+        "examples_per_s": B / run["warm_ms"] * 1e3,
+        "adamw_ms": float(np.median(adamw_ms[1:GNN_WARM + 1])),
+        "adamw_ms_steps": adamw_ms,
+        "bound_ms": max(ops_ms, byte_ms),
+        "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
+        "bound_formula": f"3 x dcn_flops {cell.flops / 3:.4g} / "
+                         f"{F32_OPS_PER_S:.3g} FLOP/s = {ops_ms:.4f} ms; "
+                         f"table gradient and AdamW "
+                         f"{recsys_train_bytes(cfg, n_params, rows):.4g} "
+                         f"bytes = {byte_ms:.4f} ms",
+        "bound_share": max(ops_ms, byte_ms) / run["warm_ms"]}
+    del opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.requires_grad_(False)
+
+    # -- serve_p99: host batch to host logits --------------------------------
+    pcell = steps.recsys_cell(RECSYS_ARCH, "serve_p99")
+    serve = steps.recsys_step(pcell, off)
+    pb = [steps.recsys_batch(pcell, step=i, seed=1) for i in range(8)]
+
+    def serve_host(b):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        return serve(model, batch).cpu()
+
+    for b in pb[:2]:
+        serve_host(b)  # warm
+    ms = []
+    for i in range(RECSYS_SERVE_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = serve_host(pb[i % len(pb)])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(logits).all()):
+            fail("phase 10a: serve_p99 logits not finite")
+    dev_b = steps.batch_to(pb[0], dev)
+    fwd_ms = time_ms(lambda: serve(model, dev_b))
+    p_ops = pcell.flops / F32_OPS_PER_S * 1e3
+    out["serve_p99"] = {
+        "batch": pcell.batch, "calls": len(ms),
+        "p50_ms": float(np.percentile(ms, 50)),
+        "p99_ms": float(np.percentile(ms, 99)), "max_ms": max(ms),
+        "forward_ms": fwd_ms, "bound_ms": p_ops, "bound_by": "operations",
+        "bound_formula": f"dcn_flops {pcell.flops:.4g} / "
+                         f"{F32_OPS_PER_S:.3g} FLOP/s"}
+
+    # -- serve_bulk ----------------------------------------------------------
+    bcell = steps.recsys_cell(RECSYS_ARCH, "serve_bulk")
+    bulk = steps.recsys_step(bcell, off)
+    t0 = time.perf_counter()
+    bh = steps.recsys_batch(bcell, seed=2)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    bms = []
+    for i in range(RECSYS_BULK_CALLS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = bulk(model, {k: torch.from_numpy(v).to(dev)
+                              for k, v in bh.items()}).cpu()
+        bms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            bcell.batch,):
+        fail("phase 10a: serve_bulk logits not finite or misshapen")
+    dev_bb = steps.batch_to(bh, dev)
+    bfwd = time_ms(lambda: bulk(model, dev_bb), reps=3, rounds=3)
+    b_ops = bcell.flops / F32_OPS_PER_S * 1e3
+    warm_bulk = float(np.median(bms[1:]))
+    out["serve_bulk"] = {
+        "batch": bcell.batch, "cold_ms": bms[0], "ms": warm_bulk,
+        "rows_per_s": bcell.batch / warm_bulk * 1e3,
+        "forward_ms": bfwd, "forward_rows_per_s": bcell.batch / bfwd * 1e3,
+        "host_batch_s": gen_s,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "bound_ms": b_ops, "bound_by": "operations",
+        "bound_share": b_ops / bfwd,
+        "bound_formula": f"dcn_flops {bcell.flops:.4g} / "
+                         f"{F32_OPS_PER_S:.3g} FLOP/s"}
+    del dev_bb, logits
+    torch.cuda.empty_cache()
+
+    # -- retrieval_cand --------------------------------------------------------
+    rcell = steps.recsys_cell(RECSYS_ARCH, "retrieval_cand")
+    retrieve = steps.recsys_step(rcell, off)
+    cand = steps.retrieval_candidates(
+        rcell, torch.Generator(device=dev).manual_seed(3))
+    rb = steps.batch_to(steps.recsys_batch(rcell, seed=3), dev)
+    vals, idx = retrieve(model, rb, cand)
+    with torch.no_grad():
+        q = dcn.query_embedding(model, cfg, rb, off).double()
+        full = (q @ cand.double().T)[0]
+    ref_v, ref_i = torch.sort(full, descending=True)
+    k = steps.RETRIEVAL_TOP_K
+    if idx.shape != (1, k) or not _distinct_equal(idx, ref_v[None, :k],
+                                                  ref_i[None, :k]):
+        fail("phase 10a: retrieval top-100 differs from a float64 sort")
+    r_ms = time_ms(lambda: retrieve(model, rb, cand),
+                   reps=RECSYS_RETRIEVAL_CALLS)
+    cand_bytes = cand.numel() * cand.element_size()
+    r_byte_ms = cand_bytes / HBM_BYTES_PER_S * 1e3
+    r_ops_ms = rcell.flops / F32_OPS_PER_S * 1e3
+    out["retrieval_cand"] = {
+        "candidates": rcell.n_candidates, "ms": r_ms,
+        "bound_ms": max(r_byte_ms, r_ops_ms),
+        "bound_by": "bytes" if r_byte_ms >= r_ops_ms else "operations",
+        "bound_formula": f"{cand_bytes} candidate bytes / "
+                         f"{HBM_BYTES_PER_S:.3g} B/s; "
+                         f"{rcell.flops:.4g} FLOP = {r_ops_ms:.4f} ms",
+        "top5_indices": idx[0, :5].tolist(),
+        "top5_scores": vals[0, :5].tolist(),
+        "top100_digest": _digest(idx.cpu().numpy())}
+    del cand, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    tr, sp, sb, rc = (out[k] for k in ("train_batch", "serve_p99",
+                                       "serve_bulk", "retrieval_cand"))
+    print(f"phase 10: 10a dcn-v2 full width ({n_params} parameters, "
+          f"{rows} table rows): train_batch B {tr['batch']} warm step "
+          f"{tr['warm_ms']:.2f} ms ({tr['examples_per_s']:.0f} examples/s, "
+          f"AdamW {tr['adamw_ms']:.2f} ms; bound {tr['bound_ms']:.2f} ms), "
+          f"peak {tr['peak_gb']:.2f} GB, idle "
+          f"{tr['profile']['warm_idle_share']:.3f}; serve_p99 p50 "
+          f"{sp['p50_ms']:.3f} ms, p99 {sp['p99_ms']:.3f} ms (forward "
+          f"{sp['forward_ms']:.4f}, bound {sp['bound_ms']:.4f}); serve_bulk "
+          f"{sb['ms']:.1f} ms, {sb['rows_per_s']:.0f} rows/s (forward "
+          f"{sb['forward_ms']:.2f} ms, bound {sb['bound_ms']:.2f}); "
+          f"retrieval_cand {rc['ms']:.4f} ms (bound {rc['bound_ms']:.4f})",
+          flush=True)
+    for key in ("check", "train_batch", "serve_p99", "serve_bulk",
+                "retrieval_cand"):
+        print(f"phase 10: 10a {key} " + json.dumps(out[key]), flush=True)
+    return out
+
+
+def minicpm_layer_shapes() -> dict:
+    """One MiniCPM-2B layer's parameter shapes, from the model on ``meta``."""
+    from repro_torch.configs import base
+    from repro_torch.models.transformer import Layer
+
+    cfg = base.get(LM_ARCH).full_config()
+    layer = Layer(cfg, 0, None, torch.device("meta"))
+    return {k: tuple(p.shape) for k, p in layer.named_parameters()}
+
+
+def phase10_rank(rank: int, world: int, layer: dict, device: str) -> dict:
+    """One of four gloo ranks sharing cuda:0: ``pipeline_apply`` over the
+    four stages against the serial oracle, and ``compressed_psum`` of
+    one MiniCPM-2B layer's gradient shapes on the card against the same
+    ranks' sum of CPU tensors."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import (
+        compressed_psum,
+        compression_init,
+    )
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    out = {"rank": rank}
+    # -- pipeline --------------------------------------------------------------
+    m, rows, d = PIPE_MICRO
+    g = torch.Generator(device=dev).manual_seed(20)
+    ws = torch.randn((world, d, d), generator=g, device=dev) / d ** 0.5
+    xs = torch.randn((m, rows, d), generator=g, device=dev)
+    mesh = make_mesh((world,), ("pipe",), dev)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["W"])
+
+    pipeline_apply(mesh, {"W": ws}, xs, stage)  # warm
+    mesh.wire.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipeline_apply(mesh, {"W": ws}, xs, stage)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    ref = []
+    for x in xs:
+        for s in range(world):
+            x = stage({"W": ws[s]}, x)
+        ref.append(x)
+    err = float((got - torch.stack(ref)).abs().max())
+    if not err <= PIPE_TOL:
+        raise AssertionError(f"rank {rank}: pipeline off the serial oracle "
+                             f"by {err}")
+    out["pipeline"] = {"stages": world, "microbatches": m,
+                       "microbatch": [rows, d], "ms": pipe_ms,
+                       "max_abs_vs_serial": err,
+                       "wire_calls": mesh.wire.calls,
+                       "wire_bytes": mesh.wire.bytes,
+                       "staged_bytes": mesh.wire.staged_bytes,
+                       "digest": _digest(got.cpu().numpy())}
+    del ws, xs, got, ref
+    # -- compressed_psum -------------------------------------------------------
+    data = make_mesh((world,), ("data",), dev)
+    axes = data.axes("data")
+    gg = torch.Generator(device=dev).manual_seed(100 + rank)
+    grads = {k: torch.randn(s, generator=gg, device=dev) * 1e-3
+             for k, s in layer.items()}
+    state = compression_init(grads)
+    compressed_psum(grads, state, axes)  # warm
+    data.wire.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, new = compressed_psum(grads, state, axes)
+    torch.cuda.synchronize()
+    c_ms = (time.perf_counter() - t0) * 1e3
+    wire = dataclasses.asdict(data.wire)
+    cpu_mean, cpu_new = compressed_psum(
+        {k: v.cpu() for k, v in grads.items()},
+        compression_init({k: v.cpu() for k, v in grads.items()}), axes)
+    same = all(torch.equal(mean[k].cpu(), cpu_mean[k])
+               and torch.equal(new.residual[k].cpu(), cpu_new.residual[k])
+               for k in layer)
+    if not same:
+        raise AssertionError(f"rank {rank}: compressed_psum on the card "
+                             "differs from the CPU's")
+    n = sum(int(np.prod(s)) for s in layer.values())
+    out["compressed_psum"] = {
+        "leaves": len(layer), "elements": n, "ms": c_ms, "wire": wire,
+        "float32_gradient_bytes": 4 * n, "bitwise_cpu": same,
+        "digest": _digest(np.concatenate(
+            [mean[k].cpu().numpy().ravel() for k in sorted(layer)]))}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_10d() -> dict:
+    """Four gloo ranks sharing the card (spawned as in phase 7):
+    ``pipeline_apply`` and ``compressed_psum``."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = minicpm_layer_shapes()
+    reps = run_ranks(phase10_rank, RANKS, (layer, f"{DEVICE}:0"),
+                     backend="gloo", timeout_s=PHASE10_TIMEOUT_S)
+    for key in ("pipeline", "compressed_psum"):
+        digests = {r[key]["digest"] for r in reps}
+        if len(digests) != 1:
+            fail(f"phase 10d: the ranks' {key} results differ")
+    out = {"ranks": reps, "layer_shapes": {k: list(v)
+                                           for k, v in layer.items()},
+           "seconds": time.perf_counter() - t0}
+    for r in reps:
+        print(f"phase 10: 10d rank {r['rank']} " + json.dumps(r), flush=True)
+    return out
+
+
+def phase_10(dev, launches_before) -> dict:
+    """Recsys (DCN-v2) and the mesh substrate's compression and pipeline
+    (no kernel: JAX's EmbeddingBag is ``take`` and ``segment_sum``, its
+    products plain ``@``)."""
+    from repro_torch.launch import steps
+
+    t0 = time.perf_counter()
+    out = {"10c": phase_10c(dev, steps), "10a": phase_10a(dev, steps),
+           "10d": phase_10d()}
+    out["kernel_launches"] = launches_before()
+    if any(out["kernel_launches"].values()):
+        fail(f"phase 10 launched a port kernel: {out['kernel_launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 10: " + json.dumps({
+        "kernel_launches": out["kernel_launches"],
+        "seconds": out["seconds"],
+        "10a_seconds": out["10a"]["seconds"],
+        "10d_seconds": out["10d"]["seconds"]}), flush=True)
+    return out
+
+
 
 
 def main() -> int:
@@ -3578,6 +4149,11 @@ def main() -> int:
     gnn = phase_9(dev, csr, lambda: {k: f.launches - before[k]
                                      for k, f in counters.items()})
 
+    # -- phase 10: recsys, and the mesh substrate's compression and pipeline
+    before = {k: f.launches for k, f in counters.items()}
+    recsys = phase_10(dev, lambda: {k: f.launches - before[k]
+                                    for k, f in counters.items()})
+
     bp["shard"] = shard_times("binned_pull")
     mx["shard"] = shard_times("msbfs_extend")
     kernels = [
@@ -3654,6 +4230,16 @@ def main() -> int:
           + ", ".join(f"{k} {v['warm_ms']:.2f} ms"
                       for k, v in gnn["9b"].items())
           + f"; phase 9 {gnn['seconds']:.1f} s")
+    ra, rd = recsys["10a"], recsys["10d"]["ranks"]
+    print(f"recsys {RECSYS_ARCH} full width: train_batch "
+          f"{ra['train_batch']['warm_ms']:.2f} ms a step, "
+          f"{ra['train_batch']['examples_per_s']:.0f} examples/s; serve_p99 "
+          f"p99 {ra['serve_p99']['p99_ms']:.3f} ms; serve_bulk "
+          f"{ra['serve_bulk']['rows_per_s']:.0f} rows/s; retrieval_cand "
+          f"{ra['retrieval_cand']['ms']:.4f} ms; pipeline over {RANKS} "
+          f"ranks {max(r['pipeline']['ms'] for r in rd):.1f} ms, "
+          f"compressed_psum {max(r['compressed_psum']['ms'] for r in rd):.1f}"
+          f" ms; phase 10 {recsys['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -2,8 +2,8 @@
 
 Each arch module registers an ``ArchSpec`` carrying its full published config,
 a reduced smoke config, its shape set, and documented skips. The port's
-registry holds the LM and GNN families (``_ensure_loaded``); the recsys and
-paper configs join it with their slices.
+registry holds the LM, GNN and recsys families (``_ensure_loaded``); the
+paper engine's config (``repro.configs.paper_bfs``) is not ported.
 """
 from __future__ import annotations
 
@@ -118,6 +118,7 @@ def _ensure_loaded():
         return
     _LOADED = True
     from . import (  # noqa: F401
+        dcn_v2,
         deepseek_coder_33b,
         equiformer_v2,
         gemma2_2b,

@@ -138,8 +138,12 @@ class Wire:
         return out
 
     def all_reduce(self, x: torch.Tensor, axis: str, op) -> torch.Tensor:
-        """Order-free reductions only (MAX, MIN); float sums go
-        through ``psum``'s ordered fold."""
+        """Order-free reductions only: MAX, MIN, and SUM of integers
+        (exact in any order, so the backend's own order gives the same
+        bits); float sums go through ``psum``'s ordered fold."""
+        if op == dist.ReduceOp.SUM and x.is_floating_point():
+            raise ValueError("a float SUM depends on the backend's order: "
+                             "use psum")
         t0 = time.perf_counter()
         wx = self._to_wire(x).clone()
         dist.all_reduce(wx, op=op, group=self.mesh.group(axis))
@@ -410,6 +414,28 @@ def psum(x: torch.Tensor, axes) -> torch.Tensor:
     for a in _names(axes):
         x = _fold(wire.all_gather(x, a), torch.add)
     return x
+
+
+def int_psum(x: torch.Tensor, axes) -> torch.Tensor:
+    """Sum of an integer tensor across axes by the backend's SUM: integer
+    adds are exact, so any order gives the same result (on overflow,
+    the same wrap)."""
+    if _trivial(axes):
+        return x
+    wire = _wire(axes)
+    for a in _names(axes):
+        x = wire.all_reduce(x, a, dist.ReduceOp.SUM)
+    return x
+
+
+def shift(x: torch.Tensor, axes) -> torch.Tensor:
+    """One ring step along ONE mesh axis (JAX's ``ppermute`` to ``i + 1``):
+    this rank's ``x`` goes to the next coordinate, the previous
+    coordinate's comes back; the identity on an axis of size 1."""
+    if _trivial(axes):
+        return x
+    (axis,) = _names(axes)
+    return _wire(axes).shift(x, axis)
 
 
 def any_over(flag: bool, axes) -> bool:

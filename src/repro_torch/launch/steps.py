@@ -1,7 +1,7 @@
-"""Per-cell train steps of the GNN family (the GNN part of
-``repro.launch.steps``).
+"""Per-cell steps of the GNN and recsys families (the GNN and recsys parts
+of ``repro.launch.steps``).
 
-``gnn_cell(arch_id, shape_name)`` makes JAX's per-shape config change
+GNN: ``gnn_cell(arch_id, shape_name)`` makes JAX's per-shape config change
 (``_gnn_cell``): a ``full_graph`` cell reads raw node features (PNA: 40
 classes, 47 on ``ogb_products``; the geometric archs project them into
 their scalar channels and predict 8 outputs), a ``minibatch`` cell is a
@@ -13,9 +13,20 @@ against the targets, its gradient, and AdamW (``lr=1e-3``,
 ``weight_decay=0``, JAX's other defaults) in place. ``gnn_flops`` is
 JAX's analytic count of a forward's dense contractions.
 
+Recsys (``_recsys_cell``): ``recsys_cell(arch_id, shape_name)`` is
+DCN-v2's full config at a ``RECSYS_SHAPES`` batch; its step is a train
+step (the BCE loss, its gradient, AdamW as above, the fused table's
+gradient dense over all its rows, as JAX's is), a serve step (the
+logits) or a retrieval step (one query against seeded candidates, top
+100). ``dcn_flops`` is JAX's ``_dcn_flops``; batches come from
+``data.pipeline.RecsysStream``.
+
+``build(arch_id, shape_name, generator, device)`` gives either family's
+cell, model, AdamW state and step on ``device``.
+
 Left out: the mesh shardings and edge slabs of a cell, the dry-run's
-lowering and HLO analysis, and the LM, recsys and paper-engine cells
-(ROADMAP section 1, item 5). ``cell_batch`` makes a seeded batch of a
+lowering and HLO analysis, and the LM and paper-engine cells (ROADMAP
+section 1). ``cell_batch`` and ``recsys_batch`` make seeded batches of a
 cell's shapes, for tests and the smoke run (JAX's cells carry abstract
 shapes only).
 """
@@ -28,8 +39,10 @@ import numpy as np
 import torch
 
 from ..configs import base as cfgbase
+from ..data.pipeline import RecsysStream
 from ..graph.sampler import tree_edges
 from ..kernels.common import resolve_device
+from ..models import dcn_v2 as dcn
 from ..models.gnn import equiformer_v2 as eqv2_m
 from ..models.gnn import mace as mace_m
 from ..models.gnn import pna as pna_m
@@ -188,9 +201,14 @@ def make_train_step(cell: GnnCell):
 
 def build(arch_id: str, shape_name: str, generator, device=None,
           smoke: bool = False, dims: Optional[dict] = None):
-    """(cell, model, AdamW state, train_step) on ``device`` (``cuda``
-    unless the caller passes ``"cpu"``; raises without a GPU)."""
+    """(cell, model, AdamW state, step) on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``; raises without a GPU). A GNN cell's step is
+    its train step; a recsys cell's is its train, serve or retrieval
+    step (``recsys_step``), with no AdamW state (None) unless it trains."""
     dev = resolve_device(device)
+    if cfgbase.get(arch_id).family == "recsys":
+        return _build_recsys(arch_id, shape_name, generator, dev, smoke,
+                             dims)
     cell = gnn_cell(arch_id, shape_name, smoke, dims)
     model = init_model(cell, generator, dev)
     return cell, model, adamw_init(params_dict(model), GNN_ADAMW), \
@@ -255,3 +273,134 @@ def batch_to(batch: dict, device) -> dict:
     dev = torch.device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
+
+
+# =========================================================================
+# recsys (dcn-v2)
+# =========================================================================
+
+RECSYS_ADAMW = AdamWConfig(lr=1e-3, weight_decay=0.0)
+RETRIEVAL_TOP_K = 100
+
+
+def dcn_flops(cfg, B, fwd_only=False):
+    """JAX's ``_dcn_flops``: the cross layers', MLP's and head's
+    products (2 FLOPs a MAC) and the embedding bag's adds; a train step
+    is 3 x the forward."""
+    d0 = cfg.x0_dim
+    f = 2.0 * B * d0 * d0 * cfg.n_cross_layers
+    d_in = d0
+    for d_out in cfg.mlp:
+        f += 2.0 * B * d_in * d_out
+        d_in = d_out
+    f += 2.0 * B * d_in  # head
+    # embedding gather ~ bytes not flops; count the segment adds
+    f += B * cfg.n_sparse * cfg.embed_dim
+    return f if fwd_only else 3.0 * f
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysCell:
+    arch_id: str
+    shape_name: str
+    kind: str  # train | serve | bulk | retrieval
+    cfg: object
+    batch: int
+    n_candidates: Optional[int] = None  # retrieval
+
+    @property
+    def flops(self) -> float:
+        """JAX's cell FLOPs: 3 x the forward's for a train step, the
+        forward's for a serve step, plus the candidates' scores for a
+        retrieval step."""
+        if self.kind == "train":
+            return dcn_flops(self.cfg, self.batch)
+        f = dcn_flops(self.cfg, self.batch, fwd_only=True)
+        if self.kind == "retrieval":
+            f += 2.0 * self.batch * self.n_candidates * self.cfg.retrieval_dim
+        return f
+
+
+def recsys_cell(arch_id: str, shape_name: str, smoke: bool = False,
+                dims: Optional[dict] = None) -> RecsysCell:
+    """JAX's ``_recsys_cell`` on one device (the candidates not padded to
+    a mesh): the full config (``smoke``: the smoke config) at the shape's
+    batch; ``dims`` overrides the shape's dimensions."""
+    spec = cfgbase.get(arch_id)
+    if spec.family != "recsys":
+        raise ValueError(f"{arch_id} is not a recsys arch")
+    shape = next(s for s in spec.shapes if s.name == shape_name)
+    d = {**shape.dims, **(dims or {})}
+    cfg = spec.smoke_config() if smoke else spec.full_config()
+    return RecsysCell(arch_id, shape_name, shape.kind, cfg, d["batch"],
+                      d.get("n_candidates"))
+
+
+def recsys_step(cell: RecsysCell, offsets):
+    """The cell's step over a ``dcn_v2`` model and its ``offsets``:
+
+    - train: ``(model, opt, batch) -> (model, opt, loss, grad_norm)``,
+      AdamW (``RECSYS_ADAMW``, clipping at 1.0) on every parameter in
+      place, a parameter the loss does not reach (``retrieval_proj``)
+      with a zero gradient as in JAX, then the gradients set to None;
+    - serve, bulk: ``(model, batch) -> logits [B]``;
+    - retrieval: ``(model, batch, candidates) -> (scores, indices)`` of
+      the top ``RETRIEVAL_TOP_K``.
+    """
+    cfg = cell.cfg
+    if cell.kind == "train":
+        def train_step(model, opt, batch):
+            loss = dcn.loss_fn(model, cfg, batch, offsets)
+            loss.backward()
+            params = params_dict(model)
+            grads = {k: (p.grad if p.grad is not None
+                         else torch.zeros_like(p))
+                     for k, p in params.items()}
+            _, opt, gnorm = adamw_update(grads, opt, params, RECSYS_ADAMW)
+            for p in params.values():
+                p.grad = None
+            return model, opt, loss.detach(), gnorm
+
+        return train_step
+    if cell.kind in ("serve", "bulk"):
+        @torch.no_grad()
+        def serve_step(model, batch):
+            return dcn.forward(model, cfg, batch, offsets)
+
+        return serve_step
+    assert cell.kind == "retrieval"
+
+    @torch.no_grad()
+    def retrieval_step(model, batch, cand):
+        return dcn.retrieval_scores(model, cfg, batch, offsets, cand,
+                                    RETRIEVAL_TOP_K)
+
+    return retrieval_step
+
+
+def _build_recsys(arch_id, shape_name, generator, dev, smoke, dims):
+    cell = recsys_cell(arch_id, shape_name, smoke, dims)
+    model, offsets = dcn.init(cell.cfg, generator, dev)
+    opt = None
+    if cell.kind == "train":
+        model.requires_grad_(True)
+        opt = adamw_init(params_dict(model), RECSYS_ADAMW)
+    return cell, model, opt, recsys_step(cell, offsets)
+
+
+def recsys_batch(cell: RecsysCell, step: int = 0, seed: int = 0) -> dict:
+    """Step ``step`` of ``RecsysStream`` at the cell's batch (numpy: dense
+    [B, 13] float32, sparse [B, 26] int32 and, for a train cell, labels
+    [B] int32)."""
+    b = RecsysStream(cell.cfg.field_vocabs, cell.batch,
+                     n_dense=cell.cfg.n_dense, seed=seed).batch(step)
+    if cell.kind != "train":
+        del b["labels"]
+    return b
+
+
+def retrieval_candidates(cell: RecsysCell, generator) -> torch.Tensor:
+    """``[n_candidates, retrieval_dim]`` standard-normal float32 candidate
+    embeddings drawn from ``generator``, on its device."""
+    return torch.randn((cell.n_candidates, cell.cfg.retrieval_dim),
+                       generator=generator, device=generator.device)

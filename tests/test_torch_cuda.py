@@ -97,6 +97,16 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   segment max/min and their gradient bitwise the CPU's, sums within
   1e-5 with atomics and bitwise under
   ``torch.use_deterministic_algorithms``.
+- The recsys family: the smoke DCN-v2 (``launch/steps``' cells) on the
+  card against the CPU from the same weights: logits within 1e-5
+  (relative plus a share of the largest), one train step's loss within
+  rtol 1e-5 and its gradient norm within 1e-3, each leaf's AdamW moments
+  within 1e-3 plus 1e-3 of the leaf's largest (the table's gradient adds
+  with atomics), parameters within 2 lr; ``embedding_bag`` sum and mean
+  within 1e-6; retrieval top-k indices equal where the scores are
+  distinct. ``pipeline_apply`` and ``compressed_psum`` on two gloo ranks
+  sharing the card against the same ranks on the CPU: the pipeline
+  within 1e-6, the compressed sums and residuals bitwise.
 """
 import dataclasses
 
@@ -1162,3 +1172,113 @@ def test_gnn_reductions_on_card(op, cuda_device):
         finally:
             torch.use_deterministic_algorithms(False)
         assert torch.equal(det[0], exp[0]) and torch.equal(det[1], exp[1])
+
+
+# ------------------------------------------------------------ recsys ----
+
+def _recsys_close(got, exp, tol):
+    g = got.detach().double().cpu()
+    e = exp.detach().double().cpu()
+    lim = tol[0] * e.abs() + tol[1] * float(e.abs().max())
+    assert ((g - e).abs() <= lim).all(), float((g - e).abs().max())
+
+
+def _recsys_pair(shape, device, dims):
+    from repro_torch.launch import steps
+    from repro_torch.models import dcn_v2
+    from repro_torch.models.gnn.common import params_to_numpy
+
+    cell, cpu_model, opt, step = steps.build(
+        "dcn-v2", shape, torch.Generator().manual_seed(0), "cpu",
+        smoke=True, dims=dims)
+    card_model, off = dcn_v2.params_from_jax(params_to_numpy(cpu_model),
+                                             cell.cfg, device)
+    card_step = steps.recsys_step(cell, off)
+    return cell, (cpu_model, opt, step), (card_model, card_step)
+
+
+def test_dcn_v2_smoke_forward_and_train_step_on_card_match_cpu(cuda_device):
+    from repro_torch.launch import steps
+    from repro_torch.models import dcn_v2
+    from repro_torch.optim.adamw import adamw_init
+
+    cell, (cpu_model, opt, step), (card_model, card_step) = _recsys_pair(
+        "train_batch", cuda_device, dict(batch=256))
+    batch = steps.recsys_batch(cell, seed=1)
+    cpu_b = steps.batch_to(batch, "cpu")
+    card_b = steps.batch_to(batch, cuda_device)
+    serve = steps.recsys_cell("dcn-v2", "serve_p99", smoke=True,
+                              dims=dict(batch=256))
+    with torch.no_grad():
+        exp = dcn_v2.forward(cpu_model, cell.cfg, cpu_b,
+                             dcn_v2.field_offsets(cell.cfg, "cpu"))
+    got = steps.recsys_step(serve, dcn_v2.field_offsets(
+        cell.cfg, cuda_device))(card_model, card_b)
+    _recsys_close(got, exp, (1e-5, 1e-5))
+    card_model.requires_grad_(True)
+    card_opt = adamw_init(steps.params_dict(card_model), steps.RECSYS_ADAMW)
+    _, opt, l0, g0 = step(cpu_model, opt, cpu_b)
+    _, card_opt, l1, g1 = card_step(card_model, card_opt, card_b)
+    assert abs(l1.item() - l0.item()) <= 1e-5 * abs(l0.item())
+    assert abs(g1.item() - g0.item()) <= 1e-3 * abs(g0.item())
+    lr = steps.RECSYS_ADAMW.lr
+    cpu_p = dict(cpu_model.named_parameters())
+    for k, p in card_model.named_parameters():
+        for m0, m1 in ((opt.mu[k], card_opt.mu[k]),
+                       (opt.nu[k], card_opt.nu[k])):
+            _recsys_close(m1, m0, (1e-3, 1e-3))
+        assert float((p.detach().cpu() - cpu_p[k].detach()).abs().max()) \
+            <= 2 * lr + 1e-6, k
+
+
+def test_dcn_v2_smoke_retrieval_and_bags_on_card_match_cpu(cuda_device):
+    from repro_torch.launch import steps
+    from repro_torch.models import dcn_v2
+    from repro_torch.nn.embedding_bag import embedding_bag
+
+    cell, (cpu_model, _, step), (card_model, card_step) = _recsys_pair(
+        "retrieval_cand", cuda_device, dict(batch=4, n_candidates=20000))
+    batch = steps.recsys_batch(cell, seed=2)
+    cand = steps.retrieval_candidates(cell, torch.Generator().manual_seed(3))
+    v0, i0 = step(cpu_model, steps.batch_to(batch, "cpu"), cand)
+    v1, i1 = card_step(card_model, steps.batch_to(batch, cuda_device),
+                       cand.to(cuda_device))
+    _recsys_close(v1, v0, (1e-5, 1e-5))
+    gaps = torch.diff(v0, dim=1).abs()
+    distinct = torch.cat([gaps[:, :1], torch.minimum(gaps[:, 1:],
+                                                     gaps[:, :-1]),
+                          gaps[:, -1:]], dim=1) > 1e-5
+    assert torch.equal(i1.cpu()[distinct], i0[distinct])
+    rng = np.random.default_rng(4)
+    nnz, n_bags = 5000, 300
+    fids = torch.from_numpy(rng.integers(0, 26, nnz).astype(np.int32))
+    ids = torch.from_numpy(rng.integers(0, 97, nnz).astype(np.int32))
+    bags = torch.from_numpy(np.sort(rng.integers(0, n_bags, nnz))
+                            .astype(np.int32))
+    off = dcn_v2.field_offsets(cell.cfg, "cpu")
+    for mode in ("sum", "mean"):
+        exp = embedding_bag(cpu_model.embed, off, ids, fids, bags, n_bags,
+                            mode)
+        got = embedding_bag(card_model.embed, off.to(cuda_device),
+                            *(t.to(cuda_device) for t in (ids, fids, bags)),
+                            n_bags, mode)
+        assert float((got.cpu() - exp).abs().max()) <= 1e-6, mode
+
+
+def test_pipeline_and_compressed_psum_on_card_ranks_match_cpu(cuda_device):
+    from repro_torch.launch.mesh import run_ranks
+
+    import test_torch_ranks as TR
+
+    card = run_ranks(TR.card_parallel_rank, 2, timeout_s=240)
+    pipe = run_ranks(TR.pipe_rank, 2, timeout_s=120)
+    comp = run_ranks(TR.compress_rank, 2, timeout_s=120)
+    for r in range(2):
+        assert int(card[r]["staged"]) > 0
+        for case in TR.PIPE_CASES:
+            np.testing.assert_allclose(card[r][case], pipe[r][case],
+                                       rtol=0, atol=1e-6)
+        for key, want in comp[r].items():
+            if "/" in key:
+                np.testing.assert_array_equal(card[r][key], want,
+                                              err_msg=key)

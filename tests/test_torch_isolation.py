@@ -31,6 +31,14 @@
   kernel route, forced or chosen, raises under autograd (it has no
   backward); ``prefill`` and ``decode`` of a model whose parameters
   require a gradient build no graph.
+- The recsys family and the parallel substrate (``nn/embedding_bag.py``,
+  ``models/dcn_v2.py``, ``configs/dcn_v2.py``, ``optim/compression.py``,
+  ``parallel/``) are in the scan, and importing ``launch/steps.py``,
+  ``optim/compression.py`` and ``parallel/pipeline.py`` leaves ``jax``
+  unloaded; ``dcn_v2.init``, ``dcn_v2.params_from_jax`` and
+  ``steps.build`` of a recsys cell raise without a GPU unless
+  ``device="cpu"`` (``steps.recsys_cell`` is a config and takes no
+  device).
 """
 import ast
 import os
@@ -110,6 +118,9 @@ GNN_MODULES = ("graph/sampler.py", "models/gnn/__init__.py",
                "models/gnn/mace.py", "models/gnn/equiformer_v2.py",
                "configs/schnet.py", "configs/pna.py", "configs/mace.py",
                "configs/equiformer_v2.py", "launch/steps.py")
+RECSYS_MODULES = ("nn/embedding_bag.py", "models/dcn_v2.py",
+                  "configs/dcn_v2.py", "optim/compression.py",
+                  "parallel/__init__.py", "parallel/pipeline.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -121,6 +132,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert set(LM_MODULES) <= scanned
     assert set(TRAIN_MODULES) <= scanned
     assert set(GNN_MODULES) <= scanned
+    assert set(RECSYS_MODULES) <= scanned
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files for mod in absolute_imports(p)
@@ -506,3 +518,64 @@ def test_sampler_refuses_a_graph_on_another_device():
         erdos_renyi(64, 3.0, seed=0)))
     with pytest.raises(ValueError, match="lies on meta"):
         sample_subgraph(g, [0], (2,), torch.Generator(), device="cpu")
+
+
+def test_recsys_and_parallel_imports_leave_jax_unloaded():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.launch.steps, "
+            "repro_torch.optim.compression, repro_torch.parallel.pipeline, "
+            "repro_torch.nn.embedding_bag, repro_torch.configs.base as b; "
+            "b.get('dcn-v2'); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "raise SystemExit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("shape", ["train_batch", "serve_p99",
+                                   "retrieval_cand"])
+def test_recsys_entry_points_raise_without_cuda_unless_cpu(shape, no_cuda):
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+    from repro_torch.models import dcn_v2
+    from repro_torch.models.gnn.common import params_to_numpy
+
+    cfg = base.get("dcn-v2").smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dcn_v2.init(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dcn_v2.init(cfg, gen, "cuda")
+    model, off = dcn_v2.init(cfg, gen, "cpu")
+    assert off.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    tree = params_to_numpy(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dcn_v2.params_from_jax(tree, cfg)
+    back, _ = dcn_v2.params_from_jax(tree, cfg, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 back.parameters()))
+    dims = dict(batch=4, n_candidates=200)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        steps.build("dcn-v2", shape, gen, smoke=True, dims=dims)
+    cell, model, opt, step = steps.build("dcn-v2", shape, gen, "cpu",
+                                         smoke=True, dims=dims)
+    b = steps.batch_to(steps.recsys_batch(cell), "cpu")
+    if cell.kind == "train":
+        _, opt, loss, _ = step(model, opt, b)
+        assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+    elif cell.kind == "retrieval":
+        assert opt is None
+        cand = steps.retrieval_candidates(cell, gen)
+        _, idx = step(model, b, cand)
+        assert idx.device.type == "cpu"
+        assert idx.shape == (4, steps.RETRIEVAL_TOP_K)
+    else:
+        assert opt is None and step(model, b).shape == (4,)
+    # the full width costs nothing on the meta device
+    full, _ = dcn_v2.init(base.get("dcn-v2").full_config(), None, "meta")
+    assert all(p.device.type == "meta" for p in full.parameters())
+    with pytest.raises(ValueError, match="Generator"):
+        dcn_v2.init(cfg, None, "cpu")

@@ -706,3 +706,116 @@ def card_delta_rank(rank: int, world: int) -> dict:
                                             msbfs_extend_blocks.launches])
     out["staged"] = np.asarray(mesh.wire.staged_bytes)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stages and compressed gradient sums (parallel/, optim/).
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 4
+# case -> (seed, microbatches, one microbatch's shape, width); "pipe" is
+# tests/test_substrate.py::PIPE_SCRIPT's inputs, "pipe_short" has fewer
+# microbatches than stages and 2-D microbatches
+PIPE_CASES = {"pipe": (0, 6, (8,), 8), "pipe_short": (1, 3, (5, 8), 8)}
+
+
+def pipe_inputs(case: str):
+    """(stage weights [S, D, D], microbatches [M, ...]) float32."""
+    seed, m, shape, d = PIPE_CASES[case]
+    rng = np.random.default_rng(seed)
+    ws = (rng.standard_normal((PIPE_STAGES, d, d)) * 0.3).astype(np.float32)
+    xs = rng.standard_normal((m, *shape)).astype(np.float32)
+    return ws, xs
+
+
+def pipe_rank(rank: int, world: int) -> dict:
+    """``pipeline_apply`` with ``tanh(x @ W)`` stages on a ``pipe`` axis of
+    ``world`` ranks, every case."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    mesh = make_mesh((world,), ("pipe",), "cpu")
+    out = {}
+    for case in PIPE_CASES:
+        ws, xs = pipe_inputs(case)
+        got = pipeline_apply(mesh, {"W": torch.from_numpy(ws)},
+                             torch.from_numpy(xs),
+                             lambda p, x: torch.tanh(x @ p["W"]))
+        out[case] = got.numpy()
+    out["shifts"] = mesh.wire.calls
+    return out
+
+
+COMPRESS_SHAPES = {"a": (37,), "b": (6, 5), "c": (1000,), "z": (4,)}
+COMPRESS_STEPS = 3
+
+
+def compress_grads_input(rank: int, step: int) -> dict:
+    """Rank ``rank``'s float32 gradients at ``step``: standard normal
+    leaves at three magnitudes, and an all-zero leaf (its scale clamps to
+    1e-12)."""
+    rng = np.random.default_rng(1000 * step + rank)
+    out = {}
+    for k, shape in COMPRESS_SHAPES.items():
+        mag = {"a": 1.0, "b": 30.0, "c": 1e-3, "z": 0.0}[k]
+        out[k] = (rng.standard_normal(shape) * mag).astype(np.float32)
+    return out
+
+
+def compress_rank(rank: int, world: int) -> dict:
+    """``compressed_psum`` over a ``data`` axis of ``world`` ranks for
+    ``COMPRESS_STEPS`` steps, each step's mean gradient and residuals."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import (
+        compressed_psum,
+        compression_init,
+    )
+
+    mesh = make_mesh((world,), ("data",), "cpu")
+    axes = mesh.axes("data")
+    state = compression_init({k: torch.zeros(s)
+                              for k, s in COMPRESS_SHAPES.items()})
+    out = {}
+    for step in range(COMPRESS_STEPS):
+        g = {k: torch.from_numpy(v)
+             for k, v in compress_grads_input(rank, step).items()}
+        mean, state = compressed_psum(g, state, axes)
+        for k in COMPRESS_SHAPES:
+            out[f"{step}/out/{k}"] = mean[k].numpy()
+            out[f"{step}/residual/{k}"] = state.residual[k].numpy()
+    out["wire_bytes"] = mesh.wire.bytes
+    return out
+
+
+def card_parallel_rank(rank: int, world: int) -> dict:
+    """``pipe_rank`` and ``compress_rank`` with ranks sharing cuda:0 over
+    gloo (every message staged through host memory)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import (
+        compressed_psum,
+        compression_init,
+    )
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    dev = torch.device("cuda:0")
+    pipe = make_mesh((world,), ("pipe",), dev)
+    out = {}
+    for case in PIPE_CASES:
+        ws, xs = pipe_inputs(case)
+        got = pipeline_apply(pipe, {"W": torch.from_numpy(ws).to(dev)},
+                             torch.from_numpy(xs).to(dev),
+                             lambda p, x: torch.tanh(x @ p["W"]))
+        assert got.device.type == "cuda"
+        out[case] = got.cpu().numpy()
+    data = make_mesh((world,), ("data",), dev)
+    state = compression_init({k: torch.zeros(s, device=dev)
+                              for k, s in COMPRESS_SHAPES.items()})
+    for step in range(COMPRESS_STEPS):
+        g = {k: torch.from_numpy(v).to(dev)
+             for k, v in compress_grads_input(rank, step).items()}
+        mean, state = compressed_psum(g, state, data.axes("data"))
+        for k in COMPRESS_SHAPES:
+            out[f"{step}/out/{k}"] = mean[k].cpu().numpy()
+            out[f"{step}/residual/{k}"] = state.residual[k].cpu().numpy()
+    out["staged"] = pipe.wire.staged_bytes + data.wire.staged_bytes
+    return out

@@ -231,7 +231,28 @@ Phases (any failure exits non-zero and prints no result):
    microbatches of ``[512, 2304]``, against the serial oracle within
    1e-6, and ``compressed_psum`` of one MiniCPM-2B layer's gradient
    shapes on the card against the same ranks' sum of CPU tensors,
-   bitwise, with ms and the wire's and staged bytes.
+   bitwise, with ms and the wire's and staged bytes;
+11. the paper engine's Table 2 cells (``launch/dryrun.py::run_cell`` on
+   the card, a ``Mesh`` of one rank; no kernel: the cell's engine extends
+   by ``ell_push``, as JAX's ``build_engine`` default does, and all four
+   kernels' counters must not move): nTkMS with 64 lanes,
+   ``msbfs_lengths`` and the ring OR on a forward ELL cut at 64 slots a
+   node, over the seeded generator of each dataset's degree law
+   (``steps.PAPER_GRAPHS``). 11a ``ldbc100`` (448,626 nodes) and 11b
+   ``livejournal`` (4,847,571 nodes) at their published node counts,
+   uncut; 11c ``spotify`` and ``graph500_28`` cut as far as the host's
+   generator forces (``PAPER_CUTS``; Graph500-28 does not fit the card
+   either), each cut printed in the phase's ``reduced``. For each: every
+   lane's levels and every morsel's trip count against ``lane_bfs``, a
+   BFS written here in torch on the card over the cut edge set, capped
+   at ``max_iters``, and two lanes against
+   ``scipy.sparse.csgraph.shortest_path``; prints wall ms (median of 5
+   runs after a cold one), trips, GTEPS (edges scanned a second), peak
+   device bytes, the roofline terms and the bound at the run's trips,
+   and one more run under ``torch.profiler`` (device busy ms, idle share,
+   the five largest kernels);
+   11d the ``single`` and ``multi`` dry-run records of the four cells
+   (analytic: decisions, per-device bytes, roofline).
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -244,8 +265,8 @@ carries a ``served`` object (phase 6b's launches, and ``mha`` at the
 served shape beside SDPA and its bound); ``binned_pull`` and
 ``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), phase 8's
-``phase 8:``, phase 9's ``phase 9:`` and phase 10's ``phase 10:`` JSON
-lines, the card's name
+``phase 8:``, phase 9's ``phase 9:``, phase 10's ``phase 10:`` and
+phase 11's ``phase 11:`` JSON lines, the card's name
 and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3385,6 +3406,161 @@ def phase_10(dev, launches_before) -> dict:
     return out
 
 
+PAPER_ARCH = "paper-bfs-engine"
+PAPER_SHAPES = ("ldbc100", "livejournal", "spotify", "graph500_28")
+#: cuts of scale (node counts at the published degree laws), each forced by
+#: the host's numpy generator: Spotify's 1.93B edges, and Graph500-28,
+#: whose 64-lane state, contribution and ELL (85.4 GB) also exceed the card
+PAPER_CUTS = {
+    "spotify": {"n_nodes": 3_604_454 // 32},
+    "graph500_28": {"n_nodes": 1 << 20},
+}
+PAPER_CUT_WHY = {
+    "spotify": "the host's numpy generator: erdos_renyi's 1.93B edges at "
+    "3,604,454 nodes (the 1/32 cut's 60M edges take about 23 s to build "
+    "on the card's host, the whole about 12 min)",
+    "graph500_28": "the card: 64-lane state and contribution (54.3 GB) and "
+    "the 64-slot ELL (31.0 GB) exceed 80 GB; the host: numpy rmat draws "
+    "2 x scale numbers an edge (scale 20's 33M edges take about 26 s)",
+}
+PAPER_SCIPY_LANES = 2  # lanes also held against scipy.sparse.csgraph
+
+
+def lane_bfs(csr, sources, cap: int, dev) -> torch.Tensor:
+    """Level-synchronous BFS of each source over ``csr``'s edges, one
+    lane after the other, in torch on ``dev``: ``[n, lanes]`` int16
+    levels up to ``cap`` (-1 unreached; a source at or past ``n`` is an
+    empty lane)."""
+    n = csr.n_nodes
+    src = torch.from_numpy(np.repeat(np.arange(n, dtype=np.int64),
+                                     np.diff(csr.indptr))).to(dev)
+    dst = torch.from_numpy(csr.indices.astype(np.int64)).to(dev)
+    out = torch.full((n, len(sources)), -1, dtype=torch.int16, device=dev)
+    for j, s in enumerate(int(x) for x in sources):
+        if s >= n:
+            continue
+        lv = torch.full((n,), -1, dtype=torch.int16, device=dev)
+        lv[s] = 0
+        front = torch.zeros(n, dtype=torch.bool, device=dev)
+        front[s] = True
+        for d in range(1, cap + 1):
+            nxt = torch.zeros(n, dtype=torch.bool, device=dev)
+            nxt[dst[front[src]]] = True
+            nxt &= lv < 0
+            if not bool(nxt.any()):
+                break
+            lv[nxt] = d
+            front = nxt
+        out[:, j] = lv
+    return out
+
+
+def check_paper_cell(shape: str, keep: dict, dev) -> dict:
+    """The card cell's levels and per-morsel trips against ``lane_bfs`` of
+    the cut edge set (every lane), and ``PAPER_SCIPY_LANES`` lanes against
+    ``scipy.sparse.csgraph.shortest_path`` on the host."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    t0 = time.perf_counter()
+    cell, bound, res = keep["cell"], keep["bound"], keep["result"]
+    cap = cell.config.max_iters
+    csr, n = bound.csr, bound.csr.n_nodes
+    levels, iters = res.state.levels, res.iterations
+    for m in range(bound.morsels.shape[0]):
+        ref = lane_bfs(csr, bound.morsels[m], cap, dev)
+        got = levels[m].to(dev)
+        exp = torch.where(ref >= 0, ref, 255).to(torch.uint8)
+        if not torch.equal(got[:n], exp):
+            bad = int((got[:n] != exp).sum())
+            fail(f"phase 11 {shape}: morsel {m} levels differ from the "
+                 f"independent BFS at {bad} entries")
+        if bool((got[n:] != 255).any()):
+            fail(f"phase 11 {shape}: a pad row is reached in morsel {m}")
+        live = ref.max() if bool((ref >= 0).any()) else None
+        want = 0 if live is None else min(cap, int(live) + 1)
+        if int(iters[m]) != want:
+            fail(f"phase 11 {shape}: morsel {m} ran {int(iters[m])} trips, "
+                 f"the BFS needs {want}")
+    a = csr_matrix((np.ones(csr.n_edges, np.float32), csr.indices,
+                    csr.indptr), shape=(n, n))
+    srcs = [int(x) for x in bound.sources[:PAPER_SCIPY_LANES]]
+    dist = shortest_path(a, method="D", unweighted=True, indices=srcs)
+    sp = np.where(dist <= cap, dist, 255).astype(np.uint8)
+    got = levels[0, :n, :len(srcs)].cpu().numpy().T
+    if not np.array_equal(got, sp):
+        fail(f"phase 11 {shape}: lanes {srcs} differ from scipy's BFS")
+    return {"seconds": time.perf_counter() - t0, "lanes": int(
+        levels.shape[-1]) * levels.shape[0], "scipy_lanes": len(srcs)}
+
+
+def phase_11(dev, launches_before) -> dict:
+    """The paper engine's Table 2 cells (``launch/dryrun.py``, the cell
+    builder of ``launch/steps.py``; no kernel: the cell's engine extends
+    by ``ell_push``, as JAX's ``build_engine`` default does)."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out_dir = str(ROOT / "results" / "dryrun_torch")
+    out = {"cells": {}, "layouts": {}, "reduced": []}
+    for shape in PAPER_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        keep = {}
+        cut = PAPER_CUTS.get(shape)
+        t1 = time.perf_counter()
+        rec = dryrun.run_cell(PAPER_ARCH, shape, "card", out_dir,
+                              force=True, device=dev, cut=cut, keep=keep)
+        if rec["status"] != "ok":
+            fail(f"phase 11 {shape}: {rec.get('error')}\n"
+                 f"{rec.get('traceback', '')}")
+        chk = check_paper_cell(shape, keep, dev)
+        # where a warm run's time goes (one more run, under the profiler)
+        prof = gnn_profile(keep["bound"]) if dev.type == "cuda" else None
+        keep.clear()
+        rl = rec["roofline"]
+        summary = {k: rec[k] for k in (
+            "notes", "n_nodes", "n_edges_generated", "n_edges_cut",
+            "wall_ms", "wall_ms_runs", "cold_ms", "bind_s", "iterations",
+            "edges_scanned", "gteps", "bound_ms",
+            "state_plus_contribution_bytes", "fits_80g_hbm")}
+        dims = cell_dims(shape)
+        summary.update(
+            published={k: dims[k] for k in ("n_nodes", "n_edges")},
+            peak_bytes=rec["memory"]["total_bytes_per_device"],
+            argument_bytes=rec["memory"]["argument_size_in_bytes"],
+            roofline={k: rl[k] for k in ("compute_s", "memory_s",
+                                         "collective_s", "dominant")},
+            check=chk, profile=prof, seconds=time.perf_counter() - t1)
+        if cut:
+            out["reduced"].append({"cell": shape, **cut,
+                                   "why": PAPER_CUT_WHY[shape]})
+        out["cells"][shape] = summary
+        print(f"phase 11: {shape} " + json.dumps(summary), flush=True)
+    for mesh_tag in ("single", "multi"):
+        for shape in PAPER_SHAPES:
+            rec = dryrun.run_cell(PAPER_ARCH, shape, mesh_tag, out_dir,
+                                  force=True)
+            if rec["status"] != "ok":
+                fail(f"phase 11d {shape} on {mesh_tag}: {rec.get('error')}")
+            out["layouts"][f"{shape}/{mesh_tag}"] = rec
+            print(f"phase 11: 11d {shape} {mesh_tag} " + json.dumps(rec),
+                  flush=True)
+    out["kernel_launches"] = launches_before()
+    if any(out["kernel_launches"].values()):
+        fail(f"phase 11 launched a port kernel: {out['kernel_launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 11: " + json.dumps({
+        "kernel_launches": out["kernel_launches"],
+        "reduced": out["reduced"], "seconds": out["seconds"]}), flush=True)
+    return out
+
+
+def cell_dims(shape: str) -> dict:
+    from repro_torch.configs import base
+
+    return next(s.dims for s in base.get(PAPER_ARCH).shapes
+                if s.name == shape)
 
 
 def main() -> int:
@@ -4154,6 +4330,11 @@ def main() -> int:
     recsys = phase_10(dev, lambda: {k: f.launches - before[k]
                                     for k, f in counters.items()})
 
+    # -- phase 11: the paper engine's Table 2 cells --------------------------
+    before = {k: f.launches for k, f in counters.items()}
+    paper = phase_11(dev, lambda: {k: f.launches - before[k]
+                                   for k, f in counters.items()})
+
     bp["shard"] = shard_times("binned_pull")
     mx["shard"] = shard_times("msbfs_extend")
     kernels = [
@@ -4240,6 +4421,11 @@ def main() -> int:
           f"ranks {max(r['pipeline']['ms'] for r in rd):.1f} ms, "
           f"compressed_psum {max(r['compressed_psum']['ms'] for r in rd):.1f}"
           f" ms; phase 10 {recsys['seconds']:.1f} s")
+    print("paper engine on the card: " + "; ".join(
+        f"{k} {v['n_nodes']} nodes {v['wall_ms']:.2f} ms "
+        f"{max(v['iterations'])} trips {v['gteps']:.3f} GTEPS (bound "
+        f"{v['bound_ms']:.3f} ms)" for k, v in paper["cells"].items())
+          + f"; phase 11 {paper['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

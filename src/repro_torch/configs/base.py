@@ -2,8 +2,8 @@
 
 Each arch module registers an ``ArchSpec`` carrying its full published config,
 a reduced smoke config, its shape set, and documented skips. The port's
-registry holds the LM, GNN and recsys families (``_ensure_loaded``); the
-paper engine's config (``repro.configs.paper_bfs``) is not ported.
+registry holds the LM, GNN and recsys families and the paper engine's
+Table 2 cells (``_ensure_loaded``), as JAX's does.
 """
 from __future__ import annotations
 
@@ -117,15 +117,18 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import (  # noqa: F401
-        dcn_v2,
+    # registration order is the registry's (and the dry-run list's) order,
+    # the JAX package's
+    from . import (  # noqa: F401  isort: skip
         deepseek_coder_33b,
-        equiformer_v2,
         gemma2_2b,
-        llama4_maverick,
-        mace,
         minicpm_2b,
         olmoe_1b_7b,
+        llama4_maverick,
+        mace,
+        equiformer_v2,
         pna,
         schnet,
+        dcn_v2,
+        paper_bfs,
     )

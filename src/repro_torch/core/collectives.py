@@ -120,11 +120,17 @@ class Wire:
             y = y.to(like.device)
         return y.view(torch.bool) if like.dtype == torch.bool else y
 
-    def _count(self, x: torch.Tensor, t0: float) -> None:
+    def _count(self, x: torch.Tensor, t0: float, kind: str, axis: str,
+               out_bytes: int | None = None) -> None:
+        """One call: its payload (``x``) in the totals, and its kind,
+        result bytes (``x``'s unless given) and group size by kind."""
         w = self.mesh.wire
+        nbytes = x.numel() * x.element_size()
         w.calls += 1
-        w.bytes += x.numel() * x.element_size()
+        w.bytes += nbytes
         w.ms += (time.perf_counter() - t0) * 1e3
+        w.record(kind, nbytes if out_bytes is None else out_bytes,
+                 self.mesh.shape[axis])
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """[K, *x.shape]: every rank's ``x`` along ``axis``, by coordinate."""
@@ -134,7 +140,8 @@ class Wire:
         outs = [torch.empty_like(wx) for _ in range(k)]
         dist.all_gather(outs, wx, group=self.mesh.group(axis))
         out = self._from_wire(torch.stack(outs), x)
-        self._count(x, t0)
+        self._count(x, t0, "all-gather", axis,
+                    out_bytes=k * x.numel() * x.element_size())
         return out
 
     def all_reduce(self, x: torch.Tensor, axis: str, op) -> torch.Tensor:
@@ -148,7 +155,7 @@ class Wire:
         wx = self._to_wire(x).clone()
         dist.all_reduce(wx, op=op, group=self.mesh.group(axis))
         out = self._from_wire(wx, x)
-        self._count(x, t0)
+        self._count(x, t0, "all-reduce", axis)
         return out
 
     def shift(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -169,7 +176,7 @@ class Wire:
         for r in reqs:
             r.wait()
         out = self._from_wire(got, x)
-        self._count(x, t0)
+        self._count(x, t0, "collective-permute", axis)
         return out
 
 

@@ -18,6 +18,12 @@ memory and counts the bytes).
 
 ``run_ranks`` spawns a group of ranks on this host (tests, the smoke
 script), each under a hang timeout that dumps its traceback and exits.
+
+``make_production_mesh`` gives JAX's production meshes (16 x 16 ranks,
+or 2 x 16 x 16 across two pods) as a ``MeshLayout``: axis names and
+sizes only. One process cannot hold 256 or 512 ranks, so a layout has no
+ranks, groups or device; the cell builder and the dry-run read shard
+counts from it, and running a cell needs a real ``Mesh``.
 """
 from __future__ import annotations
 
@@ -46,16 +52,28 @@ DEFAULT_TIMEOUT_S = 300
 class WireStats:
     """What the collectives moved on one rank: calls, payload bytes,
     bytes staged through host memory (gloo with CUDA tensors, both ways)
-    and host wall milliseconds spent inside them."""
+    and host wall milliseconds spent inside them. ``by_kind`` keeps the
+    same calls by collective kind (JAX's HLO names: ``all-reduce``,
+    ``all-gather``, ``collective-permute``, ...) and group size:
+    ``{kind: {group: [calls, result bytes]}}`` (JSON-ready, like the
+    rest), what ``launch.hlo_analysis.collective_stats`` reads."""
 
     calls: int = 0
     bytes: int = 0
     staged_bytes: int = 0
     ms: float = 0.0
+    by_kind: dict = dataclasses.field(default_factory=dict)
+
+    def record(self, kind: str, out_bytes: int, group: int) -> None:
+        rec = self.by_kind.setdefault(kind, {}).setdefault(int(group),
+                                                           [0, 0])
+        rec[0] += 1
+        rec[1] += int(out_bytes)
 
     def reset(self) -> None:
         self.calls = self.bytes = self.staged_bytes = 0
         self.ms = 0.0
+        self.by_kind = {}
 
 
 class Mesh:
@@ -165,6 +183,39 @@ class Axes:
             if self.mesh.shape.get(a, 1) > 1:
                 idx = idx * self.mesh.shape[a] + self.mesh.coord(a)
         return idx
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A mesh's axis names and sizes, with ``shape`` and ``size`` as on
+    ``Mesh``, and no ranks, groups or device."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return int(math.prod(self.axis_sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
+    """JAX's production mesh as a layout: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``."""
+    if multi_pod:
+        return MeshLayout(("pod", "data", "model"), (2, 16, 16))
+    return MeshLayout(("data", "model"), (16, 16))
+
+
+def batch_axes(multi_pod: bool = False):
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def all_axes(multi_pod: bool = False):
+    return ("pod", "data", "model") if multi_pod else ("data", "model")
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],

@@ -24,24 +24,40 @@ logits) or a retrieval step (one query against seeded candidates, top
 ``build(arch_id, shape_name, generator, device)`` gives either family's
 cell, model, AdamW state and step on ``device``.
 
-Left out: the mesh shardings and edge slabs of a cell, the dry-run's
-lowering and HLO analysis, and the LM and paper-engine cells (ROADMAP
-section 1). ``cell_batch`` and ``recsys_batch`` make seeded batches of a
-cell's shapes, for tests and the smoke run (JAX's cells carry abstract
-shapes only).
+Paper engine (``_paper_cell``): ``build_cell(arch_id, shape_name, mesh,
+multi_pod)`` is JAX's entry point. For the ``paper`` family it makes
+JAX's decisions one for one (row padding, policy, state layout, engine,
+source morsels, model FLOPs, iteration scale, notes) on a ``Mesh`` of
+ranks, whose cell holds the engine, or on a ``MeshLayout`` of JAX's
+production meshes, whose cell holds the decisions only. Its arguments
+are ``meta`` tensors (``sds``). Nothing is lowered: ``bind_cell`` binds
+a cell to the shape's seeded graph and sources on a ``Mesh`` instead.
+
+Left out: the LM cells, the mesh shardings of the GNN and recsys cells
+and the GNN edge slabs (``build_cell`` raises for those families until
+the logical-axis rules are ported; ROADMAP section 1). ``cell_batch``
+and ``recsys_batch`` make seeded batches of a cell's shapes, for tests
+and the smoke run (JAX's cells carry abstract shapes only).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from ..configs import base as cfgbase
+from ..core.dispatcher import build_engine, pad_sources
+from ..core.policies import POLICIES
 from ..data.pipeline import RecsysStream
+from ..graph.csr import CSRGraph, EllGraph, ell_shard, truncate_csr
+from ..graph.generators import erdos_renyi, pick_sources, powerlaw, rmat
+from ..graph.partition import padded_n
 from ..graph.sampler import tree_edges
 from ..kernels.common import resolve_device
+from .mesh import Mesh, batch_axes
 from ..models import dcn_v2 as dcn
 from ..models.gnn import equiformer_v2 as eqv2_m
 from ..models.gnn import mace as mace_m
@@ -404,3 +420,215 @@ def retrieval_candidates(cell: RecsysCell, generator) -> torch.Tensor:
     embeddings drawn from ``generator``, on its device."""
     return torch.randn((cell.n_candidates, cell.cfg.retrieval_dim),
                        generator=generator, device=generator.device)
+
+
+# =========================================================================
+# paper engine (the paper's own contribution at published graph scale)
+# =========================================================================
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch, shape) cell on a mesh: JAX's fields (``in_shardings``,
+    ``prejitted``, ``donate`` and ``out_shardings`` carry their defaults;
+    nothing is jitted or lowered), plus what the port's binder and
+    dry-run read: the engine config, the shape's dims and the cell's
+    decisions."""
+
+    arch_id: str
+    shape_name: str
+    kind: str
+    fn: Optional[Callable]  # engine(graph, morsels) on a Mesh; None on a layout
+    args: tuple  # meta-device tensors: (EllGraph, morsels)
+    in_shardings: Any  # None: the engine places its own shards
+    model_flops: float  # analytic useful FLOPs per step execution
+    iters_scale: float = 1.0  # roofline multiplier for dynamic while bodies
+    notes: str = ""
+    prejitted: bool = False
+    donate: tuple = ()
+    out_shardings: Any = None
+    config: Any = None
+    dims: Optional[dict] = None
+    decisions: Optional[dict] = None
+
+
+def sds(shape, dtype) -> torch.Tensor:
+    """An abstract argument: a ``meta``-device tensor (shape and dtype,
+    no storage), the port's ``jax.ShapeDtypeStruct``."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _axes_size(mesh, axes) -> int:
+    return int(math.prod(mesh.shape[a] for a in axes)) if axes else 1
+
+
+def _paper_cell(spec, shape, mesh, multi_pod: bool,
+                state_layout: str | None = None,
+                or_impl: str | None = None) -> Cell:
+    """JAX's ``_paper_cell``, decision for decision. On a ``Mesh`` the
+    cell's ``fn`` is the engine; on a ``MeshLayout`` (no ranks) it is
+    None and ``notes`` says why."""
+    cfg = spec.full_config()
+    dims = shape.dims
+    n, avg_deg = dims["n_nodes"], dims["avg_degree"]
+    sa = batch_axes(multi_pod)
+    ga = ("model",)
+    or_impl = or_impl or cfg.or_impl
+    policy = POLICIES[cfg.policy](
+        source_axes=sa, graph_axes=ga, or_impl=or_impl
+    )
+    shards = _axes_size(mesh, ga)
+    n_pad = padded_n(n, shards, block=32)
+    max_deg = cfg.max_deg_cap
+    # memory-driven default: replicated per-node state for a 64-lane morsel
+    # is 3·64 B/node, its contribution 4·64 B/node (JAX's count); past 8 GB
+    # the sharded-state engine takes over
+    if state_layout is None:
+        lanes = policy.lanes if policy.is_multi_source else 1
+        repl_bytes = n_pad * (3 * lanes + 4 * lanes)  # state + contribution
+        state_layout = "sharded" if repl_bytes > 8e9 else "replicated"
+    src_shards = _axes_size(mesh, sa)
+    morsels_shape = pad_sources(
+        np.arange(cfg.n_sources, dtype=np.int32), src_shards,
+        policy.lanes, n_pad,
+    ).shape
+    graph = EllGraph(
+        indices=sds((n_pad, max_deg), torch.int32),
+        degrees=sds((n_pad,), torch.int32),
+        weights=None,
+    )
+    morsels = sds(morsels_shape, torch.int32)
+    lanes = policy.lanes
+    # useful work: one edge visit per lane per scanned edge per iteration;
+    # expected iterations ~ BFS diameter (cfg.max_iters caps it)
+    edges_scanned = n * min(avg_deg, max_deg)
+    flops = 2.0 * edges_scanned * lanes
+    notes = (
+        f"policy={policy.name} or={or_impl} state={state_layout} "
+        f"lanes={lanes} n_pad={n_pad} max_deg={max_deg}"
+    )
+    fn = None
+    if isinstance(mesh, Mesh):
+        fn = build_engine(
+            mesh, policy, cfg.edge_compute, n_pad, cfg.max_iters,
+            state_layout=state_layout, extend="ell_push",
+        )
+    else:
+        notes += (f" (fn=None: a layout of {mesh.size} ranks, which one "
+                  "process cannot hold; run the cell on a Mesh)")
+    return Cell(
+        spec.arch_id, f"{shape.name}", "query", fn,
+        (graph, morsels), None, flops,
+        iters_scale=float(cfg.max_iters),
+        notes=notes,
+        config=cfg,
+        dims=dict(dims),
+        decisions=dict(
+            policy=policy.name, or_impl=or_impl, state_layout=state_layout,
+            lanes=lanes, n_pad=n_pad, max_deg=max_deg,
+            source_shards=src_shards, graph_shards=shards,
+            n_morsels=int(morsels_shape[0]),
+            edge_compute=cfg.edge_compute, max_iters=cfg.max_iters,
+        ),
+    )
+
+
+def build_cell(arch_id: str, shape_name: str, mesh, multi_pod: bool,
+               **overrides) -> Cell:
+    """JAX's ``build_cell``: the (arch, shape) cell on ``mesh`` (a ``Mesh``
+    or a ``MeshLayout``). Raises on a documented skip. The paper family
+    is ported; the LM, GNN and recsys mesh cells need the logical-axis
+    rules and raise ``NotImplementedError``."""
+    spec = cfgbase.get(arch_id)
+    shape = {s.name: s for s in spec.shapes}[shape_name]
+    if shape_name in spec.skips:
+        raise ValueError(
+            f"{arch_id} x {shape_name} is a documented skip: "
+            f"{spec.skips[shape_name]}"
+        )
+    if spec.family == "paper":
+        return _paper_cell(spec, shape, mesh, multi_pod, **overrides)
+    if spec.family in ("lm", "gnn", "recsys"):
+        raise NotImplementedError(
+            f"the {spec.family} family's mesh cells wait for the "
+            "logical-axis rules (ROADMAP section 1, next item); "
+            "gnn_cell and recsys_cell run one card"
+        )
+    raise ValueError(spec.family)
+
+
+#: each Table 2 dataset's seeded generator family (``graph.generators``),
+#: with its degree law and seed; the node count is the shape's
+PAPER_GRAPHS = {
+    "ldbc100": (powerlaw, dict(avg_degree=22.0, alpha=1.8, seed=0)),
+    "livejournal": (powerlaw, dict(avg_degree=7.0, alpha=2.1, seed=1)),
+    "spotify": (erdos_renyi, dict(avg_degree=267.0, seed=2)),
+    "graph500_28": (rmat, dict(edge_factor=17, seed=3)),
+}
+
+
+def paper_graph(shape_name: str, n_nodes: int) -> CSRGraph:
+    """The seeded graph of a paper shape at ``n_nodes`` nodes (the
+    shape's own count, or a cut). RMAT makes ``2^scale`` nodes, so a
+    ``graph500_28`` count must be a power of two."""
+    gen, kw = PAPER_GRAPHS[shape_name]
+    if gen is rmat:
+        scale = int(n_nodes).bit_length() - 1
+        if 1 << scale != n_nodes:
+            raise ValueError(f"rmat makes 2^scale nodes; {n_nodes} is not "
+                             "a power of two")
+        return rmat(scale, **kw)
+    return gen(int(n_nodes), **kw)
+
+
+@dataclasses.dataclass
+class BoundCell:
+    """A cell bound to real inputs on one rank of a ``Mesh``: this rank's
+    rows of the forward ELL (cut at ``max_deg_cap``) on its device and
+    the padded source morsels. Calling it runs the engine."""
+
+    cell: Cell
+    graph: EllGraph
+    morsels: np.ndarray
+    csr: CSRGraph  # the cut edge set the engine scans (host)
+    sources: np.ndarray
+    n_edges_generated: int  # before the cut
+
+    def __call__(self):
+        return self.cell.fn(self.graph, self.morsels)
+
+    @property
+    def argument_bytes(self) -> int:
+        g = self.graph
+        return (g.indices.numel() * g.indices.element_size()
+                + g.degrees.numel() * g.degrees.element_size()
+                + self.morsels.nbytes)
+
+
+def bind_cell(cell: Cell, mesh: Mesh, csr: Optional[CSRGraph] = None,
+              seed: int = 0) -> BoundCell:
+    """Bind a paper cell built on ``mesh`` to real inputs: ``csr`` (by
+    default the shape's seeded graph at its ``n_nodes``), its forward ELL
+    cut at ``max_deg_cap`` (this rank's row block over the graph axes,
+    on ``mesh.device``), and ``pick_sources`` of ``n_sources`` on the cut
+    edge set, padded by ``pad_sources``. Returns the callable."""
+    if cell.fn is None:
+        raise ValueError(f"cell {cell.shape_name} has no engine: "
+                         f"{cell.notes}")
+    cfg, d = cell.config, cell.decisions
+    if csr is None:
+        csr = paper_graph(cell.shape_name, cell.dims["n_nodes"])
+    n_pad, cap = d["n_pad"], d["max_deg"]
+    if csr.n_nodes > n_pad:
+        raise ValueError(f"a graph of {csr.n_nodes} nodes does not fit the "
+                         f"cell's {n_pad} rows")
+    cut = truncate_csr(csr, cap)
+    ga = mesh.axes(("model",))
+    rows = n_pad // ga.size
+    lo = ga.index() * rows
+    indices, degrees, _ = ell_shard(cut, lo, lo + rows, cap, n_pad)
+    graph = EllGraph(indices=torch.from_numpy(indices).to(mesh.device),
+                     degrees=torch.from_numpy(degrees).to(mesh.device))
+    sources = pick_sources(cut, cfg.n_sources, seed=seed)
+    morsels = pad_sources(sources, d["source_shards"], d["lanes"], n_pad)
+    return BoundCell(cell, graph, morsels, cut, sources, csr.n_edges)

@@ -107,6 +107,10 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   distinct. ``pipeline_apply`` and ``compressed_psum`` on two gloo ranks
   sharing the card against the same ranks on the CPU: the pipeline
   within 1e-6, the compressed sums and residuals bitwise.
+- The paper engine's cell (``launch/steps.build_cell``) on a one-rank
+  card mesh against the CPU's on one seeded graph, both state layouts:
+  levels and trips bitwise; a card dry-run record (``launch/dryrun``)
+  with measured memory and wall ms.
 """
 import dataclasses
 
@@ -1282,3 +1286,38 @@ def test_pipeline_and_compressed_psum_on_card_ranks_match_cpu(cuda_device):
             if "/" in key:
                 np.testing.assert_array_equal(card[r][key], want,
                                               err_msg=key)
+
+
+def test_paper_cell_on_card_matches_cpu(cuda_device, tmp_path):
+    """The paper engine's cell (``launch.steps.build_cell``) on a one-rank
+    card mesh against the same cell on the CPU, on one seeded graph:
+    levels and trips bitwise; and a card dry-run record of a cut cell
+    with measured memory and wall ms."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+
+    csr = powerlaw(3000, 4.0, alpha=2.1, seed=5)
+    shape = ShapeSpec("tiny", "query", dict(n_nodes=3000, n_edges=0,
+                                            avg_degree=8))
+    spec = steps.cfgbase.get("paper-bfs-engine")
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        for layout in ("replicated", "sharded"):
+            cell = steps._paper_cell(spec, shape, mesh, False,
+                                     state_layout=layout)
+            bound = steps.bind_cell(cell, mesh, csr)
+            assert bound.graph.indices.device.type == mesh.device.type
+            res = bound()
+            runs[(str(dev), layout)] = (res.state.levels.cpu(),
+                                        res.iterations.cpu())
+    for layout in ("replicated", "sharded"):
+        (a, ia), (b, ib) = runs[("cpu", layout)], runs[(str(cuda_device),
+                                                        layout)]
+        assert torch.equal(a, b) and torch.equal(ia, ib), layout
+    rec = dryrun.run_cell("paper-bfs-engine", "ldbc100", "card",
+                          str(tmp_path), cut={"n_nodes": 3000})
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["memory"]["total_bytes_per_device"] > 0
+    assert rec["wall_ms"] > 0 and rec["device"].startswith("cuda")

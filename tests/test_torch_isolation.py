@@ -39,6 +39,11 @@
   ``steps.build`` of a recsys cell raise without a GPU unless
   ``device="cpu"`` (``steps.recsys_cell`` is a config and takes no
   device).
+- The paper cells and their dry-run (``configs/paper_bfs.py``,
+  ``launch/hlo_analysis.py``, ``launch/dryrun.py``) are in the scan, and
+  importing the dry-run leaves ``jax`` unloaded; a ``--mesh card`` run
+  without a GPU records "CUDA is not available" and fails, and the cell
+  builder needs a mesh on the card unless it is given ``"cpu"``.
 """
 import ast
 import os
@@ -121,6 +126,8 @@ GNN_MODULES = ("graph/sampler.py", "models/gnn/__init__.py",
 RECSYS_MODULES = ("nn/embedding_bag.py", "models/dcn_v2.py",
                   "configs/dcn_v2.py", "optim/compression.py",
                   "parallel/__init__.py", "parallel/pipeline.py")
+PAPER_MODULES = ("configs/paper_bfs.py", "launch/hlo_analysis.py",
+                 "launch/dryrun.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -133,6 +140,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert set(TRAIN_MODULES) <= scanned
     assert set(GNN_MODULES) <= scanned
     assert set(RECSYS_MODULES) <= scanned
+    assert set(PAPER_MODULES) <= scanned
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files for mod in absolute_imports(p)
@@ -579,3 +587,37 @@ def test_recsys_entry_points_raise_without_cuda_unless_cpu(shape, no_cuda):
     assert all(p.device.type == "meta" for p in full.parameters())
     with pytest.raises(ValueError, match="Generator"):
         dcn_v2.init(cfg, None, "cpu")
+
+
+def test_dryrun_import_leaves_jax_unloaded():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hlo_analysis, repro_torch.configs.paper_bfs; "
+            "repro_torch.launch.dryrun.iter_cells(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "raise SystemExit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_paper_cell_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    import json
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+
+    rc = dryrun.main(["--arch", "paper-bfs-engine", "--shape", "ldbc100",
+                      "--mesh", "card", "--out", str(tmp_path)])
+    assert rc == 1
+    rec = json.loads((tmp_path / "paper-bfs-engine__ldbc100__card.json")
+                     .read_text())
+    assert rec["status"] == "error"
+    assert "CUDA is not available" in rec["error"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh((1, 1), ("data", "model"))
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    cell = steps.build_cell("paper-bfs-engine", "ldbc100", mesh, False)
+    assert cell.fn.device.type == "cpu"
+    assert cell.args[0].indices.device.type == "meta"

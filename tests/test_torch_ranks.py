@@ -819,3 +819,67 @@ def card_parallel_rank(rank: int, world: int) -> dict:
             out[f"{step}/residual/{k}"] = state.residual[k].cpu().numpy()
     out["staged"] = pipe.wire.staged_bytes + data.wire.staged_bytes
     return out
+
+
+# ---------------------------------------------------------------------------
+# The paper engine's cell (launch.steps._paper_cell) on gloo ranks.
+# ---------------------------------------------------------------------------
+
+PAPER_N = 3000
+#: (mesh shape, config, state layout) a world of ranks runs
+PAPER_CASES = {
+    2: (((1, 2), "full", "replicated"), ((1, 2), "full", "sharded"),
+        ((1, 2), "smoke", "sharded")),
+    4: (((2, 2), "full", "replicated"), ((2, 2), "full", "sharded"),
+        ((2, 2), "smoke", "replicated"), ((1, 4), "full", "sharded")),
+}
+
+
+def paper_graph(powerlaw):
+    """The seeded graph every paper-cell test shares."""
+    return powerlaw(PAPER_N, 4.0, alpha=2.1, seed=5)
+
+
+def paper_spec(base, config: str):
+    """The paper arch with ``full_config`` as given (``_paper_cell``
+    builds from ``full_config``, in JAX and in the port)."""
+    import dataclasses
+
+    spec = base.get("paper-bfs-engine")
+    if config == "smoke":
+        spec = dataclasses.replace(spec, full_config=spec.smoke_config)
+    return spec
+
+
+def paper_shape(ShapeSpec):
+    return ShapeSpec("tiny", "query", dict(n_nodes=PAPER_N, n_edges=0,
+                                           avg_degree=8))
+
+
+def paper_cell_rank(rank: int, world: int) -> dict:
+    """Each case of ``PAPER_CASES[world]``: the cell built on the rank's
+    mesh, bound to ``paper_graph`` and run; its global levels, trips,
+    notes and collective counts by kind."""
+    from repro_torch.configs import base
+    from repro_torch.graph.generators import powerlaw
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import collective_stats
+    from repro_torch.launch.mesh import make_mesh
+
+    csr = paper_graph(powerlaw)
+    out = {}
+    for shape, config, layout in PAPER_CASES[world]:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        cell = steps._paper_cell(paper_spec(base, config),
+                                 paper_shape(base.ShapeSpec), mesh, False,
+                                 state_layout=layout)
+        bound = steps.bind_cell(cell, mesh, csr)
+        mesh.wire.reset()
+        res = bound()
+        name = f"{shape[0]}x{shape[1]}/{config}/{layout}"
+        out[f"{name}/levels"] = res.state.levels.numpy()
+        out[f"{name}/iterations"] = res.iterations.numpy()
+        out[f"{name}/notes"] = cell.notes
+        st = collective_stats(mesh.wire)
+        out[f"{name}/counts"] = {k: v for k, v in st.counts.items() if v}
+    return out

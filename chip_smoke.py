@@ -252,7 +252,27 @@ Phases (any failure exits non-zero and prints no result):
    and one more run under ``torch.profiler`` (device busy ms, idle share,
    the five largest kernels);
    11d the ``single`` and ``multi`` dry-run records of the four cells
-   (analytic: decisions, per-device bytes, roofline).
+   (analytic: decisions, per-device bytes, roofline);
+12. the LM serving cells on a mesh of ranks (``launch/steps.py``'s LM
+   cells, ``models/transformer_mesh.py``): MiniCPM-2B at full width in
+   bfloat16 (seed 0) on a ``(2, 2)`` ``("data", "model")`` mesh of four
+   gloo ranks sharing the card (``run_ranks``, as phase 7). Each rank
+   builds the model and cuts it with ``steps.shard_lm`` (every block
+   checked against its spec's slice, cut a second way); a cold and a
+   warm ``prefill_32k`` cut to 4 x 4,096 (2 rows a data rank, the
+   sequence over ``model``: FSDP gathers on ``data``, the SP gathers and
+   reduce-scatters on ``model``, head-parallel attention through
+   ``mha``), its caches in the decode cell's layout (4 x 4,128 slots, W
+   over ``model``), then 8 decode steps fed a one-rank run's greedy
+   tokens. Held against that one-rank run of the same weights on the
+   card: each logits row's cosine similarity at least 0.999 (phase 6b's
+   bfloat16 tolerance) and the greedy token equal wherever the one-rank
+   top-2 margin exceeds twice the row's largest difference; ``mha``
+   launches 40 times a prefill on every rank and the other three
+   kernels not at all. Prints prefill ms, decode ms a step and tokens/s
+   beside the one-rank run's and phase 6b's, and per rank the
+   collectives' ms, payload and staged bytes by kind and peak device
+   memory.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -262,11 +282,13 @@ for ``spmm``, ``wgmma`` for bf16 attention; ``binned_pull`` also carries
 object with that op's launches and timings and a ``lanes`` object with
 the lane ops' timings and their library yardstick; ``flash_attention``
 carries a ``served`` object (phase 6b's launches, and ``mha`` at the
-served shape beside SDPA and its bound); ``binned_pull`` and
+served shape beside SDPA and its bound) and a ``mesh`` object (phase
+12's launches a prefill on each rank); ``binned_pull`` and
 ``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), phase 8's
 ``phase 8:``, phase 9's ``phase 9:``, phase 10's ``phase 10:`` and
-phase 11's ``phase 11:`` JSON lines, the card's name
+phase 11's ``phase 11:`` and phase 12's ``phase 12:`` JSON lines, the
+card's name
 and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3556,6 +3578,315 @@ def phase_11(dev, launches_before) -> dict:
     return out
 
 
+# -- phase 12: the LM serving cells on a mesh of ranks -------------------------
+
+PHASE12_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
+PHASE12_STEPS = 8  # decode steps against the 4 x 4,128 cache
+PHASE12_TIMEOUT_S = 600  # the rank group, or it fails
+#: mesh against one rank, bfloat16: phase 6b's tolerance for the kernel
+#: route against the scan route, a logits row's cosine similarity; greedy
+#: tokens must agree wherever the one-rank top-2 margin exceeds twice the
+#: row's largest logit difference (no difference that small can swap them)
+PHASE12_COS = LM_COS
+
+
+def phase12_cells(mesh):
+    """MiniCPM-2B's prefill and decode cells at the phase's cuts:
+    ``prefill_32k`` 32 x 32,768 -> 4 x 4,096 and ``decode_32k``'s cache
+    128 x 32,768 -> 4 x 4,128 (``LM_PROMPTS``, ``LM_STEPS``' cache)."""
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+
+    spec = base.get(LM_ARCH)
+    b, s = LM_PROMPTS
+    shapes = {x.name: x for x in spec.shapes}
+    pre = dataclasses.replace(shapes["prefill_32k"], dims=dict(
+        seq_len=s, global_batch=b))
+    dec = dataclasses.replace(shapes["decode_32k"], dims=dict(
+        seq_len=s + LM_STEPS, global_batch=b))
+    return (steps._lm_cell(spec, pre, mesh, False),
+            steps._lm_cell(spec, dec, mesh, False))
+
+
+def _spec_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``, cut with ``chunk`` (a
+    second way than ``nn.module.block_of``'s slices)."""
+    for d, part in enumerate(spec):
+        axes = (part,) if isinstance(part, str) else tuple(part or ())
+        idx, k = 0, 1
+        for a in axes:
+            idx = idx * mesh.shape[a] + mesh.coord(a)
+            k *= mesh.shape[a]
+        if k > 1:
+            t = t.chunk(k, dim=d)[idx]
+    return t
+
+
+def _wire(mesh) -> dict:
+    w = mesh.wire
+    return {"calls": w.calls, "payload_bytes": w.bytes,
+            "staged_bytes": w.staged_bytes, "ms": w.ms,
+            "by_kind": {k: {str(g): v for g, v in d.items()}
+                        for k, d in w.by_kind.items()},
+            "by_axis": w.by_axis, "staged_by_kind": dict(w.staged_by_kind)}
+
+
+def phase12_rank(rank: int, world: int, prompts: np.ndarray,
+                 forced: np.ndarray, device: str) -> dict:
+    """One of four gloo ranks sharing the card: MiniCPM-2B (seed 0, as
+    the one-rank run) cut by ``steps.shard_lm`` on the ``(2, 2)`` mesh,
+    every block checked against the spec's slice; a cold and a warm
+    prefill of ``prompts`` into the decode cell's cache layout, then
+    ``PHASE12_STEPS`` decode steps fed ``forced`` (the one-rank run's
+    greedy tokens). Returns the global logits (rank 0), timings, kernel
+    launches, the collectives of the warm prefill and of the decode, and
+    peak device memory."""
+    from repro_torch.kernels.block_spmm import block_spmm as bs_mod
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.module import gather_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    counters = {"binned_pull": bp_mod.fused_binned_pull,
+                "msbfs_extend": mx_mod.msbfs_extend_blocks,
+                "block_spmm": bs_mod.block_spmm,
+                "flash_attention": fa_mod.flash_attention}
+    mesh = make_mesh(PHASE12_MESH, ("data", "model"), dev)
+    pcell, dcell = phase12_cells(mesh)
+    cfg = pcell.config
+    t0 = time.perf_counter()
+    model = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    whole = dict(model.named_parameters())
+    steps.shard_lm(pcell, model, mesh)
+    blocks_ok, sharded = True, 0
+    for name, p in model.named_parameters():
+        want = _spec_block(whole[name], model.shard_specs[name], mesh)
+        blocks_ok &= torch.equal(p, want)
+        sharded += p.shape != whole[name].shape
+    del whole, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    toks = torch.from_numpy(prompts).to(dev)
+    feed = torch.from_numpy(forced).to(dev)
+    b, s = prompts.shape
+    out = {"rank": rank, "coords": {a: mesh.coord(a)
+                                    for a in mesh.axis_names},
+           "blocks_equal_spec": bool(blocks_ok), "sharded_params": sharded,
+           "init_s": init_s}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+        attn.route_calls.update(dict.fromkeys(attn.route_calls, 0))
+
+    def prefill():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pcell.fn(model, toks, max_seq=s + LM_STEPS)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    zero()
+    (_, caches), cold_ms = prefill()
+    del caches
+    out["cold_launches"] = {k: f.launches for k, f in counters.items()}
+    zero()
+    mesh.wire.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (logits, caches), warm_ms = prefill()
+    out["prefill_wire"] = _wire(mesh)
+    out["launches"] = {k: f.launches for k, f in counters.items()}
+    out["route_calls"] = dict(attn.route_calls)
+    out["prefill_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    spec = pcell.decisions["out_specs"][0]
+    rows = [gather_block(logits, spec, mesh)[:, :cfg.vocab].float().cpu()]
+    zero()
+    mesh.wire.reset()
+    step_ms = []
+    for t in range(feed.shape[1]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        o, caches = dcell.fn(model, caches, feed[:, t:t + 1], s + t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        rows.append(gather_block(o[:, 0], spec, mesh)[:, :cfg.vocab]
+                    .float().cpu())
+    out["decode_wire"] = _wire(mesh)  # the logits' gathers included
+    out["decode_launches"] = {k: f.launches for k, f in counters.items()}
+    out.update(prefill_cold_ms=cold_ms, prefill_ms=warm_ms,
+               decode_step_ms=step_ms,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               cache_block=list(caches[0].k.shape),
+               digest=_digest(torch.stack(rows).numpy()))
+    if rank == 0:
+        out["logits"] = [r.numpy() for r in rows]
+    return out
+
+
+def phase_12(dev, one_rank_6b=None) -> dict:
+    """MiniCPM-2B's prefill and decode cells sharded over a ``(2, 2)``
+    mesh of four gloo ranks sharing the card, against a one-rank run of
+    the same weights on the card (the steps in the module docstring)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.nn import attention as attn
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa = fa_mod.flash_attention
+    cfg = lm_config()
+    b, s = LM_PROMPTS
+    max_seq = s + LM_STEPS
+    rng = np.random.default_rng(12)
+    prompts = rng.integers(0, cfg.vocab, (b, s))
+    # the one-rank reference: the same seeded weights, greedy decode
+    model = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(prompts).to(dev)
+    tfm.prefill(model, cfg, toks, max_seq=max_seq)  # cold
+    torch.cuda.synchronize()
+    launches = fa.launches
+    t1 = time.perf_counter()
+    last, caches = tfm.prefill(model, cfg, toks, max_seq=max_seq)
+    torch.cuda.synchronize()
+    one = {"prefill_ms": (time.perf_counter() - t1) * 1e3,
+           "launches": fa.launches - launches}
+    ref = [last[:, :cfg.vocab].float()]
+    fed, step_ms = [], []
+    for t in range(PHASE12_STEPS):
+        tok = ref[-1].argmax(-1, keepdim=True)
+        fed.append(tok)
+        t1 = time.perf_counter()
+        o, caches = tfm.decode(model, cfg, caches, tok, s + t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        ref.append(o[:, 0, :cfg.vocab].float())
+    one["decode_ms_per_step"] = float(np.median(step_ms))
+    one["decode_step_ms"] = step_ms
+    ref = [r.cpu() for r in ref]
+    forced = torch.cat(fed, dim=1).cpu().numpy()
+    del model, last, caches, o, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    if one["launches"] != cfg.n_layers:
+        fail(f"phase 12: the one-rank prefill launched mha "
+             f"{one['launches']} times, not {cfg.n_layers}")
+    # the mesh
+    t1 = time.perf_counter()
+    reps = run_ranks(phase12_rank, RANKS, (prompts, forced, f"{DEVICE}:0"),
+                     backend="gloo", timeout_s=PHASE12_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t1
+    if len({r["digest"] for r in reps}) != 1:
+        fail("phase 12: the ranks' gathered logits differ")
+    got = [torch.from_numpy(x) for x in reps[0]["logits"]]
+    rows = []
+    for t, (g, r) in enumerate(zip(got, ref)):
+        cos = torch.nn.functional.cosine_similarity(g.double(), r.double(),
+                                                    dim=-1)
+        delta = (g - r).abs().max(dim=-1).values
+        top2 = r.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        clear = margin > 2 * delta
+        agree = g.argmax(-1) == r.argmax(-1)
+        rows.append({"step": t, "min_cosine": float(cos.min()),
+                     "max_abs": float(delta.max()),
+                     "max_rel": float(delta.max() / r.abs().max()),
+                     "tokens_clear": int(clear.sum()),
+                     "tokens_equal": int(agree.sum()),
+                     "clear_and_unequal": int((clear & ~agree).sum())})
+        if float(cos.min()) < PHASE12_COS or bool((clear & ~agree).any()):
+            fail(f"phase 12: mesh against one rank at step {t}: "
+                 f"{rows[-1]}")
+        if not torch.isfinite(g).all():
+            fail(f"phase 12: mesh logits not finite at step {t}")
+    n_l = cfg.n_layers
+    for r in reps:
+        if not r["blocks_equal_spec"] or not r["sharded_params"]:
+            fail(f"phase 12: rank {r['rank']}'s parameter blocks are not "
+                 "the spec's slices")
+        for what in ("cold_launches", "launches"):
+            want = {"binned_pull": 0, "msbfs_extend": 0, "block_spmm": 0,
+                    "flash_attention": n_l}
+            if r[what] != want:
+                fail(f"phase 12: rank {r['rank']} {what} {r[what]}, not "
+                     f"{want}")
+        if r["route_calls"] != {"kernel": n_l, "scan": 0}:
+            fail(f"phase 12: rank {r['rank']} route calls "
+                 f"{r['route_calls']}")
+        if any(r["decode_launches"].values()):
+            fail(f"phase 12: rank {r['rank']} decode launched "
+                 f"{r['decode_launches']}")
+        ax = r["prefill_wire"]["by_axis"]
+        if not (ax.get("data", {}).get("all-gather", [0])[0] > 0
+                and ax.get("model", {}).get("all-gather", [0])[0] > 0
+                and ax.get("model", {}).get("reduce-scatter", [0])[0] > 0):
+            fail(f"phase 12: rank {r['rank']} collectives by axis {ax}")
+    prefill_ms = max(r["prefill_ms"] for r in reps)
+    step = float(np.median([max(r["decode_step_ms"][t] for r in reps)
+                            for t in range(PHASE12_STEPS)]))
+    for r in reps:
+        r.pop("logits", None)
+    out = {
+        "arch": cfg.name, "mesh": list(PHASE12_MESH), "dtype": "bfloat16",
+        "prompts": [b, s], "max_seq": max_seq,
+        "decode_steps": PHASE12_STEPS,
+        "prefill_ms": prefill_ms,
+        "prefill_cold_ms": max(r["prefill_cold_ms"] for r in reps),
+        "prefill_tokens_per_s": b * s / (prefill_ms / 1e3),
+        "decode_ms_per_step": step,
+        "decode_tokens_per_s": b / (step / 1e3),
+        "mha_launches_per_prefill": [r["launches"]["flash_attention"]
+                                     for r in reps],
+        "vs_one_rank": rows, "tolerance": {"min_cosine": PHASE12_COS,
+                                           "greedy": "margin > 2 max_abs"},
+        "one_rank": {**one, "prefill_tokens_per_s":
+                     b * s / (one["prefill_ms"] / 1e3),
+                     "decode_tokens_per_s":
+                     b / (one["decode_ms_per_step"] / 1e3)},
+        "phase_6b": None if one_rank_6b is None else {
+            k: one_rank_6b[k] for k in (
+                "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
+                "decode_tokens_per_s", "peak_gb")},
+        "ranks": reps, "ranks_s": ranks_s,
+        "seconds": time.perf_counter() - t0,
+    }
+    for r in reps:
+        pw, dw = r["prefill_wire"], r["decode_wire"]
+        print(f"phase 12: rank {r['rank']} {r['coords']}: prefill "
+              f"{r['prefill_ms']:.1f} ms (cold {r['prefill_cold_ms']:.1f}), "
+              f"collectives {pw['ms']:.1f} ms, payload "
+              f"{pw['payload_bytes'] / 1e9:.3f} GB, staged "
+              f"{pw['staged_bytes'] / 1e9:.3f} GB by kind "
+              f"{pw['staged_by_kind']}; decode {PHASE12_STEPS} steps "
+              f"{sum(r['decode_step_ms']):.1f} ms, collectives "
+              f"{dw['ms']:.1f} ms, staged {dw['staged_bytes'] / 1e9:.3f} GB;"
+              f" peak {r['peak_gb']:.3f} GB; cache block "
+              f"{r['cache_block']}", flush=True)
+    print(f"phase 12: {cfg.name} on a {PHASE12_MESH} mesh of {RANKS} gloo "
+          f"ranks: prefill [{b}, {s}] {prefill_ms:.1f} ms "
+          f"({out['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{step:.1f} ms a step ({out['decode_tokens_per_s']:.1f} "
+          f"tokens/s); one rank on the card: prefill "
+          f"{one['prefill_ms']:.1f} ms, decode "
+          f"{one['decode_ms_per_step']:.1f} ms a step"
+          + ("" if one_rank_6b is None else
+             f" (phase 6b: prefill {one_rank_6b['prefill_ms']:.1f} ms, "
+             f"decode {one_rank_6b['decode_ms_per_step']:.1f} ms a step)")
+          + f"; min cosine {min(x['min_cosine'] for x in rows):.6f}; "
+          f"{torch.cuda.get_device_name(dev)}; {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def cell_dims(shape: str) -> dict:
     from repro_torch.configs import base
 
@@ -4335,6 +4666,12 @@ def main() -> int:
     paper = phase_11(dev, lambda: {k: f.launches - before[k]
                                    for k, f in counters.items()})
 
+    # -- phase 12: the LM serving cells on a mesh of ranks --------------------
+    mesh_lm = phase_12(dev, lm["serve"])
+    fa["mesh"] = {"mha_launches_per_prefill":
+                  mesh_lm["mha_launches_per_prefill"],
+                  "mesh": mesh_lm["mesh"]}
+
     bp["shard"] = shard_times("binned_pull")
     mx["shard"] = shard_times("msbfs_extend")
     kernels = [
@@ -4426,6 +4763,8 @@ def main() -> int:
         f"{max(v['iterations'])} trips {v['gteps']:.3f} GTEPS (bound "
         f"{v['bound_ms']:.3f} ms)" for k, v in paper["cells"].items())
           + f"; phase 11 {paper['seconds']:.1f} s")
+    print("phase 12: " + json.dumps({k: v for k, v in mesh_lm.items()
+                                     if k != "ranks"}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -120,21 +120,30 @@ class Wire:
             y = y.to(like.device)
         return y.view(torch.bool) if like.dtype == torch.bool else y
 
-    def _count(self, x: torch.Tensor, t0: float, kind: str, axis: str,
+    def _start(self):
+        """(host clock, staged bytes so far) at a call's start."""
+        return time.perf_counter(), self.mesh.wire.staged_bytes
+
+    def _count(self, x: torch.Tensor, t0, kind: str, axis: str,
                out_bytes: int | None = None) -> None:
-        """One call: its payload (``x``) in the totals, and its kind,
-        result bytes (``x``'s unless given) and group size by kind."""
+        """One call (``t0`` from ``_start``): its payload (``x``) in the
+        totals, and its kind, result bytes (``x``'s unless given), group
+        size and bytes staged by kind."""
         w = self.mesh.wire
+        t0, staged0 = t0
         nbytes = x.numel() * x.element_size()
         w.calls += 1
         w.bytes += nbytes
         w.ms += (time.perf_counter() - t0) * 1e3
         w.record(kind, nbytes if out_bytes is None else out_bytes,
-                 self.mesh.shape[axis])
+                 self.mesh.shape[axis], axis)
+        if w.staged_bytes > staged0:
+            w.staged_by_kind[kind] = (w.staged_by_kind.get(kind, 0)
+                                      + w.staged_bytes - staged0)
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """[K, *x.shape]: every rank's ``x`` along ``axis``, by coordinate."""
-        t0 = time.perf_counter()
+        t0 = self._start()
         k = self.mesh.shape[axis]
         wx = self._to_wire(x)
         outs = [torch.empty_like(wx) for _ in range(k)]
@@ -151,7 +160,7 @@ class Wire:
         if op == dist.ReduceOp.SUM and x.is_floating_point():
             raise ValueError("a float SUM depends on the backend's order: "
                              "use psum")
-        t0 = time.perf_counter()
+        t0 = self._start()
         wx = self._to_wire(x).clone()
         dist.all_reduce(wx, op=op, group=self.mesh.group(axis))
         out = self._from_wire(wx, x)
@@ -161,7 +170,7 @@ class Wire:
     def shift(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """One ring step along ``axis``: send ``x`` to coordinate d+1,
         return what coordinate d-1 sent."""
-        t0 = time.perf_counter()
+        t0 = self._start()
         m = self.mesh
         k, d = m.shape[axis], m.coord(axis)
         g = m.group(axis)
@@ -177,6 +186,36 @@ class Wire:
             r.wait()
         out = self._from_wire(got, x)
         self._count(x, t0, "collective-permute", axis)
+        return out
+
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum over ``axis`` of every rank's ``x``, this rank's chunk
+        of dim 0 (cut into K chunks): each rank sends chunk ``j`` to
+        coordinate ``j`` and folds the K chunks of its own coordinate
+        strictly in coordinate order, so a float sum has the same bits on
+        any backend. One call, kind ``reduce-scatter``."""
+        t0 = self._start()
+        m = self.mesh
+        k, d = m.shape[axis], m.coord(axis)
+        if x.shape[0] % k:
+            raise ValueError(f"dim 0 ({x.shape[0]}) is not divisible by {k}")
+        g = m.group(axis)
+        wx = self._to_wire(x).reshape(k, x.shape[0] // k, *x.shape[1:])
+        got = [wx[j] if j == d else torch.empty_like(wx[j])
+               for j in range(k)]
+        ops = []
+        for j in range(k):
+            if j != d:
+                peer = m.rank_at(**{axis: j})
+                ops += [dist.P2POp(dist.isend, wx[j], peer, group=g),
+                        dist.P2POp(dist.irecv, got[j], peer, group=g)]
+        for r in dist.batch_isend_irecv(ops):
+            r.wait()
+        parts = [self._from_wire(t, x) for t in got]
+        out = _fold(torch.stack(parts), torch.add)
+        self._count(x, t0, "reduce-scatter", axis,
+                    out_bytes=out.numel() * out.element_size())
         return out
 
 
@@ -346,6 +385,19 @@ def sum_reduce_scatter(x: torch.Tensor, axes, impl: str = "ring"):
     partial covers its own forward rows, so either flavor rebuilds the
     global sum in a fixed order (the ring's, or coordinate order)."""
     return _reduce_scatter(x, axes, impl, torch.add)
+
+
+def psum_scatter(x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axes``, this rank's block of
+    ``dim`` (blocks in flat-coordinate order, major axis first): one
+    ``Wire.reduce_scatter`` an axis, each folding in coordinate order."""
+    if _trivial(axes):
+        return x
+    wire = _wire(axes)
+    x = torch.movedim(x, dim, 0)
+    for a in _names(axes):
+        x = wire.reduce_scatter(x, a)
+    return torch.movedim(x, 0, dim)
 
 
 def merge_scatter(merge: str, contribution, axes, or_impl: str,

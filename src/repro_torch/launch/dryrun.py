@@ -23,22 +23,34 @@ The port has no compiler to ask, so the record comes from two sources:
   second.
 
 Records land in ``results/dryrun_torch/<arch>__<shape>__<mesh>[__tag].json``.
+LM cells: on ``single``/``multi`` the record is analytic as above:
+per-device argument and output bytes under the cell's specs
+(parameters, AdamW moments, caches, tokens), ``lm_cost`` and the port's
+collective schedule (``lm_collectives``: ``transformer_mesh.
+collective_schedule``, the calls ``Wire`` records on a real mesh). On
+``card`` a dense prefill or decode cell runs on a one-rank ``Mesh``
+(``LM_CARD_CUTS``, in ``reduced``): wall ms, tokens a second, peak
+memory, ``mha`` launches. ``--components`` (JAX's
+per-component LM roofline, ``run_components``) sums trips x terms of
+``steps.lm_components``; each term is the port's analytic count
+(``component_terms``), as XLA's cost analysis has no counterpart here.
+
 A cell that fails records its error and the run carries on, as JAX's
-does; the exit code counts the failures. Only the paper family builds
-(``steps.build_cell``); the LM, GNN and recsys cells record
-``NotImplementedError`` until the logical-axis rules are ported, and
-``--components`` (JAX's per-component LM roofline) raises.
+does; the exit code counts the failures. The GNN and recsys cells
+record ``NotImplementedError`` until their mesh slice.
 
 Usage:
     python -m repro_torch.launch.dryrun --list
     python -m repro_torch.launch.dryrun --arch paper-bfs-engine --shape ldbc100 --mesh card
     python -m repro_torch.launch.dryrun --all --mesh both [--subprocess]
+    python -m repro_torch.launch.dryrun --arch minicpm-2b --shape prefill_32k --mesh single --components
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import sys
@@ -246,6 +258,306 @@ def _card_fields(arch, shape, device, overrides, cut, keep) -> dict:
     )
 
 
+# ----------------------------------------------------------- LM cells ----
+
+#: ``--mesh card`` cuts of the LM cells, ``chip_smoke.py`` phase 6b's
+#: serving shapes: ``prefill_32k``'s 32 x 32,768 to 4 x 4,096, a decode
+#: cache to 4 x 4,128 (one card; the host wall a reps loop may take)
+LM_CARD_CUTS = {"prefill": {"global_batch": 4, "seq_len": 4096},
+                "decode": {"global_batch": 4, "seq_len": 4128}}
+LM_CUT_WHY = ("one card: the published batch and length are cut to the "
+              "one-card serving shapes (prefill 4 x 4,096, decode 4 x 4,128)")
+#: analytic FLOPs a parameter of an AdamW update (moments, bias
+#: corrections, the update and the decay)
+ADAMW_FLOPS = 12
+
+
+def _prod(xs) -> int:
+    return int(math.prod(int(x) for x in xs))
+
+
+def _dev_bytes(t, spec, mesh_shape) -> int:
+    """Bytes of one device's block of ``t`` (meta) under ``spec``."""
+    from ..models.transformer_mesh import block_numel
+
+    return block_numel(tuple(t.shape), tuple(spec), mesh_shape) * \
+        t.element_size()
+
+
+def _tree_bytes(tree, specs, mesh_shape) -> int:
+    """A (meta tensor, spec) tree's per-device bytes: dicts by key,
+    lists and NamedTuples by position, a tensor and its spec."""
+    if isinstance(tree, torch.Tensor):
+        return _dev_bytes(tree, specs, mesh_shape)
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(tree[k], specs[k], mesh_shape) for k in tree)
+    return sum(_tree_bytes(a, b, mesh_shape) for a, b in zip(tree, specs))
+
+
+def _lm_rows(cell, mesh_shape) -> int:
+    """A device's batch rows (the batch over the data axes when it
+    divides them)."""
+    b = cell.dims["global_batch"]
+    data = int(_prod(mesh_shape.get(a, 1)
+                       for a in cell.decisions["batch_axes"]))
+    return b // data if b % data == 0 else b
+
+
+def _lm_schedule(cell, mesh_shape, kind=None) -> dict:
+    """``transformer_mesh.collective_schedule`` of a prefill or decode
+    cell (or of a train cell's forward, ``kind="prefill"``)."""
+    from ..models import transformer_mesh as tmesh
+    from ..nn.module import sharding_rules
+
+    cfg = cell.config
+    specs = cell.in_shardings[0]
+    shapes = {n: tuple(t.shape) for n, t in cell.args[0].items()}
+    kind = kind or cell.kind
+    rules = sharding_rules(len(cell.decisions["batch_axes"]) > 1,
+                           kind == "prefill")
+    return tmesh.collective_schedule(
+        cfg, kind, _lm_rows(cell, mesh_shape), cell.dims["seq_len"],
+        mesh_shape, rules, specs, shapes,
+        cell.decisions.get("seq_axes", ("model",)))
+
+
+def _mirror(recs: dict) -> dict:
+    """A backward's collectives: each all-gather's bytes as a
+    reduce-scatter of the same group and each reduce-scatter's as an
+    all-gather (the transposes); all-reduces stay."""
+    swap = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather"}
+    out: dict = {}
+    for kind, groups in recs.items():
+        for g, (c, b) in groups.items():
+            r = out.setdefault(swap.get(kind, kind), {}).setdefault(g, [0, 0])
+            r[0] += c
+            r[1] += b
+    return out
+
+
+def _train_layer(recs: dict) -> dict:
+    """A train step's collectives for one layer of the forward schedule:
+    the forward, its recompute under remat, and the mirrored backward
+    (the FSDP gathers become the gradients' reduce-scatters)."""
+    from ..models.transformer_mesh import merge_records
+
+    return merge_records(recs, recs, _mirror(recs))
+
+
+def lm_cost(cell, mesh_shape) -> dict:
+    """Analytic per-device work of an LM cell, in XLA's cost keys: the
+    model FLOPs over the devices (a train step's forward counted again
+    for the remat recompute, plus AdamW's ``ADAMW_FLOPS`` a parameter),
+    and bytes: each layer's weights read once as gathered (sharded over
+    ``model`` only), the device's cache written (prefill) or read
+    (decode), its logits written; a train step reads the weights three
+    times (forward, recompute, backward) and AdamW reads and writes the
+    parameters and both moments and reads the gradients."""
+    cfg, dims = cell.config, cell.dims
+    n_dev = _prod(mesh_shape.values())
+    params, pshard = cell.args[0], cell.in_shardings[0]
+    m = mesh_shape.get("model", 1)
+    el = params["embed.table"].element_size()
+    w_bytes = sum(_dev_bytes(t, pshard[n], {"model": m})
+                  for n, t in params.items())
+    p_dev = _tree_bytes(params, pshard, mesh_shape)
+    rows = _lm_rows(cell, mesh_shape)
+    flops = cell.model_flops / n_dev
+    if cell.kind == "train":
+        fwd = cell.model_flops / 3.0
+        n_p = sum(t.numel() for t in params.values())
+        flops = (cell.model_flops + fwd) / n_dev + ADAMW_FLOPS * n_p / n_dev
+        mom = cell.args[1].mu["embed.table"].element_size()
+        opt = p_dev / el * (3 * el + 4 * mom + 4)  # p rw, mu nu rw, g f32
+        return {"flops": flops, "bytes accessed": float(3 * w_bytes + opt)}
+    logits = rows * cfg.vocab_padded // m * 4
+    cache = 0
+    if cell.kind == "decode":
+        cache = _tree_bytes(cell.args[1], cell.in_shardings[1], mesh_shape)
+    else:
+        s = dims["seq_len"]
+        for i in range(cfg.n_layers):
+            at = cfg.attn_settings(cfg.layer_kind(i))
+            w = min(at.window, s) if at.kind in ("local", "chunk") else s
+            cache += 2 * rows * w * at.n_kv_heads * at.d_head * el
+        seq_k = _prod(mesh_shape.get(a, 1)
+                        for a in cell.decisions["seq_axes"])
+        cache //= seq_k
+    return {"flops": flops, "bytes accessed": float(w_bytes + cache
+                                                    + logits)}
+
+
+def lm_collectives(cell, mesh_shape):
+    """The port's collectives in one step of an LM cell on one device:
+    the prefill or decode schedule (``transformer_mesh.
+    collective_schedule``); a train step's forward schedule per layer
+    through ``_train_layer``."""
+    from ..models.transformer_mesh import merge_records
+    from .hlo_analysis import collective_stats
+
+    if cell.kind == "train":
+        sch = _lm_schedule(cell, mesh_shape, "prefill")
+        recs = merge_records(_train_layer(sch["global"]),
+                             *[_train_layer(r) for r in sch["layers"]],
+                             _train_layer(sch["final"]))
+    else:
+        sch = _lm_schedule(cell, mesh_shape)
+        recs = merge_records(sch["global"], *sch["layers"], sch["final"])
+    return collective_stats(recs)
+
+
+def _lm_placement(cell, mesh_shape) -> dict:
+    """Per-device argument and output bytes of an LM cell under its
+    specs (outputs: a train step's new parameters and moments, a
+    prefill's last logits and caches, a decode step's logits and
+    caches)."""
+    arg = _tree_bytes(cell.args, cell.in_shardings, mesh_shape)
+    rows = _lm_rows(cell, mesh_shape)
+    m = mesh_shape.get("model", 1)
+    logits = rows * cell.config.vocab_padded // m * 4
+    if cell.kind == "train":
+        out = _tree_bytes(cell.args[:2], cell.in_shardings[:2], mesh_shape)
+    elif cell.kind == "decode":
+        out = logits + _tree_bytes(cell.args[1], cell.in_shardings[1],
+                                   mesh_shape)
+    else:
+        out = logits + _tree_bytes(
+            _prefill_cache_args(cell), cell.decisions["out_specs"][1],
+            mesh_shape)
+    return {"argument_bytes": arg, "output_bytes": out}
+
+
+def _prefill_cache_args(cell) -> list:
+    """The prefill's caches (meta), as the decode cell of its batch and
+    length holds them."""
+    from ..models import transformer as tfm
+
+    return tfm.init_model_cache(cell.config, cell.dims["global_batch"],
+                                cell.dims["seq_len"], torch.bfloat16,
+                                "meta")
+
+
+def _lm_layout_fields(arch, shape, mesh_tag) -> dict:
+    from .mesh import make_production_mesh
+    from . import steps
+
+    multi = mesh_tag == "multi"
+    layout = make_production_mesh(multi_pod=multi)
+    cell = steps.build_cell(arch, shape, layout, multi)
+    p = _lm_placement(cell, layout.shape)
+    mem = {
+        "argument_size_in_bytes": p["argument_bytes"],
+        "output_size_in_bytes": p["output_bytes"],
+        "temp_size_in_bytes": None,
+        "alias_size_in_bytes": 0,
+        "generated_code_size_in_bytes": None,
+        "total_bytes_per_device": p["argument_bytes"] + p["output_bytes"],
+    }
+    return dict(cell=cell, n_devices=layout.size, memory=mem,
+                cost=lm_cost(cell, layout.shape),
+                coll=lm_collectives(cell, layout.shape), measured=False)
+
+
+def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
+    """A dense prefill or decode cell on a one-rank ``Mesh`` of the card,
+    at ``cut`` (default ``LM_CARD_CUTS``): seeded weights
+    (``transformer.init``, seed 0) and tokens, one cold call, then
+    ``REPS`` timed calls (a decode step at position ``seq_len - 32``
+    against empty caches: the same work as a full cache, every slot
+    scored)."""
+    import numpy as np
+
+    from ..configs import base as cfgbase
+    from ..kernels.flash_attention import flash_attention as fa
+    from ..models import transformer as tfm
+    from ..models import transformer_mesh as tmesh
+    from ..nn import attention as attn
+    from .hlo_analysis import HBM_BW, PEAK_FLOPS, collective_stats
+    from .mesh import make_mesh
+    from . import steps
+
+    spec = cfgbase.get(arch)
+    s = next(x for x in spec.shapes if x.name == shape)
+    s = dataclasses.replace(s, dims={**s.dims, **cut})
+    mesh = make_mesh((1, 1), ("data", "model"), device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cell = steps._lm_cell(spec, s, mesh, False)
+    if cell.kind == "train":
+        raise NotImplementedError(steps.TRAIN_ITEM)
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = tfm.init(cell.config, torch.Generator(device=dev).manual_seed(0),
+                     dev)
+    steps.shard_lm(cell, model, mesh)
+    b, seq = cell.dims["global_batch"], cell.dims["seq_len"]
+    rng = np.random.default_rng(0)
+    cfg = cell.config
+    if cell.kind == "prefill":
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, seq))).to(
+            dev)
+        caches = None
+
+        def call():
+            return cell.fn(model, tokens)
+    else:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1))).to(dev)
+        caches = tmesh.init_cache(cfg, b, seq, mesh,
+                                  cell.decisions["seq_axes"])
+
+        def call():
+            return cell.fn(model, caches, tokens, seq - 32)
+    t_bind = time.perf_counter() - t0
+
+    def run():
+        t = time.perf_counter()
+        res = call()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t) * 1e3
+
+    launches = fa.flash_attention.launches
+    routes = dict(attn.route_calls)
+    res, cold_ms = run()
+    launches = fa.flash_attention.launches - launches
+    routes = {k: v - routes[k] for k, v in attn.route_calls.items()}
+    mesh.wire.reset()
+    walls = []
+    for _ in range(REPS):
+        res, ms = run()
+        walls.append(ms)
+    peak = int(torch.cuda.max_memory_allocated(dev)) - held if cuda \
+        else None
+    p = _lm_placement(cell, mesh.shape)
+    wall = statistics.median(walls)
+    tokens_run = b * seq if cell.kind == "prefill" else b
+    if keep is not None:
+        keep.update(cell=cell, model=model, result=res, caches=caches)
+    cost = lm_cost(cell, mesh.shape)
+    mem = {
+        "argument_size_in_bytes": p["argument_bytes"],
+        "output_size_in_bytes": p["output_bytes"],
+        "temp_size_in_bytes": None if peak is None
+        else max(peak - p["argument_bytes"] - p["output_bytes"], 0),
+        "alias_size_in_bytes": 0,
+        "generated_code_size_in_bytes": 0,
+        "total_bytes_per_device": peak,
+    }
+    return dict(
+        cell=cell, n_devices=1, memory=mem, cost=cost,
+        coll=collective_stats(mesh.wire), measured=True, device=str(dev),
+        device_name=torch.cuda.get_device_name(dev) if cuda else "cpu",
+        bind_s=t_bind, cold_ms=cold_ms, wall_ms=wall, wall_ms_runs=walls,
+        tokens_per_s=tokens_run / (wall / 1e3),
+        mha_launches=launches, route_calls=routes,
+        bound_ms=max(cost["flops"] / PEAK_FLOPS, cost["bytes accessed"]
+                     / HBM_BW) * 1e3,
+    )
+
+
 def _layout_fields(arch, shape, mesh_tag, overrides) -> dict:
     from .mesh import make_production_mesh
     from . import steps
@@ -288,6 +600,8 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
             rec = json.load(f)
         print(f"[skip] {name}: cached ({rec.get('status')})")
         return rec
+    from ..configs import base as cfgbase
+
     rec = {
         "arch": arch, "shape": shape, "mesh": mesh_tag,
         "status": "error", "tag": tag,
@@ -297,9 +611,20 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
     try:
         if mesh_tag not in MESHES:
             raise ValueError(f"unknown mesh {mesh_tag!r}: one of {MESHES}")
-        f = (_card_fields(arch, shape, device, overrides, cut, keep)
-             if mesh_tag == "card"
-             else _layout_fields(arch, shape, mesh_tag, overrides))
+        lm = cfgbase.get(arch).family == "lm"
+        if mesh_tag == "card" and lm:
+            kind = next(x.kind for x in cfgbase.get(arch).shapes
+                        if x.name == shape)
+            if not cut and kind in LM_CARD_CUTS:
+                cut = dict(LM_CARD_CUTS[kind])
+                rec["reduced"] = dict(cut, why=LM_CUT_WHY)
+            f = _lm_card_fields(arch, shape, device, cut or {}, keep)
+        elif mesh_tag == "card":
+            f = _card_fields(arch, shape, device, overrides, cut, keep)
+        elif lm:
+            f = _lm_layout_fields(arch, shape, mesh_tag)
+        else:
+            f = _layout_fields(arch, shape, mesh_tag, overrides)
         cell, coll, mem = f.pop("cell"), f.pop("coll"), f.pop("memory")
         cost, n_dev, measured = f.pop("cost"), f.pop("n_devices"), \
             f.pop("measured")
@@ -309,7 +634,7 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
             status="ok",
             kind=cell.kind,
             notes=cell.notes,
-            decisions=cell.decisions,
+            decisions=_jsonable(cell.decisions),
             n_devices=n_dev,
             memory=mem,
             cost=cost,
@@ -330,11 +655,226 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
             f"[ok]   {name}: {cell.notes}  mem/dev "
             + ("not measured" if total is None else
                f"{total / 1e9:.3f} GB{'' if fit else ' (EXCEEDS 80G)'}")
-            + (f"  wall {rec['wall_ms']:.2f} ms iters {max(rec['iterations'])}"
-               f" {rec['gteps']:.3f} GTEPS" if mesh_tag == "card" else "")
+            + (f"  wall {rec['wall_ms']:.2f} ms"
+               + (f" iters {max(rec['iterations'])} {rec['gteps']:.3f} GTEPS"
+                  if "gteps" in rec else
+                  f" {rec['tokens_per_s']:.0f} tokens/s")
+               if mesh_tag == "card" else "")
             + f"  dominant={rl.dominant} terms c/m/x = {rl.compute_s:.2e}/"
             f"{rl.memory_s:.2e}/{rl.collective_s:.2e} s"
         )
+    except Exception as e:  # noqa: BLE001: record and carry on, as JAX's
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        print(f"[FAIL] {name}: {rec['error']}")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1, default=float)
+    return rec
+
+
+def _jsonable(x):
+    """Decisions as JSON: tuples as lists, NamedTuples as dicts."""
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()}
+    if hasattr(x, "_asdict"):
+        return {k: _jsonable(v) for k, v in x._asdict().items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    return x
+
+
+def component_terms(c, mesh_shape) -> dict:
+    """The port's analytic FLOPs, bytes and collective records of one
+    ``steps.lm_components`` entry, one trip on one device:
+
+    - ``layer_group_prefill`` / ``decode_group``: the group's layers of
+      the prefill or decode schedule (``collective_schedule``); FLOPs
+      2 x the group's weights a token plus its attention (``_lm_attn_
+      flops`` of the group's layers), over the devices; bytes: the
+      group's weights as gathered, the activations read and written, the
+      device's cache written or read;
+    - ``layer_group_fwd_bwd``: the forward's schedule through
+      ``_train_layer``; FLOPs 4 x the forward's (forward, recompute,
+      backward);
+    - ``ce_chunk``: logits of one chunk forward and backward (6 x its
+      tokens x vocab x d_model), the table read, the chunk's logits
+      written and read in float32; the table's FSDP gather, and the
+      vocab-parallel softmax's max and sum over ``model``;
+    - ``optimizer``: ``ADAMW_FLOPS`` a parameter, AdamW's bytes;
+    - ``unembed``: the table read and the logits written, the table's
+      FSDP gather (and, for a prefill, the last position's gather)."""
+    from ..models import transformer_mesh as tmesh
+    from ..nn.module import param_specs, sharding_rules
+    from . import steps
+
+    cfg, dims = c.config, c.dims
+    key = c.decisions["component"]
+    n_dev = _prod(mesh_shape.values())
+    m = mesh_shape.get("model", 1)
+    ba = c.decisions["batch_axes"]
+    B, S = dims["global_batch"], dims["seq_len"]
+    data = _prod(mesh_shape.get(a, 1) for a in ba)
+    rows = B // data if B % data == 0 else B
+    el = torch.tensor([], dtype=cfg.dtype).element_size()
+    d = cfg.d_model
+    kind = "decode" if key in ("decode_group",) or (
+        key == "unembed" and c.notes == "unembed token") else "prefill"
+    model = steps.tfm.init(cfg, None, "meta")
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    rules = sharding_rules(len(ba) > 1, kind == "prefill")
+    specs = param_specs(model, rules, mesh_shape)
+    seq_axes, _ = tmesh.decode_seq_axes(B, mesh_shape, ba)
+    sch = tmesh.collective_schedule(cfg, kind, rows, S, mesh_shape, rules,
+                                    specs, shapes, seq_axes)
+    gs = cfg.group_size
+    group = [n for n in shapes if n.startswith("blocks.")
+             and int(n.split(".")[1]) < gs]
+    w_group = sum(tmesh.block_numel(shapes[n], specs[n], {"model": m})
+                  for n in group) * el
+    n_group = sum(_active_layer_params(cfg, j) for j in range(gs))
+    tok = B * (S if kind == "prefill" else 1)
+    if key in ("layer_group_prefill", "decode_group",
+               "layer_group_fwd_bwd"):
+        attn = 0.0
+        for j in range(gs):
+            one = dataclasses.replace(cfg, n_layers=1,
+                                      layer_pattern=(cfg.layer_kind(j),))
+            attn += steps._lm_attn_flops(
+                one, B, S, cache_w=S if kind == "decode" else None)
+        flops = (2.0 * n_group * tok + attn) / n_dev
+        recs = tmesh.merge_records(*sch["layers"][:gs])
+        act = 2 * tok // (data if B % data == 0 else 1) * d * el
+        cache = 0
+        for j in range(gs):
+            at = cfg.attn_settings(cfg.layer_kind(j))
+            w = min(at.window, S) if at.kind in ("local", "chunk") else S
+            cache += 2 * rows * w * at.n_kv_heads * at.d_head * 2
+        cache //= _prod(mesh_shape.get(a, 1) for a in seq_axes)
+        nbytes = w_group + act + cache
+        if key == "layer_group_fwd_bwd":
+            flops *= 4.0
+            recs = _train_layer(recs)
+            nbytes = 3 * w_group + 4 * act
+    elif key == "ce_chunk":
+        C = min(cfg.ce_chunk, S)
+        tname = "embed.table" if cfg.tie_embeddings else "unembed.table"
+        table = tmesh.block_numel(shapes[tname], specs[tname], {"model": m})
+        flops = 6.0 * B * C * cfg.vocab_padded * d / n_dev
+        logits = rows * C * cfg.vocab_padded // m * 4
+        nbytes = table * el * 2 + 2 * logits
+        recs = {}
+        tmesh._add(recs, "all-gather", mesh_shape.get(ba[-1], 1),
+                   table * el)
+        tmesh._add(recs, "all-reduce", m, rows * C * 4, calls=2)
+        recs = tmesh.merge_records(recs, _mirror(
+            {k: v for k, v in recs.items() if k == "all-gather"}))
+    elif key == "optimizer":
+        n_p = sum(int(_prod(v)) for v in shapes.values())
+        flops = ADAMW_FLOPS * n_p / n_dev
+        mom = steps._moment_dtype(cfg).itemsize
+        nbytes = n_p / n_dev * (3 * el + 4 * mom + 4)
+        recs = {}
+    elif key == "unembed":
+        tname = "embed.table" if cfg.tie_embeddings else "unembed.table"
+        table = tmesh.block_numel(shapes[tname], specs[tname], {"model": m})
+        flops = 2.0 * B * d * cfg.vocab_padded / n_dev
+        nbytes = table * el + rows * cfg.vocab_padded // m * 4
+        recs = tmesh.merge_records(sch["global"], sch["final"])
+        if kind == "prefill":  # the embedding lookup is not in this probe
+            recs = {k: v for k, v in recs.items() if k != "reduce-scatter"}
+    else:
+        raise ValueError(key)
+    return {"flops": float(flops), "bytes": float(nbytes), "records": recs}
+
+
+def _active_layer_params(cfg, j: int) -> int:
+    """Layer ``j``'s active parameters (``TransformerConfig.
+    active_params``'s per-layer terms: top-k and shared experts only)."""
+    d, hd = cfg.d_model, cfg.d_head
+    n = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    if cfg.layer_is_moe(j):
+        m = cfg.moe
+        return n + 3 * d * m.d_ff * (m.top_k + m.n_shared) + d * m.n_experts
+    return n + 3 * d * cfg.d_ff
+
+
+def run_components(arch: str, shape: str, mesh_tag: str, out_dir: str,
+                   force: bool = False) -> dict:
+    """Compositional roofline of an LM cell (``steps.lm_components``):
+    sums trips x per-component terms. JAX asks XLA's cost analysis of
+    each compiled component; the port counts each analytically
+    (``component_terms``), its wire from the port's own collective
+    schedule. Analytic layouts only (``single``, ``multi``)."""
+    from .hlo_analysis import HBM_BW, NVLINK_BW, PEAK_FLOPS, collective_stats
+    from .mesh import make_production_mesh
+    from .steps import build_cell, lm_components
+
+    if mesh_tag not in ("single", "multi"):
+        raise ValueError(f"--components counts JAX's production layouts "
+                         f"(single, multi), not {mesh_tag!r}")
+    name = f"{arch}__{shape}__{mesh_tag}__comp"
+    path = os.path.join(out_dir, name + ".json")
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            rec = json.load(f)
+        print(f"[skip] {name}: cached ({rec.get('status')})")
+        return rec
+    multi_pod = mesh_tag == "multi"
+    rec = {"arch": arch, "shape": shape, "mesh": mesh_tag,
+           "tag": "comp", "status": "error"}
+    try:
+        layout = make_production_mesh(multi_pod=multi_pod)
+        mono = build_cell(arch, shape, layout, multi_pod)
+        comps = lm_components(arch, shape, layout, multi_pod)
+        total = {"flops": 0.0, "bytes": 0.0, "wire": 0.0}
+        breakdown = []
+        for c in comps:
+            t = component_terms(c, layout.shape)
+            coll = collective_stats(t["records"])
+            f = t["flops"] * c.iters_scale
+            b = t["bytes"] * c.iters_scale
+            w = coll.total_wire_bytes * c.iters_scale
+            total["flops"] += f
+            total["bytes"] += b
+            total["wire"] += w
+            breakdown.append({
+                "component": c.notes, "trips": c.iters_scale,
+                "flops": f, "bytes": b, "wire": w,
+                "collectives": {k: v for k, v in coll.counts.items() if v},
+            })
+        terms = {
+            "compute_s": total["flops"] / PEAK_FLOPS,
+            "memory_s": total["bytes"] / HBM_BW,
+            "collective_s": total["wire"] / NVLINK_BW,
+        }
+        dom = max(terms, key=terms.get).replace("_s", "")
+        model_fpd = mono.model_flops / layout.size
+        bound = max(terms.values())
+        rec.update(
+            status="ok",
+            measured=False,
+            n_devices=layout.size,
+            components=breakdown,
+            roofline={
+                "flops_per_device": total["flops"],
+                "hbm_bytes_per_device": total["bytes"],
+                "wire_bytes_per_device": total["wire"],
+                **terms,
+                "dominant": dom,
+                "model_flops_per_device": model_fpd,
+                "useful_fraction": model_fpd / max(total["flops"], 1.0),
+                "roofline_fraction": (model_fpd / PEAK_FLOPS)
+                / max(bound, 1e-30),
+                "iters_scale": 1.0,
+            },
+        )
+        rl = rec["roofline"]
+        print(f"[ok]   {name}: flops/dev {rl['flops_per_device']:.3e} "
+              f"useful {rl['useful_fraction']:.2f} dominant={dom} terms "
+              f"c/m/x = {terms['compute_s']:.2e}/{terms['memory_s']:.2e}/"
+              f"{terms['collective_s']:.2e} s roofline "
+              f"{rl['roofline_fraction'] * 100:.1f}%")
     except Exception as e:  # noqa: BLE001: record and carry on, as JAX's
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-4000:]
@@ -381,11 +921,9 @@ def main(argv=None) -> int:
         for a, s, why in skips:
             print(f"{a:28s} {s}  [SKIP: {why}]")
         return 0
-    if args.components:
-        raise NotImplementedError(
-            "--components sums the LM cells' per-component terms; the LM "
-            "mesh cells wait for the logical-axis rules (ROADMAP section 1)"
-        )
+    if args.components and args.mesh == "card":
+        ap.error("--components counts JAX's production layouts (--mesh "
+                 "single, multi or both); --mesh card measures a cell")
 
     meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
     overrides = {}
@@ -401,6 +939,18 @@ def main(argv=None) -> int:
         todo = [(args.arch, args.shape, m) for m in meshes]
 
     failures = 0
+    if args.components:
+        from ..configs import base as cfgbase
+
+        lm = [(a, s, m) for a, s, m in todo if cfgbase.get(a).family == "lm"]
+        if not lm:
+            ap.error("--components takes LM cells")
+        for arch, shape, mesh_tag in lm:
+            rec = run_components(arch, shape, mesh_tag, args.out,
+                                 force=args.force)
+            failures += rec.get("status") != "ok"
+        print(f"done: {len(lm) - failures}/{len(lm)} ok")
+        return 1 if failures else 0
     for arch, shape, mesh_tag in todo:
         if args.subprocess:
             import subprocess

@@ -56,24 +56,36 @@ class WireStats:
     same calls by collective kind (JAX's HLO names: ``all-reduce``,
     ``all-gather``, ``collective-permute``, ...) and group size:
     ``{kind: {group: [calls, result bytes]}}`` (JSON-ready, like the
-    rest), what ``launch.hlo_analysis.collective_stats`` reads."""
+    rest), what ``launch.hlo_analysis.collective_stats`` reads;
+    ``by_axis`` the same calls by mesh axis and kind: ``{axis: {kind:
+    [calls, result bytes]}}``; ``staged_by_kind`` the staged bytes by
+    kind."""
 
     calls: int = 0
     bytes: int = 0
     staged_bytes: int = 0
     ms: float = 0.0
     by_kind: dict = dataclasses.field(default_factory=dict)
+    by_axis: dict = dataclasses.field(default_factory=dict)
+    staged_by_kind: dict = dataclasses.field(default_factory=dict)
 
-    def record(self, kind: str, out_bytes: int, group: int) -> None:
+    def record(self, kind: str, out_bytes: int, group: int,
+               axis: str | None = None) -> None:
         rec = self.by_kind.setdefault(kind, {}).setdefault(int(group),
                                                            [0, 0])
         rec[0] += 1
         rec[1] += int(out_bytes)
+        if axis is not None:
+            rec = self.by_axis.setdefault(axis, {}).setdefault(kind, [0, 0])
+            rec[0] += 1
+            rec[1] += int(out_bytes)
 
     def reset(self) -> None:
         self.calls = self.bytes = self.staged_bytes = 0
         self.ms = 0.0
         self.by_kind = {}
+        self.by_axis = {}
+        self.staged_by_kind = {}
 
 
 class Mesh:

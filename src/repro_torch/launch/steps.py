@@ -25,7 +25,8 @@ logits) or a retrieval step (one query against seeded candidates, top
 cell, model, AdamW state and step on ``device``.
 
 Paper engine (``_paper_cell``): ``build_cell(arch_id, shape_name, mesh,
-multi_pod)`` is JAX's entry point. For the ``paper`` family it makes
+multi_pod)`` is JAX's entry point (for the LM family too, below). For
+the ``paper`` family it makes
 JAX's decisions one for one (row padding, policy, state layout, engine,
 source morsels, model FLOPs, iteration scale, notes) on a ``Mesh`` of
 ranks, whose cell holds the engine, or on a ``MeshLayout`` of JAX's
@@ -33,11 +34,21 @@ production meshes, whose cell holds the decisions only. Its arguments
 are ``meta`` tensors (``sds``). Nothing is lowered: ``bind_cell`` binds
 a cell to the shape's seeded graph and sources on a ``Mesh`` instead.
 
-Left out: the LM cells, the mesh shardings of the GNN and recsys cells
-and the GNN edge slabs (``build_cell`` raises for those families until
-the logical-axis rules are ported; ROADMAP section 1). ``cell_batch``
-and ``recsys_batch`` make seeded batches of a cell's shapes, for tests
-and the smoke run (JAX's cells carry abstract shapes only).
+LM family (``_lm_cell``, ``lm_components``): JAX's decisions for every
+cell under the logical-axis rules (``nn.module``): the remat choice and
+``n_micro`` of a train cell, its moment type, every parameter's
+sanitized spec (``_sanitize``, on ``meta`` tensors), the batch, cache
+and optimizer specs, the decode cache's ``seq_axes``, FLOPs, notes and
+donation. On a ``Mesh`` a dense arch's prefill and decode cells run
+(``models.transformer_mesh``; ``shard_lm`` cuts the model); train cells
+and MoE archs there raise ``NotImplementedError`` naming their ROADMAP
+item.
+
+Left out: the mesh shardings of the GNN and recsys cells and the GNN
+edge slabs (``build_cell`` raises for those families; ROADMAP section
+1). ``cell_batch`` and ``recsys_batch`` make seeded batches of a cell's
+shapes, for tests and the smoke run (JAX's cells carry abstract shapes
+only).
 """
 from __future__ import annotations
 
@@ -59,6 +70,22 @@ from ..graph.sampler import tree_edges
 from ..kernels.common import resolve_device
 from .mesh import Mesh, batch_axes
 from ..models import dcn_v2 as dcn
+from ..models import transformer as tfm
+from ..models import transformer_mesh as tmesh
+from ..models.transformer_mesh import MOE_ITEM, decode_seq_axes
+from ..nn.attention import KVCache
+from ..nn.module import (
+    block_of,
+    logical_to_spec,
+    param_axes,
+    sanitize_spec,
+    set_activation_rules,
+    shard_params,
+    sharding_rules,
+    specs_from_axes,
+    using_rules,
+)
+from ..optim.adamw import AdamWState
 from ..models.gnn import equiformer_v2 as eqv2_m
 from ..models.gnn import mace as mace_m
 from ..models.gnn import pna as pna_m
@@ -533,12 +560,317 @@ def _paper_cell(spec, shape, mesh, multi_pod: bool,
     )
 
 
+# =========================================================================
+# LM family
+# =========================================================================
+
+# microbatch counts tuned against measured single-shot activation temps
+_N_MICRO = {
+    "deepseek-coder-33b": 4,
+    "olmoe-1b-7b": 4,
+    "llama4-maverick-400b-a17b": 8,
+}
+TRAIN_ITEM = ("LM training on a mesh waits for its slice (ROADMAP section 1, "
+              "item 2: LM train on a mesh)")
+
+
+def _ns(*parts) -> tuple:
+    """A spec: JAX's ``PartitionSpec(*parts)``, which writes an entry of
+    one axis name as the name."""
+    return tuple(p[0] if isinstance(p, tuple) and len(p) == 1 else p
+                 for p in parts)
+
+
+def _sanitize(params: dict, specs: dict, mesh) -> dict:
+    """JAX's ``_sanitize``: drop the spec of any parameter dim that does
+    not divide its mesh axes (``nn.module.sanitize_spec``)."""
+    return {n: sanitize_spec(tuple(params[n].shape), specs[n], mesh.shape)
+            for n in params}
+
+
+def _lm_abstract_params(cfg, mesh, rules):
+    """(``{name: meta tensor}``, ``{name: sanitized spec}``) of the
+    model ``cfg`` (built on ``meta``: any size, nothing allocated)."""
+    model = tfm.init(cfg, None, "meta")
+    params = dict(model.named_parameters())
+    specs = specs_from_axes(param_axes(model), rules)
+    return params, _sanitize(params, specs, mesh)
+
+
+def _lm_attn_flops(cfg, B, S, causal=True, cache_w=None):
+    """Attention matmul FLOPs (QK^T + PV), fwd only, all layers.
+
+    cache_w: decode mode, per-token attention against a W-deep cache."""
+    total = 0.0
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if cache_w is not None:
+            w_eff = min(cfg.window, cache_w) if kind in ("local", "chunk") \
+                else cache_w
+            total += 4.0 * B * w_eff * cfg.n_heads * cfg.d_head
+        else:
+            s_eff = min(cfg.window, S) if kind in ("local", "chunk") else S
+            # causal ~ half the S x s_eff rectangle
+            total += 4.0 * B * S * s_eff * cfg.n_heads * cfg.d_head * (
+                0.5 if causal else 1.0
+            )
+    return total
+
+
+def _moment_dtype(cfg):
+    # llama4-maverick's 400B total params need bf16 moments to fit
+    return torch.bfloat16 if cfg.total_params() > 1e11 else torch.float32
+
+
+def _cache_specs(cfg, cache_batch, seq_axes) -> list:
+    """One ``KVCache`` of specs a layer (JAX's less the group dim)."""
+    kv = _ns(cache_batch, seq_axes, None, None)
+    return [KVCache(k=kv, v=kv, slot_pos=_ns(seq_axes))
+            for _ in range(cfg.n_layers)]
+
+
+def _run_rules(rules: dict, B: int, mesh, ba) -> dict:
+    """The rules a runnable cell installs: JAX's, with the batch left
+    replicated where it does not divide the data axes (GSPMD pads it; the
+    port's tensors are whole blocks)."""
+    if B % _axes_size(mesh, ba):
+        return dict(rules, batch=())
+    return rules
+
+
+def _lm_cell(spec, shape, mesh, multi_pod) -> Cell:
+    """JAX's ``_lm_cell``, decision for decision. On a ``MeshLayout`` the
+    cell holds decisions only (``fn=None``). On a ``Mesh`` a ``prefill``
+    or ``decode`` cell of a dense arch runs the rank's part
+    (``models.transformer_mesh``): ``fn(params, tokens, max_seq=None,
+    route=None)`` and ``fn(params, caches, tokens, pos)`` take the
+    rank's parameter blocks (``shard_lm``), its cache blocks and the
+    global tokens (each rank takes its block), and return the rank's
+    blocks (``decisions["out_specs"]``). A train cell or an MoE arch on
+    a ``Mesh`` raises ``NotImplementedError``."""
+    cfg = spec.full_config()
+    dims = shape.dims
+    B, S = dims["global_batch"], dims["seq_len"]
+    n_micro = _N_MICRO.get(spec.arch_id, 1)
+    if shape.kind == "train":
+        # launcher policy (not part of the published arch configs):
+        # "minimal" named remat saves the two d_model-wide sublayer
+        # outputs per layer; for deep/wide models even those stacks exceed
+        # HBM, so fall back to carry-only ("full") remat
+        dp = 16  # data-axis width (both meshes)
+        saved = (3 * cfg.n_layers * (B // dp // n_micro) * (S // 16)
+                 * cfg.d_model * 2)
+        cfg = dataclasses.replace(
+            cfg, remat="full" if saved > 6e9 else "minimal")
+    runnable = isinstance(mesh, Mesh)
+    if runnable and cfg.moe is not None:
+        raise NotImplementedError(f"{spec.arch_id}: {MOE_ITEM}")
+    if runnable and shape.kind == "train":
+        raise NotImplementedError(f"{spec.arch_id} x {shape.name}: "
+                                  f"{TRAIN_ITEM}")
+    # train/prefill: sequence-parallel residual stream; decode: TP
+    rules = sharding_rules(multi_pod,
+                           seq_parallel=shape.kind in ("train", "prefill"))
+    set_activation_rules(rules)  # as JAX's; a runnable fn adds its mesh
+    params, pshard = _lm_abstract_params(cfg, mesh, rules)
+    ba = batch_axes(multi_pod)
+    N = cfg.active_params()
+    run_rules = _run_rules(rules, B, mesh, ba)
+    seq_axes, cache_batch = decode_seq_axes(B, mesh.shape, ba)
+    decisions = dict(seq_parallel=shape.kind in ("train", "prefill"),
+                     remat=cfg.remat, batch_axes=ba,
+                     fn=None if runnable else
+                     f"a layout of {mesh.size} ranks, which one process "
+                     "cannot hold: run the cell on a Mesh")
+
+    if shape.kind == "train":
+        ocfg = AdamWConfig(lr=3e-4, moment_dtype=_moment_dtype(cfg))
+        opt = adamw_init(params, ocfg)
+        opt_shard = AdamWState(step=_ns(), mu=pshard, nu=pshard)
+        batch = {"tokens": sds((B, S), torch.int32),
+                 "labels": sds((B, S), torch.int32)}
+        bshard = {k: _ns(ba, None) for k in batch}
+        decisions.update(n_micro=n_micro, moment_dtype=str(
+            ocfg.moment_dtype).split(".")[-1])
+        flops = 6.0 * N * (B * S) + 3.0 * _lm_attn_flops(cfg, B, S)
+        return Cell(
+            spec.arch_id, shape.name, "train", None,
+            (params, opt, batch), (pshard, opt_shard, bshard), flops,
+            notes=f"6ND={6.0 * N * B * S:.3e} n_micro={n_micro}",
+            donate=(0, 1), config=cfg, dims=dict(dims),
+            decisions=decisions,
+        )
+
+    if shape.kind == "prefill":
+        tokens = sds((B, S), torch.int32)
+        fn = None
+        if runnable:
+            def fn(params, tokens, max_seq=None, route=None):
+                with using_rules(run_rules, mesh):
+                    return tmesh.prefill(
+                        params, cfg, _rows(tokens, run_rules, mesh),
+                        max_seq=max_seq or S, route=route,
+                        seq_axes=seq_axes)
+        decisions.update(seq_axes=seq_axes, cache_batch=cache_batch,
+                         out_specs=(_ns(run_rules["batch"] or None,
+                                        "model"),
+                                    _cache_specs(cfg, cache_batch,
+                                                 seq_axes)))
+        flops = 2.0 * N * (B * S) + _lm_attn_flops(cfg, B, S)
+        return Cell(
+            spec.arch_id, shape.name, "prefill", fn,
+            (params, tokens), (pshard, _ns(ba, None)), flops,
+            config=cfg, dims=dict(dims), decisions=decisions,
+        )
+
+    # decode: one new token against a seq_len-deep KV cache, its sequence
+    # dim sharded over "model" (decode_32k) or over ALL axes (long_500k,
+    # batch 1): flash-decoding-style distributed attention
+    if shape.kind != "decode":
+        raise ValueError(shape.kind)
+    caches = tfm.init_model_cache(cfg, B, S, torch.bfloat16, "meta")
+    cache_shard = _cache_specs(cfg, cache_batch, seq_axes)
+    tokens = sds((B, 1), torch.int32)
+    pos = sds((), torch.int32)
+    fn = None
+    if runnable:
+        def fn(params, caches, tokens, pos):
+            with using_rules(run_rules, mesh):
+                return tmesh.decode(params, cfg, caches,
+                                    _rows(tokens, run_rules, mesh),
+                                    int(pos), seq_axes=seq_axes)
+    decisions.update(seq_axes=seq_axes, cache_batch=cache_batch,
+                     out_specs=(_ns(run_rules["batch"] or None, None,
+                                    "model"), cache_shard))
+    flops = 2.0 * N * B + _lm_attn_flops(cfg, B, None, cache_w=S)
+    return Cell(
+        spec.arch_id, shape.name, "decode", fn,
+        (params, caches, tokens, pos),
+        (pshard, cache_shard, _ns(cache_batch, None), _ns()),
+        flops,
+        notes=f"KV cache W={S}, seq sharded over {seq_axes}",
+        donate=(1,), config=cfg, dims=dict(dims), decisions=decisions,
+    )
+
+
+def _rows(tokens: torch.Tensor, rules: dict, mesh) -> torch.Tensor:
+    """This rank's rows of the global ``tokens`` under ``rules``."""
+    return block_of(tokens, logical_to_spec(("batch", None), rules), mesh)
+
+
+def shard_lm(cell: Cell, model, mesh):
+    """Cut ``model`` (the cell's full config, whole) to this rank's
+    blocks under the cell's rules, in place; the specs must be the
+    cell's."""
+    rules = sharding_rules(len(cell.decisions["batch_axes"]) > 1,
+                           cell.decisions["seq_parallel"])
+    specs = shard_params(model, mesh, rules)
+    if specs != cell.in_shardings[0]:
+        raise ValueError("the model's specs are not the cell's")
+    return model
+
+
+def lm_components(arch_id: str, shape_name: str, mesh,
+                  multi_pod: bool) -> list:
+    """JAX's compositional roofline probes for LM cells: each component
+    a cell with a static trip multiplier (``iters_scale``), its
+    arguments (``meta``) and specs, one group's parameters with JAX's
+    ``"stack"`` dim dropped (the port's ``blocks.{j}``, ``j <
+    group_size``). Summing trips x terms (``dryrun.run_components``)
+    gives the step's cost:
+
+      train:   n_groups x layer_group(fwd+bwd) + (S/ce_chunk) x ce_chunk
+               + 1 x optimizer update (+ embedding, folded into ce/opt)
+      prefill: n_groups x layer_group(fwd)     + 1 x unembed(last position)
+      decode:  n_groups x decode_group         + 1 x unembed(one token)
+
+    The port lowers nothing: ``fn`` is None, and ``decisions`` names the
+    component for the dry-run's analytic count."""
+    spec = cfgbase.get(arch_id)
+    shape = {s.name: s for s in spec.shapes}[shape_name]
+    cfg = spec.full_config()
+    if shape.kind == "train":
+        cfg = dataclasses.replace(cfg, remat="minimal")
+    rules = sharding_rules(multi_pod,
+                           seq_parallel=shape.kind in ("train", "prefill"))
+    set_activation_rules(rules)
+    params, pshard = _lm_abstract_params(cfg, mesh, rules)
+    ba = batch_axes(multi_pod)
+    B, S = shape.dims["global_batch"], shape.dims["seq_len"]
+    G = cfg.n_groups
+    group = [n for n in params
+             if n.startswith("blocks.")
+             and int(n.split(".")[1]) < cfg.group_size]
+    gparams = {n: params[n] for n in group}
+    gshard = {n: pshard[n] for n in group}
+    unemb_key = "embed" if cfg.tie_embeddings else "unembed"
+    emb = params[f"{unemb_key}.table"]
+    emb_sh = pshard[f"{unemb_key}.table"]
+    res_sharding = _ns(
+        ba, "model" if shape.kind in ("train", "prefill") else None, None)
+
+    def comp(key, args, shardings, trips, notes, donate=(), out=None):
+        return Cell(arch_id, shape_name, "comp", None, args, shardings,
+                    0.0, iters_scale=float(trips), notes=notes,
+                    donate=donate, out_shardings=out, config=cfg,
+                    dims=dict(shape.dims),
+                    decisions=dict(component=key, batch_axes=ba))
+
+    comps = []
+    if shape.kind in ("train", "prefill"):
+        x = sds((B, S, cfg.d_model), cfg.dtype)
+        pos = sds((B, S), torch.int32)
+        if shape.kind == "train":
+            comps.append(comp(
+                "layer_group_fwd_bwd", (gparams, x, pos),
+                (gshard, res_sharding, _ns(ba, None)), G,
+                "layer_group fwd+bwd", out=(gshard, res_sharding)))
+            C = min(cfg.ce_chunk, S)
+            comps.append(comp(
+                "ce_chunk", (emb, sds((B, C, cfg.d_model), cfg.dtype),
+                             sds((B, C), torch.int32)),
+                (emb_sh, res_sharding, _ns(ba, None)), S // C,
+                "ce_chunk fwd+bwd", out=(emb_sh, res_sharding)))
+            ocfg = AdamWConfig(lr=3e-4, moment_dtype=_moment_dtype(cfg))
+            opt = adamw_init(params, ocfg)
+            opt_shard = AdamWState(step=_ns(), mu=pshard, nu=pshard)
+            comps.append(comp(
+                "optimizer", (params, opt, params),
+                (pshard, opt_shard, pshard), 1, "optimizer update",
+                donate=(1, 2)))
+        else:  # prefill: fwd only + per-group kv materialization
+            comps.append(comp(
+                "layer_group_prefill", (gparams, x, pos),
+                (gshard, res_sharding, _ns(ba, None)), G,
+                "layer_group prefill"))
+            comps.append(comp(
+                "unembed", (emb, sds((B, 1, cfg.d_model), cfg.dtype)),
+                (emb_sh, _ns(ba, None, None)), 1, "unembed last"))
+        return comps
+
+    if shape.kind != "decode":
+        raise ValueError(shape.kind)
+    seq_axes, cache_batch = decode_seq_axes(B, mesh.shape, ba)
+    gcache = tfm.init_model_cache(cfg, B, S, torch.bfloat16,
+                                  "meta")[:cfg.group_size]
+    gcache_sh = _cache_specs(cfg, cache_batch, seq_axes)[:cfg.group_size]
+    x = sds((B, 1, cfg.d_model), cfg.dtype)
+    comps.append(comp(
+        "decode_group", (gparams, gcache, x, sds((), torch.int32)),
+        (gshard, gcache_sh, _ns(cache_batch, None, None), _ns()), G,
+        "decode group", donate=(1,)))
+    comps.append(comp(
+        "unembed", (emb, x), (emb_sh, _ns(cache_batch, None, None)), 1,
+        "unembed token"))
+    return comps
+
+
 def build_cell(arch_id: str, shape_name: str, mesh, multi_pod: bool,
                **overrides) -> Cell:
     """JAX's ``build_cell``: the (arch, shape) cell on ``mesh`` (a ``Mesh``
-    or a ``MeshLayout``). Raises on a documented skip. The paper family
-    is ported; the LM, GNN and recsys mesh cells need the logical-axis
-    rules and raise ``NotImplementedError``."""
+    or a ``MeshLayout``). Raises on a documented skip. The paper and LM
+    families are ported; the GNN and recsys mesh cells raise
+    ``NotImplementedError``."""
     spec = cfgbase.get(arch_id)
     shape = {s.name: s for s in spec.shapes}[shape_name]
     if shape_name in spec.skips:
@@ -546,13 +878,16 @@ def build_cell(arch_id: str, shape_name: str, mesh, multi_pod: bool,
             f"{arch_id} x {shape_name} is a documented skip: "
             f"{spec.skips[shape_name]}"
         )
+    if spec.family == "lm":
+        return _lm_cell(spec, shape, mesh, multi_pod)
     if spec.family == "paper":
         return _paper_cell(spec, shape, mesh, multi_pod, **overrides)
-    if spec.family in ("lm", "gnn", "recsys"):
+    if spec.family in ("gnn", "recsys"):
+        slabs = " (with JAX's edge slabs)" if spec.family == "gnn" else ""
         raise NotImplementedError(
-            f"the {spec.family} family's mesh cells wait for the "
-            "logical-axis rules (ROADMAP section 1, next item); "
-            "gnn_cell and recsys_cell run one card"
+            f"the {spec.family} family's mesh cells{slabs} wait for their "
+            "slice (ROADMAP section 1, item 2); gnn_cell and recsys_cell "
+            "run one card"
         )
     raise ValueError(spec.family)
 

@@ -348,7 +348,7 @@ def loss_fn(params: Transformer, cfg: TransformerConfig, batch):
 
 def init_model_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                      dtype=torch.bfloat16, device=None) -> list:
-    dev = resolve_device(device)
+    dev = init_device(device)  # "meta": the shapes alone
     return [attn_init_cache(cfg.attn_settings(cfg.layer_kind(i)), batch,
                             max_seq, dtype, dev)
             for i in range(cfg.n_layers)]

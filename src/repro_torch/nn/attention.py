@@ -87,10 +87,11 @@ class Attention(nn.Module):
         self.wq = Dense((d, h * hd), generator, dtype, device)
         self.wk = Dense((d, kv * hd), generator, dtype, device)
         self.wv = Dense((d, kv * hd), generator, dtype, device)
-        self.wo = Dense((h * hd, d), generator, dtype, device)
+        self.wo = Dense((h * hd, d), generator, dtype, device,
+                        axes=("mlp", "embed"))
         if s.qk_norm:
-            self.q_norm = RMSNorm(hd, dtype, device)
-            self.k_norm = RMSNorm(hd, dtype, device)
+            self.q_norm = RMSNorm(hd, dtype, device, axes=(None,))
+            self.k_norm = RMSNorm(hd, dtype, device, axes=(None,))
 
 
 def attn_init(generator, s: AttnSettings, dtype=torch.float32,
@@ -210,10 +211,11 @@ def _attend_scan(s: AttnSettings, q, k, v, positions):
     return out.reshape(b, seq, h * hd)
 
 
-def attend(p: Attention, s: AttnSettings, q, k, v, positions,
-           route: Optional[str] = None):
-    """Projected q, k, v -> the layer's output [B, S, d] through the
-    chosen route, then ``wo``."""
+def attend_heads(s: AttnSettings, q, k, v, positions,
+                 route: Optional[str] = None):
+    """Projected q [B, S, H, hd], k and v [B, S, KV, hd] -> the heads'
+    outputs [B, S, H*hd] in q's type, through the chosen route (``s``
+    gives H, KV and the kind)."""
     route = choose_route(s, q, route)
     if route == "kernel" and torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
@@ -223,10 +225,15 @@ def attend(p: Attention, s: AttnSettings, q, k, v, positions,
             "torch.no_grad()")
     route_calls[route] += 1
     if route == "kernel":
-        out = _attend_kernel(s, q, k, v)
-    else:
-        out = _attend_scan(s, q, k, v, positions)
-    return out @ p.wo.kernel
+        return _attend_kernel(s, q, k, v)
+    return _attend_scan(s, q, k, v, positions)
+
+
+def attend(p: Attention, s: AttnSettings, q, k, v, positions,
+           route: Optional[str] = None):
+    """Projected q, k, v -> the layer's output [B, S, d] through the
+    chosen route, then ``wo``."""
+    return attend_heads(s, q, k, v, positions, route) @ p.wo.kernel
 
 
 def attention(p: Attention, s: AttnSettings, x, positions,

@@ -10,17 +10,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .module import ones, param, zeros
+from .module import ones, param, set_axes, zeros
 
 
 class Dense(nn.Module):
     """``{"kernel": [d_in, d_out]}``; also the holder of a stacked expert
-    kernel ``[E, d_in, d_out]``."""
+    kernel ``[E, d_in, d_out]``. ``axes``: the kernel's logical axes
+    (JAX's ``dense_init`` default ``("embed", "mlp")``)."""
 
     def __init__(self, shape, generator, dtype=torch.float32, device="cpu",
-                 scale=None):
+                 scale=None, axes=("embed", "mlp")):
         super().__init__()
         self.kernel = param(tuple(shape), generator, dtype, device, scale)
+        set_axes(self, kernel=axes)
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
@@ -28,11 +30,14 @@ def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
 
 
 class RMSNorm(nn.Module):
-    """``{"scale": [d]}``, ones at init."""
+    """``{"scale": [d]}``, ones at init; axes ``("embed",)`` (QK-norm's
+    per-head scale: ``(None,)``)."""
 
-    def __init__(self, d, dtype=torch.float32, device="cpu"):
+    def __init__(self, d, dtype=torch.float32, device="cpu",
+                 axes=("embed",)):
         super().__init__()
         self.scale = ones((d,), dtype, device)
+        set_axes(self, scale=axes)
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6,
@@ -51,6 +56,7 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.scale = ones((d,), dtype, device)
         self.bias = zeros((d,), dtype, device)
+        set_axes(self, scale=("embed",), bias=("embed",))
 
 
 def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5):
@@ -68,6 +74,7 @@ class Embedding(nn.Module):
                  device="cpu", scale=1.0):
         super().__init__()
         self.table = param((vocab, d), generator, dtype, device, scale)
+        set_axes(self, table=("vocab", "embed"))
 
 
 def embed(p: Embedding, ids: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,12 @@ class SwiGLU(nn.Module):
                  expert_dim: int | None = None):
         super().__init__()
         lead = () if expert_dim is None else (expert_dim,)
-        self.wi = Dense((*lead, d, 2 * d_ff), generator, dtype, device)
-        self.wo = Dense((*lead, d_ff, d), generator, dtype, device)
+        wi, wo = ((("embed", "mlp"), ("mlp", "embed")) if expert_dim is None
+                  else (("experts", "embed", None),
+                        ("experts", None, "embed")))
+        self.wi = Dense((*lead, d, 2 * d_ff), generator, dtype, device,
+                        axes=wi)
+        self.wo = Dense((*lead, d_ff, d), generator, dtype, device, axes=wo)
 
 
 def ffn(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +68,8 @@ class MoE(nn.Module):
     def __init__(self, d, m: MoESettings, generator, dtype=torch.float32,
                  device="cpu"):
         super().__init__()
-        self.router = Dense((d, m.n_experts), generator, dtype, device)
+        self.router = Dense((d, m.n_experts), generator, dtype, device,
+                            axes=("embed", None))
         self.experts = SwiGLU(d, m.d_ff, generator, dtype, device,
                               expert_dim=m.n_experts)
         if m.n_shared:

@@ -111,6 +111,12 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   card mesh against the CPU's on one seeded graph, both state layouts:
   levels and trips bitwise; a card dry-run record (``launch/dryrun``)
   with measured memory and wall ms.
+- The LM serving cells on a mesh (``models/transformer_mesh``): the
+  prefill cell on a one-rank card mesh through ``mha`` (one launch a
+  layer) against the forced scan route, float32 and bfloat16, then
+  decode steps; four gloo ranks sharing the card on ``(2, 2)`` against
+  the same ranks on the CPU, the logits within 1e-4 of the largest
+  magnitude and the same collectives.
 """
 import dataclasses
 
@@ -1321,3 +1327,78 @@ def test_paper_cell_on_card_matches_cpu(cuda_device, tmp_path):
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["memory"]["total_bytes_per_device"] > 0
     assert rec["wall_ms"] > 0 and rec["device"].startswith("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_rank_mesh_prefill_through_mha_matches_scan(dtype, cuda_device):
+    """The LM prefill cell (``launch.steps``, ``models.transformer_mesh``)
+    on a one-rank card mesh, MiniCPM-smoke at S 256: ``mha`` launches once
+    a layer (no scan-route call), and the logits and caches equal the
+    forced scan route's (float32 within 1e-4 of the largest magnitude,
+    bfloat16 per-row cosine >= 0.999, as the model test above); then 4
+    decode steps from each route's caches."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+
+    import test_torch_ranks as TR
+
+    mesh = make_mesh((1, 1), ("data", "model"), cuda_device)
+    pcell, dcell = TR.lm_cells(mesh, "minicpm-2b", 2, 256, 4, dtype)
+    cfg = pcell.config
+    assert cfg.dtype == dtype
+    model = transformer.init(cfg, torch.Generator().manual_seed(0),
+                             cuda_device)
+    steps.shard_lm(pcell, model, mesh)
+    toks = torch.from_numpy(TR.lm_tokens(cfg.vocab, 2, 260)).to(cuda_device)
+    launches, calls = flash_attention.launches, dict(attn.route_calls)
+    got, k_caches = pcell.fn(model, toks[:, :256], max_seq=260)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + cfg.n_layers
+    assert attn.route_calls == {"kernel": calls["kernel"] + cfg.n_layers,
+                                "scan": calls["scan"]}
+    exp, s_caches = pcell.fn(model, toks[:, :256], max_seq=260,
+                             route="scan")
+    assert flash_attention.launches == launches + cfg.n_layers
+    pairs = [(got, exp)]
+    for p in range(256, 260):
+        g, k_caches = dcell.fn(model, k_caches, toks[:, p:p + 1], p)
+        e, s_caches = dcell.fn(model, s_caches, toks[:, p:p + 1], p)
+        pairs.append((g[:, 0], e[:, 0]))
+    v = cfg.vocab
+    for g, e in pairs:
+        assert torch.isfinite(g[:, :v]).all()
+        if dtype == torch.float32:
+            assert rel_err(g[:, :v], e[:, :v]) <= 1e-4
+        else:
+            assert (row_cosine(g[:, :v], e[:, :v]) >= 0.999).all()
+    assert mesh.wire.calls == 0
+
+
+def test_lm_mesh_on_card_ranks_matches_cpu(cuda_device):
+    """Four gloo ranks sharing the card serve the smoke LM cells of
+    ``test_torch_lm_mesh.py`` on ``(2, 2)`` (``test_torch_ranks.
+    lm_mesh_rank``, float32, TF32 off) from one set of weights: each
+    case's global logits within 1e-4 of the largest magnitude of the
+    same ranks on the CPU, the same collectives by kind, and messages
+    staged through host memory."""
+    from repro_torch.configs import base
+    from repro_torch.launch.mesh import run_ranks
+
+    import test_torch_ranks as TR
+
+    trees = {}
+    for arch in ("minicpm-2b", "gemma2-2b"):
+        cfg = base.get(arch).smoke_config()
+        trees[arch] = transformer.params_to_numpy(transformer.init(
+            cfg, torch.Generator().manual_seed(3), "cpu"))
+    card = run_ranks(TR.lm_mesh_rank, 4, ((2, 2), trees, "cuda:0"),
+                     timeout_s=240)
+    cpu = run_ranks(TR.lm_mesh_rank, 4, ((2, 2), trees), timeout_s=240)
+    for r in range(4):
+        for arch, b, _, _ in TR.LM_MESH_CASES[(2, 2)]:
+            c, h = card[r][f"{arch}/{b}"], cpu[r][f"{arch}/{b}"]
+            assert c["by_kind"] == h["by_kind"] and c["staged"] > 0
+            for g, e in zip(c["logits"], h["logits"]):
+                v = base.get(arch).smoke_config().vocab
+                assert rel_err(torch.from_numpy(g[:, :v]),
+                               torch.from_numpy(e[:, :v])) <= 1e-4

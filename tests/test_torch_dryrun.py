@@ -10,8 +10,9 @@
 - ``dryrun --list`` prints JAX's list.
 - ``run_cell`` writes records with JAX's keys and ``status: ok``: a card
   run on the CPU (a cut cell) and the analytic ``single``/``multi``
-  layouts; the LM cells record their ``NotImplementedError`` and the run
-  carries on; ``--components`` raises.
+  layouts; a GNN cell records its ``NotImplementedError`` and the run
+  carries on; ``--components`` is refused on ``--mesh card``. The LM
+  cells' records are held in ``test_torch_lm_dryrun.py``.
 """
 import dataclasses
 import json
@@ -187,14 +188,23 @@ def test_layout_records_are_analytic(mesh, tmp_path):
 
 
 def test_unported_cells_record_errors_and_components_raise(tmp_path):
-    rc = dryrun.main(["--arch", "minicpm-2b", "--shape", "train_4k",
+    rc = dryrun.main(["--arch", "pna", "--shape", "molecule",
                       "--mesh", "single", "--out", str(tmp_path)])
     assert rc == 1
-    rec = _load(tmp_path / "minicpm-2b__train_4k__single.json")
+    rec = _load(tmp_path / "pna__molecule__single.json")
     assert rec["status"] == "error"
     assert rec["error"].startswith("NotImplementedError")
-    with pytest.raises(NotImplementedError, match="logical-axis rules"):
-        dryrun.main(["--all", "--components", "--out", str(tmp_path)])
+    # --components counts JAX's layouts: refused on the card, and for a
+    # family without components
+    with pytest.raises(SystemExit):
+        dryrun.main(["--all", "--components", "--mesh", "card", "--out",
+                     str(tmp_path)])
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", ARCH, "--shape", "spotify", "--components",
+                     "--out", str(tmp_path)])
+    with pytest.raises(ValueError, match="production layouts"):
+        dryrun.run_components("minicpm-2b", "prefill_32k", "card",
+                              str(tmp_path))
     assert dryrun.main(["--arch", ARCH, "--shape", "spotify", "--mesh",
                         "both", "--out", str(tmp_path)]) == 0
     assert {p.name for p in tmp_path.glob(f"{ARCH}*")} == {

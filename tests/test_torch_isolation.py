@@ -128,6 +128,8 @@ RECSYS_MODULES = ("nn/embedding_bag.py", "models/dcn_v2.py",
                   "parallel/__init__.py", "parallel/pipeline.py")
 PAPER_MODULES = ("configs/paper_bfs.py", "launch/hlo_analysis.py",
                  "launch/dryrun.py")
+MESH_LM_MODULES = ("nn/module.py", "models/transformer_mesh.py",
+                   "launch/steps.py", "core/collectives.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -141,6 +143,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert set(GNN_MODULES) <= scanned
     assert set(RECSYS_MODULES) <= scanned
     assert set(PAPER_MODULES) <= scanned
+    assert set(MESH_LM_MODULES) <= scanned
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files for mod in absolute_imports(p)
@@ -155,6 +158,8 @@ def test_serve_import_leaves_jax_unloaded():
             "repro_torch.launch.mesh, repro_torch.core.collectives, "
             "repro_torch.runtime.scheduler, repro_torch.runtime.service, "
             "repro_torch.graph.delta, repro_torch.models.transformer, "
+            "repro_torch.models.transformer_mesh, repro_torch.nn.module, "
+            "repro_torch.launch.steps, repro_torch.launch.dryrun, "
             "repro_torch.configs.base; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "

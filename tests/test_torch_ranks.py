@@ -883,3 +883,165 @@ def paper_cell_rank(rank: int, world: int) -> dict:
         st = collective_stats(mesh.wire)
         out[f"{name}/counts"] = {k: v for k, v in st.counts.items() if v}
     return out
+
+
+# ---------------------------------------------------------------------------
+# The LM serving cells on a mesh (launch/steps.py's _lm_cell,
+# models/transformer_mesh.py).
+# ---------------------------------------------------------------------------
+
+#: (arch, global batch, prompt length, decode steps) a mesh runs
+LM_MESH_CASES = {
+    (2, 2): (("minicpm-2b", 4, 32, 4), ("gemma2-2b", 4, 32, 4),
+             ("gemma2-2b", 1, 32, 4)),
+    (1, 4): (("minicpm-2b", 4, 32, 4), ("gemma2-2b", 4, 32, 4)),
+}
+
+
+def lm_smoke_spec(base, arch: str, dtype=None):
+    """The arch with ``full_config`` replaced by its smoke config
+    (``_lm_cell`` builds from ``full_config``), in ``dtype`` if given."""
+    import dataclasses
+
+    spec = base.get(arch)
+    if dtype is None:
+        return dataclasses.replace(spec, full_config=spec.smoke_config)
+    return dataclasses.replace(spec, full_config=lambda: dataclasses.replace(
+        spec.smoke_config(), dtype=dtype))
+
+
+def lm_tokens(vocab: int, b: int, n: int, seed: int = 1) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, (b, n)).astype(np.int32)
+
+
+def lm_cells(mesh, arch: str, b: int, seq: int, steps_: int, dtype=None):
+    """The smoke config's prefill cell (``b`` x ``seq``) and decode cell
+    (a cache of ``seq + steps_`` slots) on ``mesh``."""
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+
+    spec = lm_smoke_spec(base, arch, dtype)
+    p = base.ShapeSpec("prefill_32k", "prefill",
+                       dict(seq_len=seq, global_batch=b))
+    d = base.ShapeSpec("decode_32k", "decode",
+                       dict(seq_len=seq + steps_, global_batch=b))
+    return (steps._lm_cell(spec, p, mesh, False),
+            steps._lm_cell(spec, d, mesh, False))
+
+
+def lm_mesh_rank(rank: int, world: int, shape: tuple, trees: dict,
+                 device: str = "cpu") -> dict:
+    """Each case of ``LM_MESH_CASES[shape]`` on this rank: the model
+    carried from JAX's numpy tree (``trees[arch]``), cut by
+    ``steps.shard_lm``, a prefill and ``steps_`` decode steps fed
+    ``lm_tokens``; the global logits of each, this rank's cache blocks
+    after the prefill, and the collectives the path sent (by kind and by
+    axis) beside ``collective_schedule``'s count."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import transformer_mesh as tmesh
+    from repro_torch.nn.module import (
+        gather_block,
+        set_activation_rules,
+        sharding_rules,
+    )
+
+    if device != "cpu":  # gloo ranks sharing the card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(torch.device(device))
+    mesh = make_mesh(shape, ("data", "model"), device)
+    out = {"coords": {a: mesh.coord(a) for a in mesh.axis_names}}
+    for arch, b, seq, n in LM_MESH_CASES[shape]:
+        name = f"{arch}/{b}"
+        pcell, dcell = lm_cells(mesh, arch, b, seq, n)
+        cfg = pcell.config
+        model = tfm.params_from_jax(cfg, trees[arch], device=device)
+        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        steps.shard_lm(pcell, model, mesh)
+        toks = torch.from_numpy(lm_tokens(cfg.vocab, b, seq + n)).to(device)
+        mesh.wire.reset()
+        logits, caches = pcell.fn(model, toks[:, :seq], max_seq=seq + n)
+        blocks = [{f: getattr(c, f).cpu().numpy().copy() for f in c._fields}
+                  for c in caches]
+        outs = [logits]
+        for t in range(n):
+            o, caches = dcell.fn(model, caches, toks[:, seq + t:seq + t + 1],
+                                 seq + t)
+            outs.append(o[:, 0])
+        by_kind = {k: {int(g): list(v) for g, v in d.items()}
+                   for k, d in mesh.wire.by_kind.items()}
+        by_axis = {a: {k: list(v) for k, v in d.items()}
+                   for a, d in mesh.wire.by_axis.items()}
+        spec = pcell.decisions["out_specs"][0]
+        out[name] = {
+            "logits": [gather_block(x, spec, mesh).cpu().numpy()
+                       for x in outs],
+            "staged": mesh.wire.staged_bytes,
+            "caches": blocks,
+            "by_kind": by_kind, "by_axis": by_axis,
+            "seq_axes": dcell.decisions["seq_axes"],
+        }
+        specs = model.shard_specs
+        rows = b // shape[0] if b % shape[0] == 0 else b
+        sch = [tmesh.collective_schedule(
+            cfg, kind, rows, seq, mesh.shape,
+            sharding_rules(False, kind == "prefill"), specs, shapes,
+            dcell.decisions["seq_axes"]) for kind in ("prefill", "decode")]
+        parts = [sch[0]["global"], *sch[0]["layers"], sch[0]["final"]]
+        for _ in range(n):
+            parts += [sch[1]["global"], *sch[1]["layers"], sch[1]["final"]]
+        out[name]["schedule"] = tmesh.merge_records(*parts)
+        set_activation_rules(None)
+    return out
+
+
+def lm_replicated_kv_rank(rank: int, world: int) -> dict:
+    """MiniCPM-smoke with one kv head of 6 on ``(1, 4)``: ``wk``/``wv``
+    (``[64, 6]``) do not divide the model axis and stay replicated
+    (``sanitize_spec``); each rank runs the unsharded model, then the
+    mesh cells from the same weights. Returns both runs' logits and the
+    kv specs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.nn.module import gather_block
+
+    spec = base.get("minicpm-2b")
+    cfg = dataclasses.replace(spec.smoke_config(), n_kv_heads=1, d_head=6)
+    spec = dataclasses.replace(spec, full_config=lambda: cfg)
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    b, seq, n = 4, 32, 4  # 36 cache slots, 9 a rank
+    pcell = steps._lm_cell(spec, base.ShapeSpec(
+        "prefill_32k", "prefill", dict(seq_len=seq, global_batch=b)),
+        mesh, False)
+    dcell = steps._lm_cell(spec, base.ShapeSpec(
+        "decode_32k", "decode", dict(seq_len=seq + n, global_batch=b)),
+        mesh, False)
+    model = tfm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(lm_tokens(cfg.vocab, b, seq + n))
+    want, caches = tfm.prefill(model, cfg, toks[:, :seq], max_seq=seq + n)
+    ref = [want.numpy()]
+    for t in range(n):
+        o, caches = tfm.decode(model, cfg, caches,
+                               toks[:, seq + t:seq + t + 1], seq + t)
+        ref.append(o[:, 0].numpy())
+    steps.shard_lm(pcell, model, mesh)
+    logits, caches = pcell.fn(model, toks[:, :seq], max_seq=seq + n)
+    out_spec = pcell.decisions["out_specs"][0]
+    got = [gather_block(logits, out_spec, mesh).numpy()]
+    for t in range(n):
+        o, caches = dcell.fn(model, caches, toks[:, seq + t:seq + t + 1],
+                             seq + t)
+        got.append(gather_block(o[:, 0], out_spec, mesh).numpy())
+    return {"got": got, "ref": ref, "vocab": cfg.vocab,
+            "wk": model.shard_specs["blocks.0.attn.wk.kernel"],
+            "wq": model.shard_specs["blocks.0.attn.wq.kernel"]}

@@ -263,7 +263,7 @@ Phases (any failure exits non-zero and prints no result):
    sequence over ``model``: FSDP gathers on ``data``, the SP gathers and
    reduce-scatters on ``model``, head-parallel attention through
    ``mha``), its caches in the decode cell's layout (4 x 4,128 slots, W
-   over ``model``), then 8 decode steps fed a one-rank run's greedy
+   over ``model``), then 4 decode steps fed a one-rank run's greedy
    tokens. Held against that one-rank run of the same weights on the
    card: each logits row's cosine similarity at least 0.999 (phase 6b's
    bfloat16 tolerance) and the greedy token equal wherever the one-rank
@@ -272,7 +272,34 @@ Phases (any failure exits non-zero and prints no result):
    kernels not at all. Prints prefill ms, decode ms a step and tokens/s
    beside the one-rank run's and phase 6b's, and per rank the
    collectives' ms, payload and staged bytes by kind and peak device
-   memory.
+   memory;
+13. the GNN and recsys cells on a mesh of ranks (``launch/steps.py``'s
+   ``_gnn_cell`` and ``_recsys_cell`` on a ``Mesh``, JAX's
+   destination-aligned edge slabs): the same ``(2, 2)`` mesh of four
+   gloo ranks sharing the card. 13a: two AdamW steps of PNA on
+   ``full_graph_sm`` (2,708 nodes, 10,556 edges, ``d_feat`` 1,433) and
+   on a ``minibatch_lg`` batch sampled on the card from the scale-10
+   proxy's forward ELL (1,024 seeds, fanouts (15, 10)), both in float64,
+   and of SchNet, MACE and EquiformerV2 on ``molecule`` in float32, all
+   at full config, against the one-rank cell on the card from the same
+   seeded weights and batches: the loss and gradient norm of each step,
+   every parameter and moment leaf (float64 at 1e-6, parameters within
+   1e-6; float32 moments at 1e-3 of a leaf's largest, parameters within
+   0.1 lr but for one entry or 1% and all within 2 lr a step). 13b:
+   DCN-v2 at full Criteo width (35.9M rows; the table's rows over
+   ``model``, FSDP over ``data``): ``serve_p99`` (B 512) and
+   ``serve_bulk`` (B 262,144) logits against one rank, ``retrieval_cand``
+   (1 x 1,000,000) the merged top 100 against one rank and the one-rank
+   top 100 against a float64 sort, two float32 ``train_batch`` steps at
+   B 65,536 (loss and norm), then one float64 step at B 2,048 from the
+   seed's weights: loss, norm, every leaf, the table by the rows the
+   batch touches and every other row's moments 0. 13c, every rank: its
+   ``Wire`` records equal the family's ``collective_schedule`` times the
+   calls, its parameter blocks their specs' slices, and no kernel counter
+   moves. Prints per cell the slowest rank's step or call ms beside the
+   one-rank run's, the collectives' ms, payload and staged bytes by kind
+   and axis, peak device memory and the real slab layout's edges beside
+   ``e_pad``.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -287,8 +314,8 @@ served shape beside SDPA and its bound) and a ``mesh`` object (phase
 ``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), phase 8's
 ``phase 8:``, phase 9's ``phase 9:``, phase 10's ``phase 10:`` and
-phase 11's ``phase 11:`` and phase 12's ``phase 12:`` JSON lines, the
-card's name
+phase 11's ``phase 11:``, phase 12's ``phase 12:`` and phase 13's
+``phase 13:`` JSON lines, the card's name
 and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -319,6 +346,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SPMM_FEAT = 128  # GNN hidden width of the spmm phase
 MIN_WARM = 5  # warm batches each served kind needs in each loop (3c)
+ORACLE_THREADS = 8  # 3c's host oracles of one loop's queries, together
 P99_MIN = 20  # samples below which phase 3c reports no p99
 MHA_SHAPE = (1, 36, 4096, 64)  # MiniCPM-2B: 36 MHA heads, d 64, train_4k
 # (rtol, atol) of a kernel against its plain version
@@ -713,12 +741,16 @@ def phase_3c(dev, csr, check, launches) -> dict:
             fail(f"serve --query-kind {kind} --closed-loop exited {rc}")
         launches["binned_pull"] += bp_mod.fused_binned_pull.launches
         warm, per_iter = [], []
-        for r in records:
+        # the host oracles of all batches at once, on threads (numpy
+        # releases the GIL in its sorts and gathers)
+        with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+            exps = list(pool.map(lambda r: expect(kind, r.sources),
+                                 records))
+        for r, (exp, exp_iters) in zip(records, exps):
             k = len(r.sources)
             got = {leaf: getattr(r.result.state, leaf)[:k, :n].cpu().numpy()
                    for leaf in leaves}
             iters = r.result.iterations[:k].numpy()
-            exp, exp_iters = expect(kind, r.sources)
             compare(kind, got, exp, f"closed-loop batch {r.index}")
             if exp_iters is not None and not np.array_equal(iters,
                                                             exp_iters):
@@ -757,17 +789,20 @@ def phase_3c(dev, csr, check, launches) -> dict:
         if rc != 0 or len(streams) != 1:
             fail(f"serve --query-kind {kind} (open loop) exited {rc}")
         loop, arrivals = streams[0].loop, streams[0].arrivals
-        graph, n_q = (csr_w if kind == "topk_paths" else csr), 0
+        graph, queries = (csr_w if kind == "topk_paths" else csr), []
         for a in arrivals:
             if "delta" in a:
                 graph = apply_delta_csr(graph, a["delta"])
                 continue
-            qid, n_q = f"q{n_q}", n_q + 1
+            queries.append((a["sources"], graph if graph is not csr_w
+                            and kind == "topk_paths" else None))
+        with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+            exps = list(pool.map(lambda q: expect(kind, *q), queries))
+        n_q = len(queries)
+        for i, (exp, _) in enumerate(exps):
+            qid = f"q{i}"
             got = loop.results[qid]
             got = got if isinstance(got, dict) else {leaves[0]: got}
-            exp, _ = expect(kind, a["sources"],
-                            graph if graph is not csr_w
-                            and kind == "topk_paths" else None)
             compare(kind, got, exp, f"open-loop {qid}")
         st = loop.stats
         if st.completed != n_q:
@@ -3581,7 +3616,7 @@ def phase_11(dev, launches_before) -> dict:
 # -- phase 12: the LM serving cells on a mesh of ranks -------------------------
 
 PHASE12_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
-PHASE12_STEPS = 8  # decode steps against the 4 x 4,128 cache
+PHASE12_STEPS = 4  # decode steps against the 4 x 4,128 cache
 PHASE12_TIMEOUT_S = 600  # the rank group, or it fails
 #: mesh against one rank, bfloat16: phase 6b's tolerance for the kernel
 #: route against the scan route, a logits row's cosine similarity; greedy
@@ -3884,6 +3919,610 @@ def phase_12(dev, one_rank_6b=None) -> dict:
           + f"; min cosine {min(x['min_cosine'] for x in rows):.6f}; "
           f"{torch.cuda.get_device_name(dev)}; {out['seconds']:.1f} s",
           flush=True)
+    return out
+
+
+# -- phase 13: the GNN and recsys cells on a mesh of ranks -------------------
+
+PHASE13_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
+PHASE13_STEPS = 2  # GNN AdamW steps, on the mesh and on one rank
+PHASE13_TIMEOUT_S = 900  # the rank group, or it fails
+#: (arch, shape, dtype) at the full configs: PNA in float64 (a sampled
+#: tree's in-degree-0 leaves make float32 rounding swamp its first
+#: layers' gradient, phase 9a), the others in float32
+PHASE13_GNN = (("pna", "full_graph_sm", torch.float64),
+               ("pna", "minibatch_lg", torch.float64),
+               ("schnet", "molecule", torch.float32),
+               ("mace", "molecule", torch.float32),
+               ("equiformer-v2", "molecule", torch.float32))
+PHASE13_SMOKE = False  # a CPU rehearsal builds the smoke configs
+PHASE13_DIMS: dict = {}  # a CPU rehearsal's smaller shapes, by shape name
+PHASE13_CALLS = {"serve_p99": 10, "serve_bulk": 1, "retrieval_cand": 3}
+PHASE13_CHECK_B = RECSYS_CHECK_TRAIN_B  # the float64 DCN-v2 step's batch
+PHASE13_TRAIN_B = 65536  # train_batch's own batch, float32, timed
+PHASE13_CAND_SEED = 13
+# mesh against one rank on the card: float64 per leaf at GNN_F64_TOL,
+# parameters within GNN_PARAM_ABS; float32 (the ranks' sums add in other
+# orders) the loss at GNN_TOL, the norm at GNN_GRAD_TOL's rtol, moments
+# at GNN_GRAD_TOL per leaf, each parameter leaf within 0.1 lr but for one
+# entry or 1% of them (a rounding-sized gradient's sign decides a first
+# AdamW step) and all of it within 2 lr a step
+
+
+def phase13_cell(mesh, arch: str, shape: str, dims=None):
+    from repro_torch.launch import steps
+
+    d = {**PHASE13_DIMS.get(shape, {}), **(dims or {})}
+    return steps.build_cell(arch, shape, mesh, False, smoke=PHASE13_SMOKE,
+                            dims=d or None)
+
+
+def phase13_gnn_batches(dev, csr) -> dict:
+    """The global numpy batches of each GNN case: ``cell_batch`` seeds
+    0 and 1; PNA ``minibatch_lg`` sampled on the card from the scale-10
+    proxy's forward ELL as phase 9a samples (``GraphSeedStream`` seeds,
+    fanouts (15, 10), the seeded feature table)."""
+    from repro_torch.data.pipeline import GraphSeedStream
+    from repro_torch.graph import sampler
+    from repro_torch.graph.csr import ell_from_csr
+    from repro_torch.kernels.common import to_device
+    from repro_torch.launch import steps
+
+    out = {}
+    for arch, shape, _ in PHASE13_GNN:
+        dims = PHASE13_DIMS.get(shape)
+        cell = steps.gnn_cell(arch, shape, smoke=PHASE13_SMOKE, dims=dims)
+        if shape != "minibatch_lg" or arch != "pna":
+            out[arch, shape] = [steps.cell_batch(cell, seed=i)
+                                for i in range(PHASE13_STEPS)]
+            continue
+        ell = to_device(ell_from_csr(csr), dev)
+        feats = torch.randn((csr.n_nodes, cell.cfg.d_feat),
+                            generator=torch.Generator().manual_seed(
+                                GNN_FEAT_SEED))
+        eye = np.eye(cell.cfg.n_out, dtype=np.float32)
+        stream = GraphSeedStream(n_nodes=csr.n_nodes,
+                                 batch_nodes=cell.seeds,
+                                 n_classes=cell.cfg.n_out)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batches = []
+        for i in range(PHASE13_STEPS):
+            sb = stream.batch(i)
+            sub = sampler.sample_subgraph(ell, sb["seeds"], cell.fanout, gen,
+                                          device=dev)
+            nodes = sub.nodes.long().cpu()
+            batches.append({
+                "edge_src": sub.edge_src.cpu().numpy(),
+                "edge_dst": sub.edge_dst.cpu().numpy(),
+                "node_feat": feats[nodes].numpy(),
+                "targets": eye[sb["labels"]]})
+        out[arch, shape] = batches
+        del ell
+    return out
+
+
+def _phase13_gnn_model(steps, cell, arch, dtype, dev):
+    gc_ = steps.gnn_cell(arch, cell.shape_name, smoke=PHASE13_SMOKE,
+                         dims=PHASE13_DIMS.get(cell.shape_name))
+    model = steps.init_model(gc_, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    return model.to(dtype) if dtype != torch.float32 else model
+
+
+def _state(model, opt, mesh=None) -> dict:
+    """Parameters and moments on the host (gathered whole on a mesh)."""
+    from repro_torch.nn.module import gather_block
+
+    def whole(name, t):
+        t = t.detach()
+        if mesh is not None:
+            t = gather_block(t, model.shard_specs[name], mesh)
+        return t.to("cpu", copy=True)
+
+    return {"params": {k: whole(k, p) for k, p in model.named_parameters()},
+            "mu": {k: whole(k, v) for k, v in opt.mu.items()},
+            "nu": {k: whole(k, v) for k, v in opt.nu.items()}}
+
+
+def _timed(fn, dev):
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(dev)
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def _wire13(mesh) -> dict:
+    w = mesh.wire
+    return {"calls": w.calls, "payload_bytes": w.bytes,
+            "staged_bytes": w.staged_bytes, "ms": w.ms,
+            "ms_by_kind": dict(w.ms_by_kind),
+            "by_axis": {a: {k: list(v) for k, v in d.items()}
+                        for a, d in w.by_axis.items()},
+            "staged_by_kind": dict(w.staged_by_kind)}
+
+
+def phase13_gnn_run(mesh, batches: dict, dev) -> dict:
+    """Each GNN case's ``PHASE13_STEPS`` train steps on ``mesh`` (a
+    one-rank mesh: the reference): step ms, losses and norms, the state
+    after (gathered whole; on a mesh rank 0's only), collectives against
+    the schedule, blocks against their specs, the slab layout and peak
+    device memory."""
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import adamw_init
+
+    out = {}
+    for arch, shape, dtype in PHASE13_GNN:
+        torch.cuda.reset_peak_memory_stats(dev)
+        cell = phase13_cell(mesh, arch, shape)
+        model = _phase13_gnn_model(steps, cell, arch, dtype, dev)
+        whole = {k: p.detach().clone() for k, p in model.named_parameters()}
+        model.requires_grad_(True)
+        steps.shard_gnn(cell, model, mesh)
+        blocks_ok = all(torch.equal(p, _spec_block(
+            whole[k], model.shard_specs[k], mesh))
+            for k, p in model.named_parameters())
+        del whole
+        opt = adamw_init(steps.params_dict(model), steps.GNN_ADAMW)
+        rbs = []
+        for b in batches[arch, shape]:
+            rb, layout = steps.gnn_rank_batch(cell, mesh,
+                                              steps.pad_gnn_batch(cell, b))
+            rbs.append(rb)
+        mesh.wire.reset()
+        losses, ms = [], []
+        for rb in rbs:
+            (_, opt, loss, gnorm), t = _timed(
+                lambda rb=rb: cell.fn(model, opt, rb), dev)
+            losses.append((float(loss), float(gnorm)))
+            ms.append(t)
+        wire = _wire13(mesh)
+        sched = steps.gnn_collective_schedule(cell, mesh.shape,
+                                              el=torch.finfo(dtype).bits // 8)
+        want = {a: {k: [PHASE13_STEPS * c, PHASE13_STEPS * n]
+                    for k, (c, n) in d.items()} for a, d in sched.items()}
+        rec = {"dtype": str(dtype).split(".")[-1], "steps": losses,
+               "step_ms": ms, "wire": wire,
+               "schedule_equal": wire["by_axis"] == want,
+               "blocks_ok": blocks_ok, "layout": layout,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "notes": cell.notes}
+        if mesh.size == 1 or mesh.rank == 0:
+            rec["state"] = _state(model, opt,
+                                  mesh if mesh.size > 1 else None)
+        elif mesh.size > 1:
+            _state(model, opt, mesh)  # the gathers are collective
+        out[f"{arch}/{shape}"] = rec
+        if mesh.size == 1 or mesh.rank == 0:
+            print(f"phase 13: {'one rank' if mesh.size == 1 else 'rank 0'} "
+                  f"{arch}/{shape}: step ms {[round(x, 2) for x in ms]}, "
+                  f"peak {rec['peak_gb']:.3f} GB", flush=True)
+        del model, opt, rbs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dcn_touched(cfg, batch) -> np.ndarray:
+    off = np.concatenate([[0], np.cumsum(cfg.field_vocabs)[:-1]])
+    return np.unique(batch["sparse"].astype(np.int64) + off[None, :])
+
+
+def phase13_dcn_run(mesh, dev) -> dict:
+    """DCN-v2 at the full config on ``mesh`` (seed 0 weights; a one-rank
+    mesh: the reference): ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` from the initial weights (logits gathered whole,
+    the merged top 100), one float64 ``train_batch`` step at
+    ``PHASE13_CHECK_B`` on a copy (loss, norm, every leaf but the table
+    whole; the table's rows the batch touches, and whether every other
+    row's moments stayed 0), then two float32 steps at
+    ``PHASE13_TRAIN_B``, timed; each kind's collectives against the
+    schedule."""
+    from repro_torch.launch import steps
+    from repro_torch.models import dcn_v2 as dcn
+    from repro_torch.nn.module import gather_block, part_axes
+    from repro_torch.optim.adamw import adamw_init
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    cells = {s: phase13_cell(mesh, RECSYS_ARCH, s) for s in
+             ("serve_p99", "serve_bulk", "retrieval_cand")}
+    cells["check"] = phase13_cell(mesh, RECSYS_ARCH, "train_batch",
+                                  dict(batch=PHASE13_CHECK_B))
+    cells["train_batch"] = phase13_cell(mesh, RECSYS_ARCH, "train_batch",
+                                        dict(batch=PHASE13_TRAIN_B))
+    cfg = cells["check"].config
+    model = dcn.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)[0]
+    whole = {k: p.detach().clone() for k, p in model.named_parameters()}
+    steps.shard_recsys(cells["train_batch"], model, mesh)
+    blocks_ok = all(torch.equal(p, _spec_block(
+        whole[k], model.shard_specs[k], mesh))
+        for k, p in model.named_parameters())
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["blocks_ok"] = blocks_ok
+    for s in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        cell = cells[s]
+        rc = steps.recsys_cell(RECSYS_ARCH, s, smoke=PHASE13_SMOKE,
+                               dims=PHASE13_DIMS.get(s))
+        cand = None
+        if s == "retrieval_cand":
+            cand = torch.randn(
+                (cell.decisions["n_candidates_padded"], cfg.retrieval_dim),
+                generator=torch.Generator(device=dev).manual_seed(
+                    PHASE13_CAND_SEED), device=dev)
+        b, c = steps.recsys_rank_batch(cell, mesh,
+                                       steps.recsys_batch(rc, seed=13), cand)
+        args = (model, b) + ((c,) if c is not None else ())
+        cell.fn(*args)  # cold
+        mesh.wire.reset()
+        ms = []
+        for _ in range(PHASE13_CALLS[s]):
+            res, t = _timed(lambda: cell.fn(*args), dev)
+            ms.append(t)
+        wire = _wire13(mesh)
+        sched = steps.recsys_collective_schedule(cell, mesh.shape)
+        n = PHASE13_CALLS[s]
+        want = {a: {k: [n * x, n * y] for k, (x, y) in d.items()}
+                for a, d in sched.items()}
+        rec = {"call_ms": ms, "wire": wire,
+               "schedule_equal": wire["by_axis"] == want,
+               "batch": rc.batch}
+        if s == "retrieval_cand":
+            rec["values"], rec["indices"] = (x.cpu() for x in res)
+            rec["cand_rows"] = int(c.shape[0])
+            if mesh.size == 1:  # the one-rank top 100 against float64
+                with torch.no_grad():
+                    q = dcn.query_embedding(model, cfg, b, dcn.field_offsets(
+                        cfg, dev))
+                    ref = torch.sort(q.double() @ c.double().T, dim=-1,
+                                     descending=True)
+                ok, err = _gnn_close(res[0], ref.values[:, :100],
+                                     RECSYS_TOL)
+                rec["float64_sort"] = {
+                    "max_abs": err, "values_ok": ok,
+                    "indices_equal_where_distinct": _distinct_equal(
+                        res[1], ref.values[:, :100], ref.indices[:, :100])}
+                del q, ref
+        else:
+            spec = cell.in_shardings[1]["dense"][:1]
+            rec["logits"] = (gather_block(res, spec, mesh) if mesh.size > 1
+                             else res).cpu()
+        out[s] = rec
+        if mesh.size == 1 or mesh.rank == 0:
+            print(f"phase 13: {'one rank' if mesh.size == 1 else 'rank 0'} "
+                  f"dcn-v2/{s}: call ms {[round(x, 2) for x in ms]}",
+                  flush=True)
+        del b, c, cand, args, res
+    # float32 train_batch at its own batch: a cold and a warm step
+    cell = cells["train_batch"]
+    rc = steps.recsys_cell(RECSYS_ARCH, "train_batch", smoke=PHASE13_SMOKE,
+                           dims=dict(batch=PHASE13_TRAIN_B))
+    model.requires_grad_(True)
+    opt = adamw_init(steps.params_dict(model), steps.RECSYS_ADAMW)
+    res, ms = [], []
+    mesh.wire.reset()
+    for i in range(2):
+        b, _ = steps.recsys_rank_batch(cell, mesh,
+                                       steps.recsys_batch(rc, i, seed=14))
+        (_, opt, loss, gnorm), t = _timed(lambda: cell.fn(model, opt, b),
+                                          dev)
+        res.append((float(loss), float(gnorm)))
+        ms.append(t)
+    wire = _wire13(mesh)
+    sched = steps.recsys_collective_schedule(cell, mesh.shape)
+    want = {a: {k: [2 * x, 2 * y] for k, (x, y) in d.items()}
+            for a, d in sched.items()}
+    out["train_batch"] = {"steps": res, "step_ms": ms, "wire": wire,
+                          "schedule_equal": wire["by_axis"] == want,
+                          "batch": PHASE13_TRAIN_B}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one float64 step on a copy, held leaf by leaf
+    cell = cells["check"]
+    rc = steps.recsys_cell(RECSYS_ARCH, "train_batch", smoke=PHASE13_SMOKE,
+                           dims=dict(batch=PHASE13_CHECK_B))
+    batch = steps.recsys_batch(rc, seed=12)
+    # from the seed's weights again, cut, then in float64 (the float32
+    # blocks go: four ranks share the card)
+    m64 = dcn.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)[0]
+    steps.shard_recsys(cell, m64, mesh)
+    m64 = m64.double().requires_grad_(True)
+    opt = adamw_init(steps.params_dict(m64), steps.RECSYS_ADAMW)
+    b, _ = steps.recsys_rank_batch(cell, mesh, batch)
+    mesh.wire.reset()
+    (_, opt, loss, gnorm), t = _timed(lambda: cell.fn(m64, opt, b), dev)
+    wire = _wire13(mesh)
+    sched = steps.recsys_collective_schedule(cell, mesh.shape, el=8)
+    rows = torch.from_numpy(_dcn_touched(cfg, batch)).to(dev)
+    tb = m64.embed.table
+    lo = (mesh.coord("model") if "model" in part_axes(
+        m64.shard_specs["embed.table"][0]) else 0) * tb.shape[0]
+    mine = rows[(rows >= lo) & (rows < lo + tb.shape[0])] - lo
+    untouched = torch.ones(tb.shape[0], dtype=torch.bool, device=dev)
+    untouched[mine] = False
+    check = {"loss": float(loss), "grad_norm": float(gnorm), "ms": t,
+             "wire": wire, "schedule_equal": wire["by_axis"] == sched,
+             "table_rows": (mine + lo).cpu(),
+             "table": {"params": tb.detach()[mine].cpu(),
+                       "mu": opt.mu["embed.table"][mine].cpu(),
+                       "nu": opt.nu["embed.table"][mine].cpu()},
+             "untouched_moments_zero": bool(
+                 (opt.mu["embed.table"][untouched] == 0).all()
+                 and (opt.nu["embed.table"][untouched] == 0).all())}
+    small = {k: k != "embed.table" for k in dict(m64.named_parameters())}
+    st = {}
+    for part, src in (("params", dict(m64.named_parameters())),
+                      ("mu", opt.mu), ("nu", opt.nu)):
+        st[part] = {k: (gather_block(v.detach(), m64.shard_specs[k], mesh)
+                        if mesh.size > 1 else v.detach()).cpu()
+                    for k, v in src.items() if small[k]}
+    check["state"] = st
+    out["check"] = check
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del m64, opt, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase13_rank(rank: int, world: int, batches: dict, device: str) -> dict:
+    """One of four gloo ranks sharing the card: the GNN cases and DCN-v2
+    on the ``(2, 2)`` mesh (``phase13_gnn_run``, ``phase13_dcn_run``),
+    and the four kernels' launch counters (which must stay 0)."""
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.block_spmm import block_spmm as bs_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(PHASE13_MESH, ("data", "model"), dev)
+    out = {"rank": rank, "coords": {a: mesh.coord(a)
+                                    for a in mesh.axis_names}}
+    out["gnn"] = phase13_gnn_run(mesh, batches, dev)
+    out["dcn"] = phase13_dcn_run(mesh, dev)
+    out["launches"] = {k: f.launches for k, f in (
+        ("binned_pull", bp_mod.fused_binned_pull),
+        ("msbfs_extend", mx_mod.msbfs_extend_blocks),
+        ("block_spmm", bs_mod.block_spmm),
+        ("flash_attention", fa_mod.flash_attention))}
+    # numpy across the process boundary: a tensor would travel as shared
+    # memory that dies with the rank
+    return _tree_map(out, torch.Tensor, lambda t: t.numpy())
+
+
+def _tree_map(tree, kind, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, kind, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, str):
+        return type(tree)(_tree_map(v, kind, fn) for v in tree)
+    return fn(tree) if isinstance(tree, kind) else tree
+
+
+def _leaf_check(got: dict, exp: dict, tol, lr, steps_run, exact, what,
+                bad: list) -> dict:
+    """Per leaf: moments within ``tol`` (rtol plus a share of the leaf's
+    largest), parameters within GNN_PARAM_ABS (``exact``) or within 0.1
+    lr but for one entry or 1% and all within 2 lr a step; returns each
+    leaf's worst moment share and parameter difference."""
+    rep = {}
+    for k in exp["params"]:
+        shares = []
+        for m in ("mu", "nu"):
+            e, g = exp[m][k].double(), got[m][k].double()
+            scale = max(float(e.abs().max()), 1e-30)
+            d = (g - e).abs()
+            shares.append(float(d.max()) / scale)
+            if (d > tol[0] * e.abs() + tol[1] * scale).any() or \
+                    not bool(torch.isfinite(g).all()):
+                bad.append(f"{what} {m} {k} ({shares[-1]:.3g} of its "
+                           "largest)")
+        d = (got["params"][k].double() - exp["params"][k].double()).abs()
+        if exact:
+            ok = bool((d <= GNN_PARAM_ABS).all())
+        else:
+            ok = bool((d <= 2 * lr * steps_run).all()) and int(
+                (d > 0.1 * lr).sum()) <= max(1, 0.01 * d.numel())
+        if not ok:
+            bad.append(f"{what} parameter {k} ({float(d.max()):.3g})")
+        rep[k] = {"moment_share": shares, "param_max_abs": float(d.max())}
+    return rep
+
+
+def _wire_summary(reps, get) -> dict:
+    """The ranks' collectives for one cell: the slowest rank's ms, rank
+    0's records by axis and kind, payload and staged bytes."""
+    w0 = get(reps[0])
+    return {"ms_max": max(get(r)["ms"] for r in reps),
+            "ms_by_kind": w0["ms_by_kind"], "by_axis": w0["by_axis"],
+            "payload_bytes": w0["payload_bytes"],
+            "staged_bytes": w0["staged_bytes"],
+            "staged_by_kind": w0["staged_by_kind"]}
+
+
+def phase_13(dev, csr, launches_before) -> dict:
+    """The GNN and recsys cells (``launch/steps.py``'s ``_gnn_cell`` and
+    ``_recsys_cell`` on a ``Mesh``) on a ``(2, 2)`` mesh of four gloo
+    ranks sharing the card, against the one-rank cells on the card from
+    the same seeded weights and batches (the steps in the module
+    docstring)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh, run_ranks
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # earlier phases'
+    batches = phase13_gnn_batches(dev, csr)
+    one_mesh = make_mesh((1, 1), ("data", "model"), dev)
+    one_gnn = phase13_gnn_run(one_mesh, batches, dev)
+    one_dcn = phase13_dcn_run(one_mesh, dev)
+    one_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    # the ranks' caching allocators grow in place (four share the card)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    reps = run_ranks(phase13_rank, RANKS, (batches, f"{DEVICE}:0"),
+                     backend="gloo", timeout_s=PHASE13_TIMEOUT_S)
+    reps = [_tree_map(r, np.ndarray, torch.from_numpy) for r in reps]
+    ranks_s = time.perf_counter() - t1
+    lr = steps.GNN_ADAMW.lr
+    bad, cells = [], {}
+    for r in reps:
+        if any(r["launches"].values()):
+            bad.append(f"rank {r['rank']} launched {r['launches']}")
+        for case, rec in r["gnn"].items():
+            if not (rec["schedule_equal"] and rec["blocks_ok"]):
+                bad.append(f"rank {r['rank']} {case}: schedule "
+                           f"{rec['schedule_equal']}, blocks "
+                           f"{rec['blocks_ok']}")
+        d = r["dcn"]
+        if not d["blocks_ok"]:
+            bad.append(f"rank {r['rank']} dcn-v2 blocks")
+        for s in ("serve_p99", "serve_bulk", "retrieval_cand", "check",
+                  "train_batch"):
+            if not d[s]["schedule_equal"]:
+                bad.append(f"rank {r['rank']} dcn-v2 {s} schedule")
+        if not d["check"]["untouched_moments_zero"]:
+            bad.append(f"rank {r['rank']} dcn-v2 table rows off the batch "
+                       "moved")
+    # 13a: each GNN case against one rank
+    for arch, shape, dtype in PHASE13_GNN:
+        case = f"{arch}/{shape}"
+        one, mesh0 = one_gnn[case], reps[0]["gnn"][case]
+        exact = dtype == torch.float64
+        tol = GNN_F64_TOL if exact else GNN_GRAD_TOL
+        for i, ((ml, mn), (ol, on)) in enumerate(zip(mesh0["steps"],
+                                                     one["steps"])):
+            if not (abs(ml - ol) <= (tol if exact else GNN_TOL)[0] * abs(ol)
+                    and abs(mn - on) <= tol[0] * abs(on)
+                    and np.isfinite(ml) and np.isfinite(mn)):
+                bad.append(f"{case} step {i}: mesh loss {ml} norm {mn}, "
+                           f"one rank {ol} {on}")
+        leaves = _leaf_check(mesh0["state"], one["state"], tol, lr,
+                             PHASE13_STEPS, exact, case, bad)
+        worst = max(leaves.items(), key=lambda kv: max(kv[1]["moment_share"]))
+        step_ms = [max(r["gnn"][case]["step_ms"][i] for r in reps)
+                   for i in range(PHASE13_STEPS)]
+        cells[case] = {
+            "dtype": mesh0["dtype"], "notes": mesh0["notes"],
+            "step_ms": step_ms, "one_rank_step_ms": one["step_ms"],
+            "losses": [x[0] for x in mesh0["steps"]],
+            "one_rank_losses": [x[0] for x in one["steps"]],
+            "grad_norms": [x[1] for x in mesh0["steps"]],
+            "worst_moment_leaf": {worst[0]: worst[1]},
+            "param_max_abs": max(v["param_max_abs"]
+                                 for v in leaves.values()),
+            "tol": tol,
+            "collectives": _wire_summary(reps, lambda r: r["gnn"][case][
+                "wire"]),
+            "peak_gb": max(r["gnn"][case]["peak_gb"] for r in reps),
+            "one_rank_peak_gb": one["peak_gb"],
+            "layout": mesh0["layout"]}
+    # 13b: DCN-v2 against one rank
+    d0 = reps[0]["dcn"]
+    for s in ("serve_p99", "serve_bulk"):
+        ok, err = _gnn_close(d0[s]["logits"], one_dcn[s]["logits"],
+                             RECSYS_TOL)
+        if not ok or not bool(torch.isfinite(d0[s]["logits"]).all()):
+            bad.append(f"dcn-v2 {s} logits off by {err}")
+        cells[f"dcn-v2/{s}"] = {
+            "batch": d0[s]["batch"], "logits_max_abs": err,
+            "call_ms_p50": float(np.median([max(r["dcn"][s]["call_ms"][i]
+                                                for r in reps)
+                                            for i in range(
+                                                PHASE13_CALLS[s])])),
+            "one_rank_call_ms_p50": float(np.median(one_dcn[s]["call_ms"])),
+            "collectives": _wire_summary(reps, lambda r: r["dcn"][s]["wire"])}
+    # the top 100 against a float64 sort of the one-rank query's scores
+    rv, ri = d0["retrieval_cand"]["values"], d0["retrieval_cand"]["indices"]
+    ov, oi = one_dcn["retrieval_cand"]["values"], \
+        one_dcn["retrieval_cand"]["indices"]
+    ok_v, err_v = _gnn_close(rv, ov, RECSYS_TOL)
+    if not ok_v or not _distinct_equal(ri, ov, oi):
+        bad.append(f"dcn-v2 retrieval top 100 against one rank ({err_v})")
+    cells["dcn-v2/retrieval_cand"] = {
+        "top_k_max_abs": err_v,
+        "indices_equal": bool(torch.equal(ri, oi)),
+        "float64_sort": one_dcn["retrieval_cand"].get("float64_sort"),
+        "call_ms_p50": float(np.median([max(r["dcn"]["retrieval_cand"][
+            "call_ms"][i] for r in reps) for i in range(
+                PHASE13_CALLS["retrieval_cand"])])),
+        "one_rank_call_ms_p50": float(np.median(
+            one_dcn["retrieval_cand"]["call_ms"])),
+        "collectives": _wire_summary(reps, lambda r: r["dcn"][
+            "retrieval_cand"]["wire"])}
+    f64 = one_dcn["retrieval_cand"]["float64_sort"]
+    if not (f64["values_ok"] and f64["indices_equal_where_distinct"]):
+        bad.append(f"dcn-v2 retrieval on one rank against a float64 sort: "
+                   f"{f64}")
+    # the float64 step, leaf by leaf (the table by its touched rows, each
+    # row block once: from the ranks at data coordinate 0)
+    oc = one_dcn["check"]
+    mc = [r["dcn"]["check"] for r in reps if r["coords"]["data"] == 0]
+    for name, key in (("loss", "loss"), ("grad_norm", "grad_norm")):
+        if not abs(mc[0][key] - oc[key]) <= RECSYS_F64_TOL[0] * abs(oc[key]):
+            bad.append(f"dcn-v2 float64 {name} {mc[0][key]} against "
+                       f"{oc[key]}")
+    leaves = _leaf_check(mc[0]["state"], oc["state"], RECSYS_F64_TOL, lr,
+                         1, True, "dcn-v2 float64", bad)
+    rows = torch.cat([m["table_rows"] for m in mc])
+    order = torch.argsort(rows)
+    got_t = {k: torch.cat([m["table"][k] for m in mc])[order]
+             for k in ("params", "mu", "nu")}
+    if not torch.equal(rows[order], oc["table_rows"]):
+        bad.append("dcn-v2 float64: the ranks' touched rows are not the "
+                   "batch's")
+    else:
+        leaves["embed.table (touched rows)"] = _leaf_check(
+            {k: {"t": v} for k, v in got_t.items()},
+            {k: {"t": oc["table"][k]} for k in ("params", "mu", "nu")},
+            RECSYS_F64_TOL, lr, 1, True, "dcn-v2 float64 table", bad)["t"]
+    cells["dcn-v2/train_batch"] = {
+        "float64_check": {"batch": PHASE13_CHECK_B, "loss": mc[0]["loss"],
+                          "one_rank_loss": oc["loss"],
+                          "grad_norm": mc[0]["grad_norm"],
+                          "one_rank_grad_norm": oc["grad_norm"],
+                          "touched_rows": int(rows.numel()),
+                          "worst_moment_share": max(
+                              max(v["moment_share"]) for v in
+                              leaves.values()),
+                          "ms": max(r["dcn"]["check"]["ms"]
+                                    for r in reps),
+                          "one_rank_ms": oc["ms"]},
+        "batch": PHASE13_TRAIN_B,
+        "step_ms": [max(r["dcn"]["train_batch"]["step_ms"][i] for r in reps)
+                    for i in range(2)],
+        "one_rank_step_ms": one_dcn["train_batch"]["step_ms"],
+        "losses": [x[0] for x in d0["train_batch"]["steps"]],
+        "one_rank_losses": [x[0] for x in one_dcn["train_batch"]["steps"]],
+        "collectives": _wire_summary(reps, lambda r: r["dcn"][
+            "train_batch"]["wire"]),
+        "peak_gb": max(r["dcn"]["peak_gb"] for r in reps),
+        "one_rank_peak_gb": one_dcn["peak_gb"]}
+    for (ml, mn), (ol, on) in zip(d0["train_batch"]["steps"],
+                                  one_dcn["train_batch"]["steps"]):
+        if not (abs(ml - ol) <= RECSYS_TOL[0] * abs(ol) + RECSYS_TOL[1]
+                and abs(mn - on) <= GNN_GRAD_TOL[0] * abs(on)
+                and np.isfinite(ml)):
+            bad.append(f"dcn-v2 float32 train_batch: mesh {ml} {mn}, one "
+                       f"rank {ol} {on}")
+    launched = launches_before()
+    if any(launched.values()):
+        bad.append(f"phase 13 launched a port kernel: {launched}")
+    if bad:
+        fail(f"phase 13: {bad[:10]}")
+    out = {"mesh": list(PHASE13_MESH), "ranks": RANKS, "cells": cells,
+           "kernel_launches": launched, "held_before_gb": held_gb,
+           "device": torch.cuda.get_device_name(dev),
+           "one_rank_s": one_s, "ranks_s": ranks_s,
+           "seconds": time.perf_counter() - t0}
+    for case, c in cells.items():
+        print(f"phase 13: {case}: " + json.dumps(c), flush=True)
     return out
 
 
@@ -4668,6 +5307,11 @@ def main() -> int:
 
     # -- phase 12: the LM serving cells on a mesh of ranks --------------------
     mesh_lm = phase_12(dev, lm["serve"])
+
+    # -- phase 13: the GNN and recsys cells on a mesh of ranks ---------------
+    before = {k: f.launches for k, f in counters.items()}
+    mesh_cells = phase_13(dev, csr, lambda: {k: f.launches - before[k]
+                                             for k, f in counters.items()})
     fa["mesh"] = {"mha_launches_per_prefill":
                   mesh_lm["mha_launches_per_prefill"],
                   "mesh": mesh_lm["mesh"]}
@@ -4765,6 +5409,7 @@ def main() -> int:
           + f"; phase 11 {paper['seconds']:.1f} s")
     print("phase 12: " + json.dumps({k: v for k, v in mesh_lm.items()
                                      if k != "ranks"}))
+    print("phase 13: " + json.dumps(mesh_cells))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -34,6 +34,13 @@ path.
 Axes are ``launch.mesh.Axes`` (names bound to their mesh); an empty tuple
 or axes of size 1 make every function the identity, which is the
 one-device path.
+
+Two carry a gradient (``torch.autograd.Function``s over ``Wire``, so a
+backward's calls are recorded by kind and axis as a forward's are):
+``gather_rows_grad``, whose backward is a reduce-scatter of the sum, and
+``psum_grad``, whose backward is a ``psum``. A rank then runs its share
+of an SPMD program whose losses add up over the ranks to the global
+one.
 """
 from __future__ import annotations
 
@@ -132,9 +139,11 @@ class Wire:
         w = self.mesh.wire
         t0, staged0 = t0
         nbytes = x.numel() * x.element_size()
+        ms = (time.perf_counter() - t0) * 1e3
         w.calls += 1
         w.bytes += nbytes
-        w.ms += (time.perf_counter() - t0) * 1e3
+        w.ms += ms
+        w.ms_by_kind[kind] = w.ms_by_kind.get(kind, 0.0) + ms
         w.record(kind, nbytes if out_bytes is None else out_bytes,
                  self.mesh.shape[axis], axis)
         if w.staged_bytes > staged0:
@@ -518,6 +527,50 @@ def gather_rows(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         g = wire.all_gather(x, a)  # [K, ...]
         x = torch.cat(list(g.unbind(0)), dim=dim)
     return x
+
+
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` whose backward is the transpose: the sum over
+    ``axes`` of every rank's gradient, this rank's block of ``dim``
+    (``psum_scatter``, one ``reduce-scatter`` an axis through ``Wire``)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return gather_rows(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_scatter(g.contiguous(), ctx.axes, ctx.dim), None, None
+
+
+class _Psum(torch.autograd.Function):
+    """``psum`` whose backward is ``psum``: a rank's loss reads the sum
+    on every rank, so each rank's gradient of it is a share whose sum
+    over ``axes`` is the gradient of the summands."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.axes), None
+
+
+def gather_rows_grad(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """``gather_rows`` under autograd (its backward reduce-scatters)."""
+    if _trivial(axes):
+        return x
+    return _GatherRows.apply(x, axes, dim)
+
+
+def psum_grad(x: torch.Tensor, axes) -> torch.Tensor:
+    """``psum`` under autograd (its backward is a ``psum``)."""
+    if _trivial(axes):
+        return x
+    return _Psum.apply(x, axes)
 
 
 def merge_contribution(merge: str, contribution, axes=(),

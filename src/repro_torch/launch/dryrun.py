@@ -35,9 +35,21 @@ per-component LM roofline, ``run_components``) sums trips x terms of
 ``steps.lm_components``; each term is the port's analytic count
 (``component_terms``), as XLA's cost analysis has no counterpart here.
 
+GNN and recsys cells: on ``single``/``multi`` the record is analytic in
+the same format: per-device argument and output bytes under the cell's
+specs (parameters, AdamW moments, the batch with its slab-aligned
+edges, the padded candidates), ``gnn_cost``/``dcn_cost`` and the
+family's collective schedule (``steps.gnn_collective_schedule``,
+``steps.recsys_collective_schedule``, the calls ``Wire`` records on a
+real mesh). A GNN record's floor of device memory adds one per-edge
+message tensor of the device's edges (``edge_tensor_bytes``):
+``ogb_products`` and EquiformerV2's per-edge irrep tensors exceed the
+card by design and are recorded so. On ``card`` the cell's step runs on
+a one-rank ``Mesh`` at its shape, ``ogb_products`` cut
+(``GNN_CARD_CUTS``, in ``reduced``): wall ms, peak memory.
+
 A cell that fails records its error and the run carries on, as JAX's
-does; the exit code counts the failures. The GNN and recsys cells
-record ``NotImplementedError`` until their mesh slice.
+does; the exit code counts the failures.
 
 Usage:
     python -m repro_torch.launch.dryrun --list
@@ -558,6 +570,209 @@ def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
     )
 
 
+# ------------------------------------------------- GNN and recsys cells ----
+
+#: ``--mesh card`` cuts of the GNN cells: ``ogb_products`` (2,449,029
+#: nodes, 61.9M edges; 37 GB of PNA messages a layer) to a thousandth
+GNN_CARD_CUTS = {"ogb_products": {"n_nodes": 2449, "n_edges": 61859}}
+GNN_CUT_WHY = ("one card: ogb_products needs several (its messages and "
+               "EquiformerV2's per-edge irrep tensors exceed 80 GB); cut to "
+               "a thousandth of its nodes and edges, d_feat kept")
+
+
+def _edge_width(cell) -> int:
+    """Elements an edge of a GNN cell's main per-layer message tensor:
+    PNA's and SchNet's ``d_hidden``, MACE's and EquiformerV2's irreps
+    ``(l_max + 1)^2 x d_hidden``."""
+    cfg = cell.config
+    if cell.arch_id in ("pna", "schnet"):
+        return cfg.d_hidden
+    return (cfg.l_max + 1) ** 2 * cfg.d_hidden
+
+
+def _gnn_layers(cell) -> int:
+    cfg = cell.config
+    return cfg.n_interactions if cell.arch_id == "schnet" else cfg.n_layers
+
+
+def _rank_edges(cell, mesh_shape) -> int:
+    return cell.decisions["e_pad"] // _prod(mesh_shape.values())
+
+
+def family_placement(cell, mesh_shape) -> dict:
+    """Per-device argument and output bytes of a GNN or recsys cell under
+    its specs (outputs: a train step's new parameters and moments with
+    its loss and norm, a serve step's logits block, a retrieval step's
+    top ``k`` values and int64 indices), and a GNN cell's per-edge
+    message tensor of the device's edges."""
+    from . import steps
+
+    arg = _tree_bytes(cell.args, cell.in_shardings, mesh_shape)
+    out = {"argument_bytes": arg}
+    if cell.kind == "retrieval":
+        out["output_bytes"] = steps.RETRIEVAL_TOP_K * 12
+    elif cell.kind in ("serve", "bulk"):
+        out["output_bytes"] = _dev_bytes(cell.args[1]["dense"][:, 0],
+                                         cell.in_shardings[1]["dense"][:1],
+                                         mesh_shape)
+    else:
+        out["output_bytes"] = _tree_bytes(cell.args[:2],
+                                          cell.in_shardings[:2],
+                                          mesh_shape) + 8
+    if cell.decisions.get("e_pad") is not None:
+        out["edge_tensor_bytes"] = _rank_edges(cell, mesh_shape) * \
+            _edge_width(cell) * 4
+    return out
+
+
+def family_cost(cell, mesh_shape) -> dict:
+    """Analytic per-device work of a GNN or recsys step, in XLA's cost
+    keys: the model FLOPs over the devices (a train step adds AdamW's
+    ``ADAMW_FLOPS`` a parameter); bytes: the arguments read and the
+    outputs written, and for a GNN each layer's message tensor of the
+    device's edges written and read, three times in a train step
+    (forward, backward's read and write)."""
+    n_dev = _prod(mesh_shape.values())
+    p = family_placement(cell, mesh_shape)
+    flops = cell.model_flops / n_dev
+    nbytes = p["argument_bytes"] + p["output_bytes"]
+    if cell.kind not in ("serve", "bulk", "retrieval"):
+        n_p = sum(t.numel() for t in cell.args[0].values())
+        flops += ADAMW_FLOPS * n_p / n_dev
+    if "edge_tensor_bytes" in p:
+        nbytes += 2 * 3 * _gnn_layers(cell) * p["edge_tensor_bytes"]
+    return {"flops": flops, "bytes accessed": float(nbytes)}
+
+
+def family_collectives(cell, mesh_shape):
+    """The family's analytic schedule of one step on one device, by
+    kind (``steps.gnn_collective_schedule`` /
+    ``recsys_collective_schedule``)."""
+    from . import steps
+    from .hlo_analysis import collective_stats
+
+    sched = (steps.gnn_collective_schedule if cell.decisions.get("e_pad")
+             is not None else steps.recsys_collective_schedule)
+    return collective_stats(steps.schedule_by_kind(
+        sched(cell, mesh_shape), mesh_shape))
+
+
+def _family_layout_fields(arch, shape, mesh_tag) -> dict:
+    from .mesh import make_production_mesh
+    from . import steps
+
+    multi = mesh_tag == "multi"
+    layout = make_production_mesh(multi_pod=multi)
+    cell = steps.build_cell(arch, shape, layout, multi)
+    p = family_placement(cell, layout.shape)
+    total = p["argument_bytes"] + p["output_bytes"] + p.get(
+        "edge_tensor_bytes", 0)
+    mem = {
+        "argument_size_in_bytes": p["argument_bytes"],
+        "output_size_in_bytes": p["output_bytes"],
+        "temp_size_in_bytes": None,
+        "alias_size_in_bytes": 0,
+        "generated_code_size_in_bytes": None,
+        "total_bytes_per_device": total,
+    }
+    extra = {}
+    if "edge_tensor_bytes" in p:
+        extra = dict(edge_tensor_bytes=p["edge_tensor_bytes"],
+                     edges_a_device=_rank_edges(cell, layout.shape))
+    return dict(cell=cell, n_devices=layout.size, memory=mem,
+                cost=family_cost(cell, layout.shape),
+                coll=family_collectives(cell, layout.shape), measured=False,
+                **extra)
+
+
+def _family_card_fields(arch, shape, device, cut, keep) -> dict:
+    """A GNN or recsys cell's step on a one-rank ``Mesh`` of the card at
+    its shape (``cut`` changes the dims): seeded weights (seed 0) and
+    batch (``steps.cell_batch``/``recsys_batch``, seeded candidates),
+    one cold call, then ``REPS`` timed calls."""
+    from ..configs import base as cfgbase
+    from ..optim.adamw import adamw_init
+    from .hlo_analysis import HBM_BW, PEAK_FLOPS, collective_stats
+    from .mesh import make_mesh
+    from . import steps
+
+    mesh = make_mesh((1, 1), ("data", "model"), device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cell = steps.build_cell(arch, shape, mesh, False, dims=cut or None)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    gnn = cfgbase.get(arch).family == "gnn"
+    if gnn:
+        gc = steps.gnn_cell(arch, shape, dims=cut or None)
+        model = steps.shard_gnn(cell, steps.init_model(gc, gen, dev), mesh)
+        batch, _ = steps.gnn_rank_batch(
+            cell, mesh, steps.pad_gnn_batch(cell, steps.cell_batch(gc)))
+        opt = adamw_init(steps.params_dict(model), steps.GNN_ADAMW)
+        args = (model, opt, batch)
+    else:
+        rc = steps.recsys_cell(arch, shape, dims=cut or None)
+        model = steps.dcn.init(rc.cfg, gen, dev)[0]
+        if rc.kind == "train":
+            model.requires_grad_(True)
+        steps.shard_recsys(cell, model, mesh)
+        cand = None
+        if rc.kind == "retrieval":
+            cand = torch.randn(
+                (cell.decisions["n_candidates_padded"], rc.cfg.retrieval_dim),
+                generator=gen, device=dev)
+        batch, cand = steps.recsys_rank_batch(
+            cell, mesh, steps.recsys_batch(rc), cand)
+        args = (model,)
+        if rc.kind == "train":
+            args += (adamw_init(steps.params_dict(model),
+                                steps.RECSYS_ADAMW),)
+        args += (batch,) + ((cand,) if cand is not None else ())
+    t_bind = time.perf_counter() - t0
+
+    def run():
+        t = time.perf_counter()
+        res = cell.fn(*args)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t) * 1e3
+
+    res, cold_ms = run()
+    mesh.wire.reset()
+    walls = []
+    for _ in range(REPS):
+        res, ms = run()
+        walls.append(ms)
+    peak = int(torch.cuda.max_memory_allocated(dev)) - held if cuda \
+        else None
+    p = family_placement(cell, mesh.shape)
+    cost = family_cost(cell, mesh.shape)
+    wall = statistics.median(walls)
+    if keep is not None:
+        keep.update(cell=cell, model=model, result=res)
+    mem = {
+        "argument_size_in_bytes": p["argument_bytes"],
+        "output_size_in_bytes": p["output_bytes"],
+        "temp_size_in_bytes": None if peak is None
+        else max(peak - p["argument_bytes"] - p["output_bytes"], 0),
+        "alias_size_in_bytes": 0,
+        "generated_code_size_in_bytes": 0,
+        "total_bytes_per_device": peak,
+    }
+    return dict(
+        cell=cell, n_devices=1, memory=mem, cost=cost,
+        coll=collective_stats(mesh.wire), measured=True, device=str(dev),
+        device_name=torch.cuda.get_device_name(dev) if cuda else "cpu",
+        bind_s=t_bind, cold_ms=cold_ms, wall_ms=wall, wall_ms_runs=walls,
+        bound_ms=max(cost["flops"] / PEAK_FLOPS, cost["bytes accessed"]
+                     / HBM_BW) * 1e3,
+    )
+
+
 def _layout_fields(arch, shape, mesh_tag, overrides) -> dict:
     from .mesh import make_production_mesh
     from . import steps
@@ -611,8 +826,16 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
     try:
         if mesh_tag not in MESHES:
             raise ValueError(f"unknown mesh {mesh_tag!r}: one of {MESHES}")
-        lm = cfgbase.get(arch).family == "lm"
-        if mesh_tag == "card" and lm:
+        family = cfgbase.get(arch).family
+        lm = family == "lm"
+        if mesh_tag == "card" and family in ("gnn", "recsys"):
+            if not cut and shape in GNN_CARD_CUTS and family == "gnn":
+                cut = dict(GNN_CARD_CUTS[shape])
+                rec["reduced"] = dict(cut, why=GNN_CUT_WHY)
+            f = _family_card_fields(arch, shape, device, cut, keep)
+        elif family in ("gnn", "recsys"):
+            f = _family_layout_fields(arch, shape, mesh_tag)
+        elif mesh_tag == "card" and lm:
             kind = next(x.kind for x in cfgbase.get(arch).shapes
                         if x.name == shape)
             if not cut and kind in LM_CARD_CUTS:
@@ -658,7 +881,8 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
             + (f"  wall {rec['wall_ms']:.2f} ms"
                + (f" iters {max(rec['iterations'])} {rec['gteps']:.3f} GTEPS"
                   if "gteps" in rec else
-                  f" {rec['tokens_per_s']:.0f} tokens/s")
+                  f" {rec['tokens_per_s']:.0f} tokens/s"
+                  if "tokens_per_s" in rec else "")
                if mesh_tag == "card" else "")
             + f"  dominant={rl.dominant} terms c/m/x = {rl.compute_s:.2e}/"
             f"{rl.memory_s:.2e}/{rl.collective_s:.2e} s"

@@ -59,7 +59,7 @@ class WireStats:
     rest), what ``launch.hlo_analysis.collective_stats`` reads;
     ``by_axis`` the same calls by mesh axis and kind: ``{axis: {kind:
     [calls, result bytes]}}``; ``staged_by_kind`` the staged bytes by
-    kind."""
+    kind, ``ms_by_kind`` the host milliseconds by kind."""
 
     calls: int = 0
     bytes: int = 0
@@ -68,6 +68,7 @@ class WireStats:
     by_kind: dict = dataclasses.field(default_factory=dict)
     by_axis: dict = dataclasses.field(default_factory=dict)
     staged_by_kind: dict = dataclasses.field(default_factory=dict)
+    ms_by_kind: dict = dataclasses.field(default_factory=dict)
 
     def record(self, kind: str, out_bytes: int, group: int,
                axis: str | None = None) -> None:
@@ -86,6 +87,7 @@ class WireStats:
         self.by_kind = {}
         self.by_axis = {}
         self.staged_by_kind = {}
+        self.ms_by_kind = {}
 
 
 class Mesh:

@@ -44,9 +44,24 @@ donation. On a ``Mesh`` a dense arch's prefill and decode cells run
 and MoE archs there raise ``NotImplementedError`` naming their ROADMAP
 item.
 
-Left out: the mesh shardings of the GNN and recsys cells and the GNN
-edge slabs (``build_cell`` raises for those families; ROADMAP section
-1). ``cell_batch`` and ``recsys_batch`` make seeded batches of a cell's
+GNN and recsys cells on a mesh (``_gnn_cell``, ``_gnn_batch_specs``,
+``_recsys_cell``): JAX's decisions for every cell (the config change,
+``k_slabs``, ``n_pad``, ``e_pad``, every parameter's sanitized spec, the
+batch and AdamW specs, the padded candidates, FLOPs, notes, donation);
+on a ``MeshLayout`` the cells hold decisions only. On a ``Mesh`` ``fn``
+runs a rank's share: the GNN train step over the destination-aligned
+edge slabs (``models.gnn.common``), DCN-v2's train, serve, bulk and
+retrieval steps. A rank's loss is its squared errors (or BCE terms)
+over the global count and over the ranks that hold the same rows, so
+the ranks' losses add up to JAX's; ``_mesh_update`` sums the gradients
+over the axes a parameter's spec does not shard, takes the global norm
+across the ranks' blocks and runs AdamW on the blocks. ``shard_gnn`` /
+``shard_recsys`` cut a model; ``gnn_rank_batch`` (the real slab layout,
+``slab_layout``) and ``recsys_rank_batch`` give a rank its batch.
+``gnn_collective_schedule`` and ``recsys_collective_schedule`` count
+what ``Wire`` records a step on a rank.
+
+``cell_batch`` and ``recsys_batch`` make seeded batches of a cell's
 shapes, for tests and the smoke run (JAX's cells carry abstract shapes
 only).
 """
@@ -65,10 +80,11 @@ from ..core.policies import POLICIES
 from ..data.pipeline import RecsysStream
 from ..graph.csr import CSRGraph, EllGraph, ell_shard, truncate_csr
 from ..graph.generators import erdos_renyi, pick_sources, powerlaw, rmat
-from ..graph.partition import padded_n
+from ..core.collectives import gather_rows, psum
+from ..graph.partition import padded_n, slab_edges
 from ..graph.sampler import tree_edges
 from ..kernels.common import resolve_device
-from .mesh import Mesh, batch_axes
+from .mesh import Mesh, all_axes, batch_axes
 from ..models import dcn_v2 as dcn
 from ..models import transformer as tfm
 from ..models import transformer_mesh as tmesh
@@ -78,6 +94,7 @@ from ..nn.module import (
     block_of,
     logical_to_spec,
     param_axes,
+    part_axes,
     sanitize_spec,
     set_activation_rules,
     shard_params,
@@ -85,6 +102,7 @@ from ..nn.module import (
     specs_from_axes,
     using_rules,
 )
+from ..models.gnn import common as gnn_common
 from ..optim.adamw import AdamWState
 from ..models.gnn import equiformer_v2 as eqv2_m
 from ..models.gnn import mace as mace_m
@@ -591,10 +609,7 @@ def _sanitize(params: dict, specs: dict, mesh) -> dict:
 def _lm_abstract_params(cfg, mesh, rules):
     """(``{name: meta tensor}``, ``{name: sanitized spec}``) of the
     model ``cfg`` (built on ``meta``: any size, nothing allocated)."""
-    model = tfm.init(cfg, None, "meta")
-    params = dict(model.named_parameters())
-    specs = specs_from_axes(param_axes(model), rules)
-    return params, _sanitize(params, specs, mesh)
+    return _param_specs(tfm.init(cfg, None, "meta"), mesh, rules)
 
 
 def _lm_attn_flops(cfg, B, S, causal=True, cache_w=None):
@@ -679,9 +694,7 @@ def _lm_cell(spec, shape, mesh, multi_pod) -> Cell:
     seq_axes, cache_batch = decode_seq_axes(B, mesh.shape, ba)
     decisions = dict(seq_parallel=shape.kind in ("train", "prefill"),
                      remat=cfg.remat, batch_axes=ba,
-                     fn=None if runnable else
-                     f"a layout of {mesh.size} ranks, which one process "
-                     "cannot hold: run the cell on a Mesh")
+                     fn=None if runnable else _layout_note(mesh))
 
     if shape.kind == "train":
         ocfg = AdamWConfig(lr=3e-4, moment_dtype=_moment_dtype(cfg))
@@ -865,12 +878,636 @@ def lm_components(arch_id: str, shape_name: str, mesh,
     return comps
 
 
+# =========================================================================
+# GNN and recsys cells on a mesh (JAX's _gnn_batch_specs, _gnn_cell,
+# _recsys_cell)
+# =========================================================================
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _layout_note(mesh) -> str:
+    return (f"a layout of {mesh.size} ranks, which one process cannot "
+            "hold: run the cell on a Mesh")
+
+
+def _param_specs(model, mesh, rules):
+    """(``{name: meta tensor}``, ``{name: sanitized spec}``) of a model
+    built on ``meta``."""
+    params = dict(model.named_parameters())
+    specs = specs_from_axes(param_axes(model), rules)
+    return params, _sanitize(params, specs, mesh)
+
+
+def _gnn_batch_specs(arch_id, cfg, n, e, d_feat, mesh, multi_pod):
+    """JAX's ``_gnn_batch_specs``: node arrays over the batch axes, edge
+    arrays as destination-aligned slabs (``set_edge_slabs(k_slabs)``, one
+    slab a node shard) over all axes. Returns (batch, specs, n_pad,
+    e_pad, k_slabs)."""
+    aa = all_axes(multi_pod)
+    ba = batch_axes(multi_pod)
+    n_dev = _axes_size(mesh, aa)
+    k_slabs = _axes_size(mesh, ba)
+    gnn_common.set_edge_slabs(k_slabs)
+    e_pad = _round_up(e, n_dev * k_slabs // math.gcd(n_dev, k_slabs))
+    n_pad = _round_up(n, k_slabs)
+    batch = {"edge_src": sds((e_pad,), torch.int32),
+             "edge_dst": sds((e_pad,), torch.int32)}
+    shard = {"edge_src": _ns(aa), "edge_dst": _ns(aa)}
+    if arch_id != "pna":
+        batch["positions"] = sds((n_pad, 3), torch.float32)
+        batch["species"] = sds((n_pad,), torch.int32)
+        shard["positions"] = _ns(ba, None)
+        shard["species"] = _ns(ba)
+    if d_feat:
+        batch["node_feat"] = sds((n_pad, d_feat), torch.float32)
+        shard["node_feat"] = _ns(ba, None)
+    return batch, shard, n_pad, e_pad, k_slabs
+
+
+def _gnn_cell(spec, shape, mesh, multi_pod, smoke: bool = False,
+              dims: Optional[dict] = None) -> Cell:
+    """JAX's ``_gnn_cell``, decision for decision (``gnn_cell``'s config
+    change, the batch and parameter specs, AdamW, FLOPs, notes). On a
+    ``Mesh`` ``fn(model, opt, batch)`` is a rank's train step over its
+    blocks (``shard_gnn``) returning (model, opt, loss, grad_norm), the
+    loss and norm JAX's global ones; on a ``MeshLayout`` it is None."""
+    gc = gnn_cell(spec.arch_id, shape.name, smoke, dims)
+    cfg = gc.cfg
+    rules = sharding_rules(multi_pod)
+    set_activation_rules(rules)
+    ba = batch_axes(multi_pod)
+    batch, bshard, n_pad, e_pad, k = _gnn_batch_specs(
+        spec.arch_id, cfg, gc.n_nodes, gc.n_edges, cfg.d_feat, mesh,
+        multi_pod)
+    if gc.kind == "full_graph":
+        batch["targets"] = sds((n_pad, cfg.n_out), torch.float32)
+        bshard["targets"] = _ns(ba, None)
+    elif gc.kind == "minibatch":
+        batch["targets"] = sds((gc.seeds, cfg.n_out), torch.float32)
+        bshard["targets"] = _ns(ba, None)
+    else:
+        batch["graph_ids"] = sds((n_pad,), torch.int32)
+        bshard["graph_ids"] = _ns(ba)
+        batch["targets"] = sds((gc.n_graphs,), torch.float32)
+        bshard["targets"] = _ns(ba)
+    model = GNN_MODULES[spec.arch_id].init(cfg, None, "meta")
+    params, pshard = _param_specs(model, mesh, rules)
+    opt = adamw_init(params, GNN_ADAMW)
+    opt_shard = AdamWState(step=_ns(), mu=pshard, nu=pshard)
+    runnable = isinstance(mesh, Mesh)
+    fn = _gnn_mesh_step(gc, mesh, rules, k) if runnable else None
+    return Cell(
+        spec.arch_id, shape.name, shape.kind, fn,
+        (params, opt, batch), (pshard, opt_shard, bshard), gc.flops,
+        notes=f"n={gc.n_nodes} e={gc.n_edges}", donate=(0, 1), config=cfg,
+        dims={**shape.dims, **(dims or {})},
+        decisions=dict(batch_axes=ba, k_slabs=k, n_pad=n_pad, e_pad=e_pad,
+                       seeds=gc.seeds, n_graphs=gc.n_graphs, smoke=smoke,
+                       fn=None if runnable else _layout_note(mesh)),
+    )
+
+
+def _live_axes(mesh, names) -> tuple:
+    return tuple(a for a in names if mesh.shape.get(a, 1) > 1)
+
+
+def _reduce_grads(params: dict, specs: dict, mesh) -> dict:
+    """Every parameter's gradient summed over the mesh axes its spec does
+    not shard (a replicated parameter over every axis; a ``model``-
+    sharded one's block is whole over ``model``, and an FSDP dim's
+    gather already reduce-scattered it over ``data``): one ``psum`` an
+    axis for each group of leaves that sums over the same axes, in one
+    flat buffer (the leaves' own ``.grad`` is dropped once copied in). A
+    leaf with no gradient sums zeros, as JAX's unused leaf's gradient
+    is zero."""
+    groups: dict = {}
+    for name in params:
+        have = {a for part in specs[name] for a in part_axes(part)}
+        axes = tuple(a for a in _live_axes(mesh, mesh.axis_names)
+                     if a not in have)
+        groups.setdefault(axes, []).append(name)
+
+    def grad(name):
+        p = params[name]
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
+    out = {}
+    for axes, names in groups.items():
+        if not axes:
+            out.update((n, grad(n)) for n in names)
+            continue
+        flat = torch.cat([grad(n).reshape(-1) for n in names])
+        for n in names:
+            params[n].grad = None
+        flat = psum(flat, mesh.axes(axes))
+        for n, part in zip(names, flat.split(
+                [params[n].numel() for n in names])):
+            out[n] = part.reshape(params[n].shape)
+    return {name: out[name] for name in params}
+
+
+def _sharded_norm(grads: dict, specs: dict, mesh) -> torch.Tensor:
+    """JAX's global norm of gradients a rank holds as blocks: a
+    replicated leaf's squares once, a sharded leaf's squares summed over
+    the axes that shard it (one ``psum`` a group of such axes)."""
+    total = None
+    parts: dict = {}
+    for name, g in grads.items():
+        axes = tuple(a for a in _live_axes(mesh, mesh.axis_names)
+                     if a in {x for part in specs[name]
+                              for x in part_axes(part)})
+        sq = g.float().square().sum()
+        if axes:
+            parts[axes] = parts[axes] + sq if axes in parts else sq
+        else:
+            total = sq if total is None else total + sq
+    for axes, sq in parts.items():
+        sq = psum(sq.reshape(1), mesh.axes(axes))[0]
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _mesh_update(model, opt, cfg_opt, mesh):
+    """Sum the rank's gradients (``_reduce_grads``), take the global norm
+    and run AdamW on the rank's blocks; the gradients are set to None."""
+    params = params_dict(model)
+    specs = model.shard_specs
+    grads = _reduce_grads(params, specs, mesh)
+    norm = _sharded_norm(grads, specs, mesh)
+    _, opt, gnorm = adamw_update(grads, opt, params, cfg_opt, norm=norm)
+    for p in params.values():
+        p.grad = None
+    return opt, gnorm
+
+
+def _gnn_rank_loss(gc: GnnCell, model, batch, mesh, ba, k: int):
+    """A rank's share of the cell's MSE: its squared errors over the
+    global count and over the ``mesh.size / k`` ranks that hold its node
+    block, so the shares add up to JAX's loss over the ranks."""
+    b = dict(batch)
+    targets = b.pop("targets")
+    if gc.n_graphs is not None:
+        b["n_graphs"] = gc.n_graphs
+    out = GNN_MODULES[gc.arch_id].apply(model, gc.cfg, b)
+    d = ba.index()
+    reps = mesh.size // k
+    if gc.n_graphs is not None:
+        rows = gc.n_graphs // k
+        pred = out["graph_out"][d * rows:(d + 1) * rows, 0]
+        se, count = torch.square(pred - targets), gc.n_graphs
+    elif gc.seeds is not None:
+        full = gather_rows(targets, ba, 0)
+        node_out = out["node_out"]
+        lo = d * node_out.shape[0]
+        cnt = max(0, min(gc.seeds - lo, node_out.shape[0]))
+        se = torch.square(node_out[:cnt] - full[lo:lo + cnt])
+        count = gc.seeds * gc.cfg.n_out
+    else:
+        se = torch.square(out["node_out"] - targets)
+        count = targets.numel() * k
+    return se.sum() / (count * reps)
+
+
+def _gnn_mesh_step(gc: GnnCell, mesh, rules: dict, k: int):
+    ba = mesh.axes(_live_axes(mesh, rules["batch"]))
+    every = mesh.axes(_live_axes(mesh, mesh.axis_names))
+
+    def train_step(model, opt, batch):
+        before = gnn_common.edge_slabs()
+        gnn_common.set_edge_slabs(k)
+        try:
+            with using_rules(rules, mesh):
+                loss = _gnn_rank_loss(gc, model, batch, mesh, ba, k)
+                loss.backward()
+                loss = psum(loss.detach().reshape(1), every)[0]
+                opt, gnorm = _mesh_update(model, opt, GNN_ADAMW, mesh)
+        finally:
+            gnn_common.set_edge_slabs(*before)
+        return model, opt, loss, gnorm
+
+    return train_step
+
+
+def pad_gnn_batch(cell: Cell, batch: dict) -> dict:
+    """A global numpy batch with its node arrays padded to the cell's
+    ``n_pad`` rows (zeros; a pad node's ``graph_ids`` is ``n_graphs``,
+    which ``segment_sum`` drops): the batch both a one-rank step and the
+    mesh step read."""
+    n_pad = cell.decisions["n_pad"]
+    out = dict(batch)
+    n = len(batch["species"] if "species" in batch else batch["node_feat"])
+    for key in ("node_feat", "positions", "species", "graph_ids"):
+        if key in batch and n < n_pad:
+            fill = cell.decisions["n_graphs"] if key == "graph_ids" else 0
+            pad = np.full((n_pad - n, *batch[key].shape[1:]), fill,
+                          batch[key].dtype)
+            out[key] = np.concatenate([batch[key], pad])
+    if cell.kind == "full_graph" and len(batch["targets"]) < n_pad:
+        t = batch["targets"]
+        out["targets"] = np.concatenate(
+            [t, np.zeros((n_pad - len(t), *t.shape[1:]), t.dtype)])
+    return out
+
+
+def slab_layout(cell: Cell, src, dst, model_size: int):
+    """The cell's real edge layout: ``slab_edges`` into ``k_slabs``
+    uniform slabs over ``n_pad`` nodes, each bucket padded (src 0, dst
+    ``n_pad``) to a multiple of ``model_size`` so every slab splits over
+    ``model``. Returns (src [K, w], dst [K, w])."""
+    k, n_pad = cell.decisions["k_slabs"], cell.decisions["n_pad"]
+    s, d, _ = slab_edges(np.asarray(src), np.asarray(dst), n_pad, k)
+    s, d = s.reshape(k, -1), d.reshape(k, -1)
+    extra = _round_up(s.shape[1], model_size) - s.shape[1]
+    if extra:
+        s = np.concatenate([s, np.zeros((k, extra), s.dtype)], axis=1)
+        d = np.concatenate([d, np.full((k, extra), n_pad, d.dtype)], axis=1)
+    return s, d
+
+
+def _check_specs(cell: Cell, model, mesh, rules) -> None:
+    specs = shard_params(model, mesh, rules)
+    if specs != cell.in_shardings[0]:
+        raise ValueError("the model's specs are not the cell's")
+
+
+def shard_gnn(cell: Cell, model, mesh):
+    """Cut ``model`` (the cell's config, whole) to this rank's blocks
+    under the cell's rules, in place; the specs must be the cell's."""
+    _check_specs(cell, model, mesh,
+                 sharding_rules(len(cell.decisions["batch_axes"]) > 1))
+    return model
+
+
+def gnn_rank_batch(cell: Cell, mesh, batch: dict):
+    """This rank's part of a global numpy ``batch`` (``pad_gnn_batch``'s)
+    on ``mesh.device``: node arrays' blocks under the cell's specs, and
+    its part of the real slab layout (``slab_layout``): slab ``d`` (its
+    node block), the ``m``-th columns over ``model``. Returns (batch,
+    layout), ``layout`` the real edge count beside JAX's analytic
+    ``e_pad``."""
+    bshard = cell.in_shardings[2]
+    m = mesh.shape.get("model", 1)
+    s, d = slab_layout(cell, batch["edge_src"], batch["edge_dst"], m)
+    w = s.shape[1] // m
+    slab = mesh.axes(_live_axes(mesh, cell.decisions["batch_axes"])).index()
+    col = mesh.coord("model") if m > 1 else 0
+    out = {"edge_src": s[slab, col * w:(col + 1) * w],
+           "edge_dst": d[slab, col * w:(col + 1) * w]}
+    for key, x in batch.items():
+        if key not in out:
+            out[key] = block_of(np.asarray(x), bshard[key], mesh)
+    layout = {"edges": int(s.size), "e_pad": cell.decisions["e_pad"],
+              "edges_a_rank": int(w), "slab_width": int(s.shape[1])}
+    return batch_to(out, mesh.device), layout
+
+
+def _recsys_cell(spec, shape, mesh, multi_pod, smoke: bool = False,
+                 dims: Optional[dict] = None) -> Cell:
+    """JAX's ``_recsys_cell``: train, serve, bulk and retrieval, with the
+    batch replicated (``ba = None``) where it does not divide the batch
+    axes and the candidates padded to the mesh and sharded over all
+    axes. On a ``Mesh`` ``fn`` runs a rank's part over its blocks
+    (``shard_recsys``): ``(model, opt, batch) -> (model, opt, loss,
+    grad_norm)``, ``(model, batch) -> logits block`` or ``(model, batch,
+    candidates block) -> (values, indices)`` of the global top
+    ``RETRIEVAL_TOP_K``; on a ``MeshLayout`` it is None."""
+    rc = recsys_cell(spec.arch_id, shape.name, smoke, dims)
+    cfg = rc.cfg
+    rules = sharding_rules(multi_pod)
+    set_activation_rules(rules)
+    ba = batch_axes(multi_pod)
+    model = dcn.init(cfg, None, "meta")[0]
+    params, pshard = _param_specs(model, mesh, rules)
+    B = rc.batch
+    run_rules = _run_rules(rules, B, mesh, ba)
+    if B % _axes_size(mesh, ba) != 0:
+        ba = None  # retrieval_cand: a single query replicates
+    batch = {"dense": sds((B, cfg.n_dense), torch.float32),
+             "sparse": sds((B, cfg.n_sparse), torch.int32)}
+    bshard = {"dense": _ns(ba, None), "sparse": _ns(ba, None)}
+    runnable = isinstance(mesh, Mesh)
+    decisions = dict(batch_axes=batch_axes(multi_pod), batch_shards=ba,
+                     smoke=smoke,
+                     fn=None if runnable else _layout_note(mesh))
+    common = dict(config=cfg, dims={**shape.dims, **(dims or {})},
+                  decisions=decisions)
+    fn = None
+    if rc.kind == "train":
+        batch["labels"] = sds((B,), torch.float32)
+        bshard["labels"] = _ns(ba)
+        opt = adamw_init(params, RECSYS_ADAMW)
+        opt_shard = AdamWState(step=_ns(), mu=pshard, nu=pshard)
+        if runnable:
+            fn = _recsys_mesh_step(rc, mesh, run_rules)
+        return Cell(spec.arch_id, shape.name, "train", fn,
+                    (params, opt, batch), (pshard, opt_shard, bshard),
+                    dcn_flops(cfg, B), donate=(0, 1), **common)
+    if rc.kind in ("serve", "bulk"):
+        if runnable:
+            fn = _recsys_mesh_step(rc, mesh, run_rules)
+        return Cell(spec.arch_id, shape.name, rc.kind, fn, (params, batch),
+                    (pshard, bshard), dcn_flops(cfg, B, fwd_only=True),
+                    **common)
+    assert rc.kind == "retrieval"
+    # pad the candidate set to the device count (serving systems pad the
+    # last ANN shard anyway)
+    nc = _round_up(rc.n_candidates, mesh.size)
+    cand = sds((nc, cfg.retrieval_dim), torch.float32)
+    decisions["n_candidates_padded"] = nc
+    if runnable:
+        fn = _recsys_mesh_step(rc, mesh, run_rules)
+    flops = dcn_flops(cfg, B, fwd_only=True) + 2.0 * B * nc * \
+        cfg.retrieval_dim
+    return Cell(spec.arch_id, shape.name, "retrieval", fn,
+                (params, batch, cand),
+                (pshard, bshard, _ns(all_axes(multi_pod), None)), flops,
+                notes=f"B={B} x {nc} candidates, batched dot + top_k",
+                **common)
+
+
+def _recsys_mesh_step(rc: RecsysCell, mesh, rules: dict):
+    cfg = rc.cfg
+    offsets = dcn.field_offsets(cfg, mesh.device)
+    every = mesh.axes(_live_axes(mesh, mesh.axis_names))
+    rows = _axes_size(mesh, _live_axes(mesh, rules["batch"]))
+    reps = mesh.size // rows
+    if rc.kind == "train":
+        def train_step(model, opt, batch):
+            with using_rules(rules, mesh):
+                logits = dcn.forward(model, cfg, batch, offsets)
+                loss = dcn.bce(logits, batch["labels"]).sum() / (
+                    rc.batch * reps)
+                loss.backward()
+                loss = psum(loss.detach().reshape(1), every)[0]
+                opt, gnorm = _mesh_update(model, opt, RECSYS_ADAMW, mesh)
+            return model, opt, loss, gnorm
+
+        return train_step
+    if rc.kind in ("serve", "bulk"):
+        @torch.no_grad()
+        def serve_step(model, batch):
+            with using_rules(rules, mesh):
+                return dcn.forward(model, cfg, batch, offsets)
+
+        return serve_step
+
+    @torch.no_grad()
+    def retrieval_step(model, batch, cand):
+        with using_rules(rules, mesh):
+            return dcn.retrieval_scores(model, cfg, batch, offsets, cand,
+                                        RETRIEVAL_TOP_K, cand_axes=every)
+
+    return retrieval_step
+
+
+def shard_recsys(cell: Cell, model, mesh):
+    """Cut ``model`` (the cell's config, whole) to this rank's blocks
+    under the cell's rules, in place; the specs must be the cell's."""
+    _check_specs(cell, model, mesh,
+                 sharding_rules(len(cell.decisions["batch_axes"]) > 1))
+    return model
+
+
+def recsys_rank_batch(cell: Cell, mesh, batch: Optional[dict] = None,
+                      cand: Optional[torch.Tensor] = None):
+    """This rank's blocks of a global numpy ``batch`` and of the
+    candidates under the cell's specs, on ``mesh.device``: (batch or
+    None, candidates or None)."""
+    bshard = cell.in_shardings[1 if cell.kind != "train" else 2]
+    out = None
+    if batch is not None:
+        out = batch_to({k: block_of(np.asarray(v), bshard[k], mesh)
+                        for k, v in batch.items() if k in bshard},
+                       mesh.device)
+    if cand is not None:
+        cand = block_of(cand, cell.in_shardings[2], mesh).to(mesh.device)
+    return out, cand
+
+
+# -------------------------------------------------- the analytic schedules --
+
+class _Sched:
+    """``{axis: {kind: [calls, result bytes]}}``, as ``Wire`` records a
+    rank's calls (``WireStats.by_axis``); axes of size 1 send nothing."""
+
+    def __init__(self, mesh_shape: dict):
+        self.shape = mesh_shape
+        self.recs: dict = {}
+
+    def add(self, axis, kind, nbytes, calls=1):
+        if self.shape.get(axis, 1) > 1:
+            r = self.recs.setdefault(axis, {}).setdefault(kind, [0, 0])
+            r[0] += calls
+            r[1] += calls * int(nbytes)
+
+    def live(self, axes) -> tuple:
+        return tuple(a for a in axes if self.shape.get(a, 1) > 1)
+
+    def gather(self, nbytes, axes, grad=False):
+        """``gather_rows`` of a ``nbytes`` block (minor axis first), and
+        under ``grad`` its backward, ``psum_scatter`` (major first)."""
+        for a in reversed(self.live(axes)):
+            nbytes *= self.shape[a]
+            self.add(a, "all-gather", nbytes)
+        if grad:
+            for a in self.live(axes):
+                nbytes //= self.shape[a]
+                self.add(a, "reduce-scatter", nbytes)
+
+    def psum(self, nbytes, axes, grad=False):
+        for _ in range(2 if grad else 1):
+            for a in self.live(axes):
+                self.add(a, "all-gather", self.shape[a] * nbytes)
+
+    def extremum(self, elems, el, axes):
+        """``_MeshExtremum``: the MAX/MIN all-reduce, and its backward's
+        ``psum`` of the gradient and int32 tie counts."""
+        for a in self.live(axes):
+            self.add(a, "all-reduce", elems * el)
+            self.add(a, "all-gather", self.shape[a] * elems * el)
+            self.add(a, "all-reduce", elems * 4)
+
+    def update(self, specs: dict, shapes: dict, el: int):
+        """``_mesh_update``: one ``psum`` of each group of gradients that
+        sums over the same axes, then the norm's float32 ``psum`` a group
+        of sharding axes."""
+        axes = self.live(self.shape)
+        groups: dict = {}
+        sharded: set = set()
+        for name, spec in specs.items():
+            have = {a for p in spec for a in part_axes(p)}
+            key = tuple(a for a in axes if a not in have)
+            n = math.prod(shapes[name]) // math.prod(
+                self.shape.get(a, 1) for a in have)
+            groups[key] = groups.get(key, 0) + n * el
+            sharded.add(tuple(a for a in axes if a in have))
+        for key, nbytes in groups.items():
+            self.psum(nbytes, key)
+        for key in sharded:
+            self.psum(4, key)
+
+
+def gnn_collective_schedule(cell: Cell, mesh_shape: dict,
+                            el: int = 4) -> dict:
+    """What one ``_gnn_cell`` train step sends on one rank, as ``Wire``
+    records it (``{axis: {kind: [calls, result bytes]}}``), from the
+    cell's decisions and config (``el``: the parameters' bytes an
+    element). Forward: a source gather of a node array is an all-gather
+    over the batch axes (its backward a reduce-scatter), a sum
+    reduction a ``psum`` over ``model`` (its backward too), an extremum
+    a MAX/MIN all-reduce (its backward a ``psum`` and an int32
+    all-reduce); PNA's checkpointed layers run their forward again in
+    the backward. Then the minibatch targets' gather, the loss's
+    ``psum``, the gradients' and the norm's (``_mesh_update``)."""
+    d, cfg = cell.decisions, cell.config
+    arch = cell.arch_id
+    s = _Sched(mesh_shape)
+    ba = d["batch_axes"]
+    ma = tuple(a for a in sharding_rules(len(ba) > 1)["edges"]
+               if a not in ba)
+    rows = d["n_pad"] // d["k_slabs"]
+    specs = cell.in_shardings[0]
+    shapes = {n: tuple(t.shape) for n, t in cell.args[0].items()}
+
+    def node_gather(width, grad=True):
+        s.gather(rows * width * el, ba, grad)
+
+    def red_sum(width, grad=True):
+        s.psum(rows * width * el, ma, grad)
+
+    def fsdp():
+        name = "feat_proj.kernel"
+        if name in specs and any(part_axes(p) for p in specs[name]):
+            n = math.prod(shapes[name]) // math.prod(
+                mesh_shape.get(a, 1) for p in specs[name]
+                for a in part_axes(p))
+            s.gather(n * el, ba, grad=True)
+
+    fsdp()
+    if arch == "pna":
+        w = cfg.d_hidden
+        s.psum(rows * 4, ma)  # degree: float32 counts in any dtype
+        for _ in range(cfg.n_layers):
+            for rep in range(2):  # the forward, then its recompute
+                node_gather(w, grad=rep == 1)
+                for _ in range(2):  # mean and the squares' mean
+                    red_sum(w, grad=rep == 1)
+                    red_sum(1, grad=False)
+                for _ in range(2):  # max, min
+                    if rep == 1:
+                        s.extremum(rows * w, el, ma)
+                    else:
+                        for a in s.live(ma):
+                            s.add(a, "all-reduce", rows * w * el)
+    else:
+        s.gather(rows * 3 * 4, ba)  # positions (edge_vectors)
+        nlm = (cfg.l_max + 1) ** 2 if arch != "schnet" else 1
+        layers = cfg.n_interactions if arch == "schnet" else cfg.n_layers
+        w = nlm * cfg.d_hidden
+        for _ in range(layers):
+            node_gather(w)
+            if arch == "equiformer-v2":
+                s.extremum(rows * cfg.n_heads, el, ma)  # softmax max
+                red_sum(cfg.n_heads)  # its denominator
+            red_sum(w)
+    if d["n_graphs"] is not None:
+        s.psum(d["n_graphs"] * cfg.n_out * el, ba, grad=True)
+    if d["seeds"] is not None:
+        s.gather(d["seeds"] // d["k_slabs"] * cfg.n_out * 4, ba)
+    s.psum(el, s.live(mesh_shape))  # the loss
+    s.update(specs, shapes, el)
+    return s.recs
+
+
+def recsys_collective_schedule(cell: Cell, mesh_shape: dict,
+                               el: int = 4) -> dict:
+    """What one ``_recsys_cell`` step sends on one rank, as ``Wire``
+    records it: the table lookup's ``psum`` over ``model`` where its rows
+    are sharded, each kernel's FSDP gather over ``data``, each
+    column-parallel product's gather over ``model`` before the next
+    product (and the head), their transposes in a train step's backward
+    with the loss's, the gradients' and the norm's ``psum``; a retrieval
+    step's merge of the ranks' top ``k`` (values and int64 indices
+    gathered over every axis)."""
+    cfg, d = cell.config, cell.decisions
+    s = _Sched(mesh_shape)
+    train = cell.kind == "train"
+    specs = cell.in_shardings[0]
+    shapes = {n: tuple(t.shape) for n, t in cell.args[0].items()}
+    data = s.live(d["batch_axes"])
+    model = s.live(("model",))
+    B = cell.dims["batch"]
+    rows = B // math.prod(mesh_shape.get(a, 1)
+                          for a in s.live(d["batch_shards"] or ()))
+
+    def blocks(name):
+        spec = specs[name]
+        dims = []
+        for i, n in enumerate(shapes[name]):
+            k = math.prod(mesh_shape.get(a, 1) for a in part_axes(spec[i]))
+            dims.append(n // k)
+        return dims
+
+    def fsdp(name):
+        spec = specs[name]
+        if any(a in data for a in part_axes(spec[0])):
+            s.gather(math.prod(blocks(name)) * el, data, grad=train)
+
+    def cols(name):
+        return any(a in model for a in part_axes(specs[name][1]))
+
+    if any(a in model for a in part_axes(specs["embed.table"][0])):
+        s.psum(rows * cfg.n_sparse * cfg.embed_dim * el, model, grad=train)
+    for i in range(cfg.n_cross_layers):
+        name = f"cross.w_{i}.kernel"
+        fsdp(name)
+        if cols(name):
+            s.gather(rows * blocks(name)[1] * el, model, grad=train)
+    have_cols = False
+    for i in range(len(cfg.mlp)):
+        name = f"mlp.w_{i}.kernel"
+        d_in = shapes[name][0]
+        if have_cols:
+            s.gather(rows * d_in // math.prod(mesh_shape[a] for a in model)
+                     * el, model, grad=train)
+        fsdp(name)
+        have_cols = True
+    s.gather(rows * cfg.mlp[-1] // math.prod(
+        mesh_shape[a] for a in model) * el, model, grad=train)
+    if train:
+        s.psum(el, s.live(mesh_shape))  # the loss
+        s.update(specs, shapes, el)
+    elif cell.kind == "retrieval":
+        k = RETRIEVAL_TOP_K
+        every = s.live(mesh_shape)
+        s.gather(k * 4, every)
+        s.gather(k * 8, every)
+    return s.recs
+
+
+def schedule_by_kind(recs: dict, mesh_shape: dict) -> dict:
+    """``{axis: {kind: [calls, bytes]}}`` -> ``{kind: {group: [calls,
+    bytes]}}`` (``WireStats.by_kind``'s form)."""
+    out: dict = {}
+    for axis, kinds in recs.items():
+        for kind, (c, b) in kinds.items():
+            r = out.setdefault(kind, {}).setdefault(
+                int(mesh_shape[axis]), [0, 0])
+            r[0] += c
+            r[1] += b
+    return out
+
+
 def build_cell(arch_id: str, shape_name: str, mesh, multi_pod: bool,
                **overrides) -> Cell:
     """JAX's ``build_cell``: the (arch, shape) cell on ``mesh`` (a ``Mesh``
-    or a ``MeshLayout``). Raises on a documented skip. The paper and LM
-    families are ported; the GNN and recsys mesh cells raise
-    ``NotImplementedError``."""
+    or a ``MeshLayout``) for every family. Raises on a documented skip.
+    The edge slabs are reset first, and a GNN cell sets its own, as in
+    JAX. ``overrides``: a paper cell's ``state_layout``/``or_impl``; a
+    GNN or recsys cell's ``smoke`` and ``dims`` (``gnn_cell``'s)."""
+    gnn_common.set_edge_slabs(None)  # a GNN cell sets its own per mesh
     spec = cfgbase.get(arch_id)
     shape = {s.name: s for s in spec.shapes}[shape_name]
     if shape_name in spec.skips:
@@ -880,15 +1517,12 @@ def build_cell(arch_id: str, shape_name: str, mesh, multi_pod: bool,
         )
     if spec.family == "lm":
         return _lm_cell(spec, shape, mesh, multi_pod)
+    if spec.family == "gnn":
+        return _gnn_cell(spec, shape, mesh, multi_pod, **overrides)
+    if spec.family == "recsys":
+        return _recsys_cell(spec, shape, mesh, multi_pod, **overrides)
     if spec.family == "paper":
         return _paper_cell(spec, shape, mesh, multi_pod, **overrides)
-    if spec.family in ("gnn", "recsys"):
-        slabs = " (with JAX's edge slabs)" if spec.family == "gnn" else ""
-        raise NotImplementedError(
-            f"the {spec.family} family's mesh cells{slabs} wait for their "
-            "slice (ROADMAP section 1, item 2); gnn_cell and recsys_cell "
-            "run one card"
-        )
     raise ValueError(spec.family)
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...nn.module import fsdp_param
 from . import common
 from .common import Kernel
 from .irreps import align_matrices, l_of_lm, lm_index, n_lm, rotate_irreps
@@ -123,7 +124,8 @@ class EquiformerV2(nn.Module):
         self.species_embed = k((cfg.n_species, C), 1.0)
         self.readout = k((C, cfg.n_out))
         if cfg.d_feat:
-            self.feat_proj = k((cfg.d_feat, C))
+            self.feat_proj = Kernel((cfg.d_feat, C), generator, device,
+                                    axes=("embed", None))
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", nn.ModuleDict({
                 "so2": _so2_params(cfg, generator, device),
@@ -158,7 +160,8 @@ def apply(params: EquiformerV2, cfg: EquiformerV2Config, batch):
     species = torch.clamp(batch["species"].long(), 0, cfg.n_species - 1)
     x0 = params.species_embed.kernel[species]
     if cfg.d_feat and "node_feat" in batch:
-        x0 = x0 + batch["node_feat"].float() @ params.feat_proj.kernel
+        x0 = x0 + batch["node_feat"].float() @ fsdp_param(
+            params, "feat_proj.kernel")
     x = torch.cat([x0[:, None, :], x0.new_zeros((N, nlm - 1, C))], dim=1)
 
     vec, r, valid = common.edge_vectors(pos, src, dst)
@@ -169,12 +172,13 @@ def apply(params: EquiformerV2, cfg: EquiformerV2Config, batch):
     for i in range(cfg.n_layers):
         lp = getattr(params, f"layer_{i}")
         xn = _eq_layernorm(x)
-        xj = xn[src]  # [E, nlm, C]
+        table = common.node_table(xn)
+        xj = common.take(table, src)  # [E, nlm, C]
         xj_rot = rotate_irreps(mats, xj, cfg.l_max)  # into edge frame
         msg = _so2_apply(lp["so2"], cfg, xj_rot, midx)  # [E, nlm, C]
         msg = msg * valid[:, None, None]  # degenerate edges carry no message
         # attention logits: frame scalars of i and conv output + rbf
-        xi_scal = xn[:, 0, :][dst]  # [E, C]
+        xi_scal = common.take(table[:, 0, :], dst)  # [E, C]
         feats = torch.cat([xi_scal, msg[:, 0, :], rbf], dim=-1)
         logits = _leaky_relu(feats @ lp["alpha"].kernel)  # [E, H]
         alpha = common.segment_softmax(logits, dst, N)  # [E, H]

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...nn.module import fsdp_param
 from . import common
 from .common import Kernel
 from .irreps import gaunt_full, l_of_lm, n_lm, sph_harm_real
@@ -72,7 +73,8 @@ class MACE(nn.Module):
                                     1.0)
         self.readout = Kernel((C, cfg.n_out), generator, device)
         if cfg.d_feat:
-            self.feat_proj = Kernel((cfg.d_feat, C), generator, device)
+            self.feat_proj = Kernel((cfg.d_feat, C), generator, device,
+                                    axes=("embed", None))
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", nn.ModuleDict({
                 "radial": Kernel((cfg.n_rbf, (cfg.l_max + 1) * C),
@@ -124,7 +126,8 @@ def apply(params: MACE, cfg: MACEConfig, batch):
     species = torch.clamp(batch["species"].long(), 0, cfg.n_species - 1)
     h0 = params.species_embed.kernel[species]
     if cfg.d_feat and "node_feat" in batch:
-        h0 = h0 + batch["node_feat"].float() @ params.feat_proj.kernel
+        h0 = h0 + batch["node_feat"].float() @ fsdp_param(
+            params, "feat_proj.kernel")
     # JAX's zeros.at[:, 0, :].set(h0), out of place
     h = torch.cat([h0[:, None, :], h0.new_zeros((N, nlm - 1, C))], dim=1)
 
@@ -140,7 +143,7 @@ def apply(params: MACE, cfg: MACEConfig, batch):
         # radial weights per output-l, per channel
         R = (rbf @ lp["radial"].kernel).reshape(-1, cfg.l_max + 1, C)
         R_lm = R[:, lm_l, :]  # [E, nlm, C]
-        hj = h[src]  # [E, nlm, C]
+        hj = common.take(common.node_table(h), src)  # [E, nlm, C]
         # tensor product via Gaunt: m[c(out)] = G[a,b,c] Y[a] h[b]
         msg = _edge_product(Y, G, hj) * R_lm
         A = common.aggregate(msg, dst, N, "sum")  # [N, nlm, C]

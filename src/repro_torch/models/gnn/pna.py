@@ -16,7 +16,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...nn.module import shard_activation
+from ...nn.module import fsdp_param, shard_activation
 from . import common
 from .common import Kernel
 
@@ -43,7 +43,8 @@ class PNA(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_hidden
-        self.feat_proj = Kernel((cfg.d_feat, d), generator, device)
+        self.feat_proj = Kernel((cfg.d_feat, d), generator, device,
+                                axes=("embed", None))
         self.readout = Kernel((d, cfg.n_out), generator, device)
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", nn.ModuleDict({
@@ -65,10 +66,11 @@ def params_from_jax(cfg: PNAConfig, tree: dict, device=None) -> PNA:
 
 def _layer(x, lp, src, dst, amp, att):
     N = x.shape[0]
-    hi = x[dst]
-    hj = x[src]
+    table = common.node_table(x)
+    hi = common.take(table, dst)
+    hj = common.take(table, src)
     msg = torch.relu(torch.cat([hi, hj], dim=-1) @ lp["pre"].kernel)
-    msg = shard_activation(msg, ("edges", None))
+    msg = shard_activation(msg, ("edges", None), have=("edges", None))
     aggs = []
     mean = common.aggregate(msg, dst, N, "mean")
     for a in AGGS:
@@ -84,7 +86,8 @@ def _layer(x, lp, src, dst, amp, att):
             agg = common.aggregate(msg, dst, N, a)
         aggs += [agg, agg * amp, agg * att]  # identity, amp, atten
     h = torch.cat(aggs + [x], dim=-1) @ lp["post"].kernel
-    return shard_activation(torch.relu(h) + x, ("batch", None))
+    return shard_activation(torch.relu(h) + x, ("batch", None),
+                            have=("batch", None))
 
 
 def apply(params: PNA, cfg: PNAConfig, batch):
@@ -92,7 +95,7 @@ def apply(params: PNA, cfg: PNAConfig, batch):
     # the parameters' type: float32 as JAX's, float64 for a reference
     feat = batch["node_feat"].to(params.feat_proj.kernel.dtype)
     N = feat.shape[0]
-    x = feat @ params.feat_proj.kernel
+    x = feat @ fsdp_param(params, "feat_proj.kernel")
     deg = common.degree(dst, N).to(x.dtype)  # counts: exact in float32
     logd = torch.log1p(deg)[:, None]
     amp = logd / cfg.avg_log_degree

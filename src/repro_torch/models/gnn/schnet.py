@@ -10,6 +10,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ...nn.module import fsdp_param
 from . import common
 from .common import Kernel
 
@@ -43,7 +44,8 @@ class SchNet(nn.Module):
         self.out1 = k((d, d // 2))
         self.out2 = k((d // 2, cfg.n_out))
         if cfg.d_feat:
-            self.feat_proj = k((cfg.d_feat, d))
+            self.feat_proj = Kernel((cfg.d_feat, d), generator, device,
+                                    axes=("embed", None))
         for i in range(cfg.n_interactions):
             self.add_module(f"interaction_{i}", nn.ModuleDict({
                 "filter1": k((cfg.n_rbf, d)), "filter2": k((d, d)),
@@ -68,7 +70,8 @@ def apply(params: SchNet, cfg: SchNetConfig, batch):
     species = torch.clamp(batch["species"].long(), 0, cfg.n_species - 1)
     x = params.species_embed.kernel[species]
     if cfg.d_feat and "node_feat" in batch:
-        x = x + batch["node_feat"].float() @ params.feat_proj.kernel
+        x = x + batch["node_feat"].float() @ fsdp_param(
+            params, "feat_proj.kernel")
     _, r, valid = common.edge_vectors(pos, src, dst)
     rbf = common.gaussian_rbf(r, cfg.n_rbf, cfg.cutoff)  # [E, n_rbf]
     rbf = rbf * valid[:, None]  # degenerate edges carry no message
@@ -77,7 +80,7 @@ def apply(params: SchNet, cfg: SchNetConfig, batch):
         lp = getattr(params, f"interaction_{i}")
         W = common.shifted_softplus(rbf @ lp["filter1"].kernel)
         W = W @ lp["filter2"].kernel  # [E, d] continuous filter
-        hj = (x @ lp["in_proj"].kernel)[src]
+        hj = common.take(common.node_table(x @ lp["in_proj"].kernel), src)
         msg = hj * W
         agg = common.aggregate(msg, dst, N, "sum")
         v = common.shifted_softplus(agg @ lp["out_proj"].kernel)

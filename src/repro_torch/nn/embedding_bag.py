@@ -8,8 +8,12 @@ bit. ``F.embedding_bag`` sums in an order of its own and is not used.
 On the card ``index_add`` adds with atomics (bitwise the CPU's only under
 ``torch.use_deterministic_algorithms``).
 
-JAX shards the table's rows over the model axis; here the table lives
-whole on one device (``shard_activation`` is the identity).
+The table's logical axes are JAX's ``("vocab", None)``: on a mesh of
+ranks its rows lie over ``model`` (``nn.module.shard_params`` cuts a
+rank's block). A lookup then takes the rows the rank owns, puts zeros
+for the others and ``psum``s over those axes (under autograd), which
+gives every rank JAX's ``("batch", None, None)`` result; the table's
+gradient on a rank is its own rows'.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .module import param, shard_activation
+from .module import activation_rules, param, set_axes, shard_activation
 
 
 class FusedTable(nn.Module):
@@ -27,7 +31,9 @@ class FusedTable(nn.Module):
                  device="cpu"):
         super().__init__()
         total = int(np.sum(field_vocabs))
+        self.rows = total
         self.table = param((total, dim), generator, dtype, device, scale=0.01)
+        set_axes(self, table=("vocab", None))
 
 
 def table_offsets(field_vocabs) -> np.ndarray:
@@ -50,11 +56,34 @@ def _rows(params: FusedTable, flat: torch.Tensor) -> torch.Tensor:
         *flat.shape, params.table.shape[1])
 
 
+def _owned_rows(params: FusedTable, flat: torch.Tensor) -> torch.Tensor:
+    """A rank's part of a lookup in a row-sharded table: its rows where
+    it owns the id, zeros elsewhere, ``psum``-ed over the table's axes."""
+    from ..core.collectives import psum_grad
+
+    rules, mesh = activation_rules()
+    axes = mesh.axes(tuple(a for a in rules["vocab"]
+                           if mesh.shape.get(a, 1) > 1))
+    n = params.table.shape[0]
+    if axes.size * n != params.rows:
+        raise ValueError(f"a block of {n} rows of {params.rows} does not "
+                         f"split the table over {tuple(axes)}")
+    local = flat - axes.index() * n
+    own = (local >= 0) & (local < n)
+    rows = _rows(params, torch.where(own, local, 0))
+    return psum_grad(torch.where(own[..., None], rows, 0.0), axes)
+
+
 def lookup_single(params: FusedTable, offsets, ids):
     """Single-hot per field: ids [B, n_fields] -> [B, n_fields, dim]."""
     off = torch.as_tensor(offsets, device=ids.device)
-    out = _rows(params, ids.long() + off[None, :])
-    return shard_activation(out, ("batch", None, None))
+    flat = ids.long() + off[None, :]
+    if params.table.shape[0] == params.rows:
+        out = _rows(params, flat)
+    else:
+        out = _owned_rows(params, flat)
+    return shard_activation(out, ("batch", None, None),
+                            have=("batch", None, None))
 
 
 def embedding_bag(params: FusedTable, offsets, ids, field_ids, bag_ids,

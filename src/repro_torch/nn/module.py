@@ -26,10 +26,10 @@ installs the rules, process-global as in JAX, and a rank's ``Mesh``
 beside them. ``shard_activation`` then moves a rank's block of a tensor
 from the layout the caller says it has into the layout ``axes`` names: a
 dim that stops being sharded is all-gathered through ``core.collectives``
-(``Wire``), a dim that starts being sharded takes the rank's slice. It
-is the identity where the two agree, and with no rules or no mesh of
-more than one rank installed. A partial sum is not a layout: a
-row-parallel product reduces its own partial sums.
+(``Wire``), a dim that starts being sharded takes the rank's slice, both
+under autograd. It is the identity where the two agree, and with no
+rules or no mesh of more than one rank installed. A partial sum is not a
+layout: a row-parallel product reduces its own partial sums.
 """
 from __future__ import annotations
 
@@ -189,14 +189,18 @@ def shard_activation(x: torch.Tensor, axes: tuple,
     identity without installed rules or without a mesh of more than one
     rank; with them, ``have`` is required (nothing is guessed). A dim
     that stops being sharded is all-gathered, a dim that starts being
-    sharded takes this rank's slice; a sharded dim must divide."""
+    sharded takes this rank's slice; a sharded dim must divide. Both
+    carry a gradient: the gather's is a reduce-scatter of the sum
+    (``core.collectives.gather_rows_grad``), the slice's is zero outside
+    the rank's block, so the ranks' gradients add up to the whole
+    one's."""
     rules, mesh = _ACTIVATION_RULES, _MESH
     if rules is None or mesh is None or mesh.size == 1:
         return x
     if have is None:
         raise ValueError(f"shard_activation to {axes} on a mesh needs the "
                          "layout the tensor has (have=...)")
-    from ..core.collectives import gather_rows
+    from ..core.collectives import gather_rows_grad
 
     want = logical_to_spec(axes, rules)
     cur = logical_to_spec(have, rules)
@@ -208,12 +212,33 @@ def shard_activation(x: torch.Tensor, axes: tuple,
         if c == w:
             continue
         if c:
-            x = gather_rows(x, mesh.axes(c), d)
+            x = gather_rows_grad(x, mesh.axes(c), d)
         if w:
             sl = block_slices(x.shape, (None,) * d + (w,), mesh.shape,
                               _coords(mesh))
             x = x[sl]
     return x
+
+
+def fsdp_param(model: nn.Module, name: str) -> torch.Tensor:
+    """The parameter ``name`` of ``model`` as a product reads it: on a
+    mesh, a block cut by ``shard_params`` has its dims sharded over the
+    rules' ``embed`` (FSDP) axes all-gathered, under autograd (the
+    gradient is reduce-scattered back); ``model``-axis sharding stays.
+    The parameter itself off a mesh or for a model not cut."""
+    p = model.get_parameter(name)
+    rules, mesh = _ACTIVATION_RULES, _MESH
+    specs = getattr(model, "shard_specs", None)
+    if rules is None or mesh is None or mesh.size == 1 or specs is None:
+        return p
+    from ..core.collectives import gather_rows_grad
+
+    data = set(a for a in rules["embed"] if mesh.shape.get(a, 1) > 1)
+    for d, part in enumerate(specs[name]):
+        axes = tuple(a for a in part_axes(part) if a in data)
+        if axes:
+            p = gather_rows_grad(p, mesh.axes(axes), d)
+    return p
 
 
 def set_axes(module: nn.Module, **axes) -> None:

@@ -91,10 +91,14 @@ def _work(t: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: dict, state: AdamWState, params: dict,
-                 cfg: AdamWConfig, lr_scale=1.0):
+                 cfg: AdamWConfig, lr_scale=1.0, norm=None):
     """Returns (params, new_state, grad_norm); ``params`` and the moments
-    are updated in place, the step count is a new tensor."""
-    norm = global_norm(grads)
+    are updated in place, the step count is a new tensor. ``norm``: the
+    global norm when the caller took it (a rank of a mesh holds blocks
+    of some leaves, whose squares it sums across the ranks); by default
+    ``global_norm(grads)``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = (None if cfg.clip_norm is None
              else _clip_scale(norm, cfg.clip_norm))
     step = state.step + 1

@@ -1402,3 +1402,71 @@ def test_lm_mesh_on_card_ranks_matches_cpu(cuda_device):
                 v = base.get(arch).smoke_config().vocab
                 assert rel_err(torch.from_numpy(g[:, :v]),
                                torch.from_numpy(e[:, :v])) <= 1e-4
+
+
+def _mesh_leaves_close(got: dict, exp: dict, what: str, share=1e-3):
+    for k, e in exp.items():
+        g = got[k]
+        top = max(float(np.abs(e).max()), 1e-30)
+        assert np.all(np.abs(g - e) <= share * np.abs(e) + share * top), \
+            (what, k)
+
+
+def test_gnn_and_recsys_mesh_on_card_ranks_match_cpu(cuda_device):
+    """Four gloo ranks sharing the card run the GNN and DCN-v2 mesh
+    cells of ``test_torch_gnn_mesh.py`` and ``test_torch_recsys_mesh.py``
+    on ``(2, 2)`` (``test_torch_ranks.gnn_mesh_rank``/``recsys_mesh_rank``,
+    float32, TF32 off) from one set of seeded weights, against the same
+    ranks on the CPU: losses and norms within 1e-5 relative, moments and
+    logits within 1e-3 of the leaf's largest magnitude (the card's
+    ``index_add`` adds with atomics; EquiformerV2's first SO(2) weights
+    move by up to 1.5e-3 of their largest under reordered sums, ROADMAP
+    section 3), the top-100 values within 1e-5, the same collectives by
+    axis and kind, and the GNN messages staged through host memory."""
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import dcn_v2
+    from repro_torch.models.gnn import common
+
+    import test_torch_ranks as TR
+
+    trees = {}
+    for arch, shape in (("pna", "molecule"), ("schnet", "full_graph_sm"),
+                        ("mace", "minibatch_lg"),
+                        ("equiformer-v2", "molecule")):
+        cell = steps.gnn_cell(arch, shape, smoke=True,
+                              dims=TR.GNN_MESH_DIMS[shape])
+        trees[arch, shape] = common.params_to_numpy(steps.init_model(
+            cell, torch.Generator().manual_seed(3), "cpu"))
+    dcn_tree = common.params_to_numpy(dcn_v2.init(
+        base.get("dcn-v2").smoke_config(), torch.Generator().manual_seed(3),
+        "cpu")[0])
+    card = run_ranks(TR.gnn_mesh_rank, 4, ((2, 2), trees, "cuda:0"),
+                     timeout_s=300)
+    cpu = run_ranks(TR.gnn_mesh_rank, 4, ((2, 2), trees), timeout_s=300)
+    rcard = run_ranks(TR.recsys_mesh_rank, 4, ((2, 2), dcn_tree, "cuda:0"),
+                      timeout_s=300)
+    rcpu = run_ranks(TR.recsys_mesh_rank, 4, ((2, 2), dcn_tree),
+                     timeout_s=300)
+    for r in range(4):
+        for case in cpu[r]:
+            c, h = card[r][case], cpu[r][case]
+            assert c["wire"] == h["wire"] and c["staged"] > 0, case
+            np.testing.assert_allclose(c["steps"], h["steps"], rtol=1e-5)
+            for m in ("mu", "nu"):
+                _mesh_leaves_close(c[m], h[m], f"{case} {m}")
+        for shape, h in rcpu[r].items():
+            c = rcard[r][shape]
+            assert c["wire"] == h["wire"], shape
+            if "steps" in h:
+                np.testing.assert_allclose(c["steps"], h["steps"],
+                                           rtol=1e-5)
+                for m in ("mu", "nu"):
+                    _mesh_leaves_close(c[m], h[m], f"{shape} {m}")
+            elif "logits" in h:
+                _mesh_leaves_close({"x": c["logits"]}, {"x": h["logits"]},
+                                   shape)
+            else:
+                np.testing.assert_allclose(c["values"], h["values"],
+                                           rtol=1e-5, atol=1e-5)

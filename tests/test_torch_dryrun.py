@@ -10,9 +10,15 @@
 - ``dryrun --list`` prints JAX's list.
 - ``run_cell`` writes records with JAX's keys and ``status: ok``: a card
   run on the CPU (a cut cell) and the analytic ``single``/``multi``
-  layouts; a GNN cell records its ``NotImplementedError`` and the run
-  carries on; ``--components`` is refused on ``--mesh card``. The LM
-  cells' records are held in ``test_torch_lm_dryrun.py``.
+  layouts; a cell still unported on a mesh (an LM train cell on the
+  card) records its ``NotImplementedError`` and the run carries on;
+  ``--components`` is refused on ``--mesh card``. The LM cells' records
+  are held in ``test_torch_lm_dryrun.py``.
+- The GNN and recsys cells' records on ``single``/``multi``: status
+  ``ok``, analytic (``measured`` false), argument bytes under the
+  specs, the family's collective schedule in the roofline, and
+  ``ogb_products`` recorded with its per-edge tensors; a GNN cell's
+  ``card`` record on the CPU at a cut size.
 """
 import dataclasses
 import json
@@ -188,10 +194,11 @@ def test_layout_records_are_analytic(mesh, tmp_path):
 
 
 def test_unported_cells_record_errors_and_components_raise(tmp_path):
-    rc = dryrun.main(["--arch", "pna", "--shape", "molecule",
-                      "--mesh", "single", "--out", str(tmp_path)])
+    rc = dryrun.main(["--arch", "minicpm-2b", "--shape", "train_4k",
+                      "--mesh", "card", "--device", "cpu", "--out",
+                      str(tmp_path)])
     assert rc == 1
-    rec = _load(tmp_path / "pna__molecule__single.json")
+    rec = _load(tmp_path / "minicpm-2b__train_4k__card.json")
     assert rec["status"] == "error"
     assert rec["error"].startswith("NotImplementedError")
     # --components counts JAX's layouts: refused on the card, and for a
@@ -230,3 +237,50 @@ def test_paper_collectives_count_the_ring():
         assert st.wire_bytes["all-reduce"] == pytest.approx(
             2 * 15 / 16 * 4 * 2)
     assert torch.device("meta") == cell.args[0].indices.device
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("pna", "ogb_products"), ("equiformer-v2", "ogb_products"),
+    ("schnet", "molecule"), ("mace", "minibatch_lg"),
+    ("dcn-v2", "train_batch"), ("dcn-v2", "retrieval_cand")])
+def test_gnn_and_recsys_records_on_both_layouts(tmp_path, arch, shape):
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+
+    assert dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "both",
+                        "--out", str(tmp_path)]) == 0
+    for tag, multi in (("single", False), ("multi", True)):
+        rec = _load(tmp_path / f"{arch}__{shape}__{tag}.json")
+        assert rec["status"] == "ok" and rec["measured"] is False
+        assert rec["n_devices"] == (512 if multi else 256)
+        layout = make_production_mesh(multi_pod=multi)
+        cell = steps.build_cell(arch, shape, layout, multi)
+        mem = rec["memory"]
+        assert mem["argument_size_in_bytes"] == dryrun._tree_bytes(
+            cell.args, cell.in_shardings, layout.shape)
+        assert mem["temp_size_in_bytes"] is None
+        rl = rec["roofline"]
+        assert rl["model_flops_per_device"] == pytest.approx(
+            cell.model_flops / layout.size)
+        assert rl["collective_s"] > 0
+        if cell.decisions.get("e_pad") is not None:
+            edges = cell.decisions["e_pad"] // layout.size
+            assert rec["edges_a_device"] == edges
+            assert rec["edge_tensor_bytes"] == \
+                edges * dryrun._edge_width(cell) * 4
+            assert mem["total_bytes_per_device"] == (
+                mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                + rec["edge_tensor_bytes"])
+    if arch == "equiformer-v2":  # l_max 6: 49 x 128 floats an edge
+        assert rec["edge_tensor_bytes"] == 120_819 * 49 * 128 * 4
+
+
+def test_gnn_card_record_on_the_cpu(tmp_path):
+    rec = dryrun.run_cell("schnet", "molecule", "card", str(tmp_path),
+                          device="cpu", cut={"batch": 2})
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["measured"] is True and rec["device"] == "cpu"
+    assert rec["reduced"] == {"batch": 2}
+    assert len(rec["wall_ms_runs"]) == dryrun.REPS
+    assert rec["notes"] == "n=60 e=128"
+    assert rec["collective_counts"] == {}

@@ -44,6 +44,12 @@
   importing the dry-run leaves ``jax`` unloaded; a ``--mesh card`` run
   without a GPU records "CUDA is not available" and fails, and the cell
   builder needs a mesh on the card unless it is given ``"cpu"``.
+- The GNN and recsys mesh cells (``launch/steps.py``'s ``_gnn_cell``,
+  ``_recsys_cell``, the edge slabs of ``models/gnn/common.py``, the
+  autograd collectives of ``core/collectives.py``) leave ``jax``
+  unloaded when built and run; a cell on a mesh of the card raises
+  without a GPU, and a ``--mesh card`` GNN record without ``--device
+  cpu`` records "CUDA is not available".
 """
 import ast
 import os
@@ -626,3 +632,45 @@ def test_paper_cell_entry_points_raise_without_cuda(no_cuda, tmp_path):
     cell = steps.build_cell("paper-bfs-engine", "ldbc100", mesh, False)
     assert cell.fn.device.type == "cpu"
     assert cell.args[0].indices.device.type == "meta"
+
+
+def test_mesh_cells_leave_jax_unloaded_and_need_the_card(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.launch import steps\n"
+        "from repro_torch.launch.mesh import make_mesh, "
+        "make_production_mesh\n"
+        "from repro_torch.optim.adamw import adamw_init\n"
+        "for a, s in steps.cfgbase.all_cells()[0]:\n"
+        "    if steps.cfgbase.get(a).family in ('gnn', 'recsys'):\n"
+        "        steps.build_cell(a, s, make_production_mesh(), False)\n"
+        "mesh = make_mesh((1, 1), ('data', 'model'), 'cpu')\n"
+        "cell = steps.build_cell('schnet', 'molecule', mesh, False, "
+        "smoke=True, dims=dict(batch=2))\n"
+        "gc = steps.gnn_cell('schnet', 'molecule', smoke=True, "
+        "dims=dict(batch=2))\n"
+        "m = steps.shard_gnn(cell, steps.init_model(gc, "
+        "torch.Generator().manual_seed(0), 'cpu'), mesh)\n"
+        "b, _ = steps.gnn_rank_batch(cell, mesh, steps.pad_gnn_batch("
+        "cell, steps.cell_batch(gc)))\n"
+        "cell.fn(m, adamw_init(steps.params_dict(m), steps.GNN_ADAMW), b)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad)\n"
+        "raise SystemExit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_mesh_cells_raise_without_cuda_unless_cpu(tmp_path, no_cuda):
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        steps.build_cell("pna", "molecule", make_mesh(
+            (1, 1), ("data", "model")), False)
+    assert dryrun.main(["--arch", "schnet", "--shape", "molecule",
+                        "--mesh", "card", "--out", str(tmp_path)]) == 1
+    rec = dryrun.run_cell("schnet", "molecule", "card", str(tmp_path))
+    assert "CUDA is not available" in rec["error"]

@@ -1045,3 +1045,192 @@ def lm_replicated_kv_rank(rank: int, world: int) -> dict:
     return {"got": got, "ref": ref, "vocab": cfg.vocab,
             "wk": model.shard_specs["blocks.0.attn.wk.kernel"],
             "wq": model.shard_specs["blocks.0.attn.wq.kernel"]}
+
+
+# ---------------------------------------------------------------------------
+# The GNN and recsys cells on a mesh (launch/steps.py's _gnn_cell and
+# _recsys_cell on a Mesh).
+# ---------------------------------------------------------------------------
+
+GNN_MESH_ARCHS = ("pna", "schnet", "mace", "equiformer-v2")
+#: smaller cells of each shape kind, their node and graph counts
+#: divisible by 4 (no pad node on any mesh of four)
+GNN_MESH_DIMS = {"full_graph_sm": dict(n_nodes=40, n_edges=120, d_feat=24),
+                 "minibatch_lg": dict(batch_nodes=4, fanout=(3, 2)),
+                 "molecule": dict(batch=4, n_nodes=6, n_edges=10)}
+MESH_STEPS = 2
+RECSYS_MESH_DIMS = {"train_batch": dict(batch=64),
+                    "serve_p99": dict(batch=16),
+                    "serve_bulk": dict(batch=32),
+                    "retrieval_cand": dict(batch=1, n_candidates=1002)}
+
+
+def gnn_mesh_batches(arch: str, shape: str) -> list:
+    """The seeded global batches of a case (``steps.cell_batch``)."""
+    from repro_torch.launch import steps
+
+    cell = steps.gnn_cell(arch, shape, smoke=True, dims=GNN_MESH_DIMS[shape])
+    return [steps.cell_batch(cell, 10 + i) for i in range(MESH_STEPS)]
+
+
+def recsys_mesh_batch(shape: str, step: int = 0) -> dict:
+    from repro_torch.launch import steps
+
+    cell = steps.recsys_cell("dcn-v2", shape, smoke=True,
+                             dims=RECSYS_MESH_DIMS[shape])
+    return steps.recsys_batch(cell, step, seed=3)
+
+
+def recsys_candidates(n: int, dim: int) -> np.ndarray:
+    return np.random.default_rng(4).standard_normal((n, dim)).astype(
+        np.float32)
+
+
+def _blocks_equal(model, tree: dict, mesh) -> bool:
+    """Every parameter block equals its spec's slice of the whole."""
+    from repro_torch.nn.module import block_of
+
+    ok = True
+    for name, p in model.named_parameters():
+        whole = tree
+        for k in name.split("."):
+            whole = whole[k]
+        want = block_of(np.asarray(whole), model.shard_specs[name], mesh)
+        ok &= bool(np.array_equal(p.detach().cpu().numpy(), want))
+    return ok
+
+
+def _global_state(model, opt, mesh) -> dict:
+    """The parameters and moments gathered whole (after the run's
+    collectives were read)."""
+    from repro_torch.nn.module import gather_block
+
+    specs = model.shard_specs
+    with torch.no_grad():
+        return {
+            "params": {k: gather_block(p.detach(), specs[k], mesh).cpu()
+                       .numpy() for k, p in model.named_parameters()},
+            "mu": {k: gather_block(v, specs[k], mesh).cpu().numpy()
+                   for k, v in opt.mu.items()},
+            "nu": {k: gather_block(v, specs[k], mesh).cpu().numpy()
+                   for k, v in opt.nu.items()},
+        }
+
+
+def _wire_axes(mesh) -> dict:
+    return {a: {k: list(v) for k, v in d.items()}
+            for a, d in mesh.wire.by_axis.items()}
+
+
+def gnn_mesh_rank(rank: int, world: int, shape: tuple, trees: dict,
+                  device: str = "cpu") -> dict:
+    """Each ``(arch, shape)`` of ``trees`` (JAX's numpy weights) on this
+    rank: the cell on the ``shape`` mesh, the model cut by
+    ``steps.shard_gnn``, ``MESH_STEPS`` train steps on the rank's part
+    of ``gnn_mesh_batches``; returns the losses and norms, the global
+    parameters and moments after, the collectives of the steps beside
+    ``gnn_collective_schedule``'s count, the slab layout and whether
+    the blocks matched their specs."""
+    import copy
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import adamw_init
+
+    if device != "cpu":  # gloo ranks sharing the card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(torch.device(device))
+    mesh = make_mesh(shape, ("data", "model"), device)
+    out = {}
+    for (arch, sname), tree in trees.items():
+        cell = steps.build_cell(arch, sname, mesh, False, smoke=True,
+                                dims=GNN_MESH_DIMS[sname])
+        model = steps.GNN_MODULES[arch].params_from_jax(
+            cell.config, tree, device).requires_grad_(True)
+        steps.shard_gnn(cell, model, mesh)
+        blocks_ok = _blocks_equal(model, tree, mesh)
+        opt = adamw_init(steps.params_dict(model), steps.GNN_ADAMW)
+        mesh.wire.reset()
+        res, node_blocks_ok = [], True
+        for b in gnn_mesh_batches(arch, sname):
+            b = steps.pad_gnn_batch(cell, b)
+            rb, layout = steps.gnn_rank_batch(cell, mesh, b)
+            for key, spec in cell.in_shardings[2].items():
+                if not key.startswith("edge_"):
+                    want = steps.block_of(np.asarray(b[key]), spec, mesh)
+                    node_blocks_ok &= bool(np.array_equal(
+                        rb[key].cpu().numpy(), want))
+            _, opt, loss, gnorm = cell.fn(model, opt, rb)
+            res.append((float(loss), float(gnorm)))
+        wire = _wire_axes(mesh)
+        out[f"{arch}/{sname}"] = dict(
+            steps=res, wire=copy.deepcopy(wire),
+            staged=mesh.wire.staged_bytes,
+            schedule=steps.gnn_collective_schedule(cell, mesh.shape),
+            layout=layout, blocks_ok=blocks_ok,
+            batch_blocks_ok=node_blocks_ok, **_global_state(model, opt,
+                                                            mesh))
+    return out
+
+
+def recsys_mesh_rank(rank: int, world: int, shape: tuple, tree: dict,
+                     device: str = "cpu") -> dict:
+    """DCN-v2's four kinds on this rank of the ``shape`` mesh from JAX's
+    numpy weights ``tree``: ``MESH_STEPS`` train steps (losses, norms,
+    the global parameters and moments after), the serve and bulk logits
+    gathered whole, the retrieval top 100; each kind's collectives
+    beside ``recsys_collective_schedule``'s count."""
+    import copy
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import dcn_v2 as dcn
+    from repro_torch.nn.module import gather_block, set_activation_rules
+    from repro_torch.optim.adamw import adamw_init
+
+    if device != "cpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(torch.device(device))
+    mesh = make_mesh(shape, ("data", "model"), device)
+    out = {}
+    for sname, dims in RECSYS_MESH_DIMS.items():
+        cell = steps.build_cell("dcn-v2", sname, mesh, False, smoke=True,
+                                dims=dims)
+        model, _ = dcn.params_from_jax(tree, cell.config, device)
+        if cell.kind == "train":
+            model.requires_grad_(True)
+        steps.shard_recsys(cell, model, mesh)
+        rec = {"blocks_ok": _blocks_equal(model, tree, mesh),
+               "schedule": steps.recsys_collective_schedule(cell,
+                                                            mesh.shape)}
+        mesh.wire.reset()
+        if cell.kind == "train":
+            opt = adamw_init(steps.params_dict(model), steps.RECSYS_ADAMW)
+            res = []
+            for i in range(MESH_STEPS):
+                b, _ = steps.recsys_rank_batch(cell, mesh,
+                                               recsys_mesh_batch(sname, i))
+                _, opt, loss, gnorm = cell.fn(model, opt, b)
+                res.append((float(loss), float(gnorm)))
+            rec.update(steps=res, wire=copy.deepcopy(_wire_axes(mesh)),
+                       **_global_state(model, opt, mesh))
+        elif cell.kind == "retrieval":
+            nc = cell.decisions["n_candidates_padded"]
+            cand = torch.from_numpy(recsys_candidates(
+                nc, cell.config.retrieval_dim))
+            b, c = steps.recsys_rank_batch(cell, mesh,
+                                           recsys_mesh_batch(sname), cand)
+            vals, idx = cell.fn(model, b, c)
+            rec.update(wire=copy.deepcopy(_wire_axes(mesh)),
+                       values=vals.cpu().numpy(), indices=idx.cpu().numpy(),
+                       cand_rows=int(c.shape[0]))
+        else:
+            b, _ = steps.recsys_rank_batch(cell, mesh,
+                                           recsys_mesh_batch(sname))
+            logits = cell.fn(model, b)
+            rec["wire"] = copy.deepcopy(_wire_axes(mesh))
+            set_activation_rules(None)
+            spec = cell.in_shardings[1]["dense"][:1]
+            rec["logits"] = gather_block(logits, spec, mesh).cpu().numpy()
+        out[sname] = rec
+    return out

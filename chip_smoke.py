@@ -254,7 +254,8 @@ Phases (any failure exits non-zero and prints no result):
    11d the ``single`` and ``multi`` dry-run records of the four cells
    (analytic: decisions, per-device bytes, roofline);
 12. the LM serving cells on a mesh of ranks (``launch/steps.py``'s LM
-   cells, ``models/transformer_mesh.py``): MiniCPM-2B at full width in
+   cells, ``models/transformer_mesh.py``): MiniCPM-2B at full width cut
+   to ``PHASE12_LAYERS`` (10) of its 40 layers, in
    bfloat16 (seed 0) on a ``(2, 2)`` ``("data", "model")`` mesh of four
    gloo ranks sharing the card (``run_ranks``, as phase 7). Each rank
    builds the model and cuts it with ``steps.shard_lm`` (every block
@@ -268,7 +269,7 @@ Phases (any failure exits non-zero and prints no result):
    card: each logits row's cosine similarity at least 0.999 (phase 6b's
    bfloat16 tolerance) and the greedy token equal wherever the one-rank
    top-2 margin exceeds twice the row's largest difference; ``mha``
-   launches 40 times a prefill on every rank and the other three
+   launches once a layer a prefill on every rank and the other three
    kernels not at all. Prints prefill ms, decode ms a step and tokens/s
    beside the one-rank run's and phase 6b's, and per rank the
    collectives' ms, payload and staged bytes by kind and peak device
@@ -281,7 +282,8 @@ Phases (any failure exits non-zero and prints no result):
    on a ``minibatch_lg`` batch sampled on the card from the scale-10
    proxy's forward ELL (1,024 seeds, fanouts (15, 10)), both in float64,
    and of SchNet, MACE and EquiformerV2 on ``molecule`` in float32, all
-   at full config, against the one-rank cell on the card from the same
+   at full width (PNA cut to 2 of its 4 layers and EquiformerV2 to 4 of
+   its 12, ``PHASE13_LAYERS``), against the one-rank cell on the card from the same
    seeded weights and batches: the loss and gradient norm of each step,
    every parameter and moment leaf (float64 at 1e-6, parameters within
    1e-6; float32 moments at 1e-3 of a leaf's largest, parameters within
@@ -299,7 +301,28 @@ Phases (any failure exits non-zero and prints no result):
    moves. Prints per cell the slowest rank's step or call ms beside the
    one-rank run's, the collectives' ms, payload and staged bytes by kind
    and axis, peak device memory and the real slab layout's edges beside
-   ``e_pad``.
+   ``e_pad``;
+14. LM training on a mesh of ranks (``launch/steps.py``'s LM train cell
+   on a ``Mesh``, ``models/transformer_mesh.py``'s ``loss_fn``):
+   MiniCPM-2B's ``train_4k`` at full width, cut to ``RESUME_LAYERS`` (2)
+   layers and ``TRAIN_BATCH`` (2 x 4,096), on the same ``(2, 2)`` mesh of
+   four gloo ranks sharing the card (one row a data rank, the sequence
+   over ``model``; the cell's ``minimal`` remat, ``n_micro`` 1). One
+   rank's ``launch/train.py::make_train_step`` on the card first: a cold
+   and two warm bfloat16 steps from seed 0, then a float32 step from seed
+   0 whose parameters and moments are written under ``build/`` as the
+   reference. Each rank then cuts the same seeded model with
+   ``steps.shard_lm``: a cold and two warm bfloat16 steps, then a float32
+   step (TF32 off) held block by block against the reference (the loss
+   and the gradient norm at rtol 1e-5, every moment leaf within 1e-4 of
+   its largest magnitude, the parameters within 1e-6 for 99.9% and within
+   0.1 lr but where the step's gradient is rounding-sized, there 2 lr:
+   ``PHASE14_TOL``). Every step's ``Wire`` records equal
+   ``collective_schedule(kind="train")``, ``mha`` launches 0 times and no
+   kernel counter moves. Prints the slowest rank's warm step beside one
+   rank's, per rank the collectives' calls, ms by kind, payload and
+   staged bytes by kind and axis, peak device memory and the check's
+   spreads.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -310,18 +333,21 @@ object with that op's launches and timings and a ``lanes`` object with
 the lane ops' timings and their library yardstick; ``flash_attention``
 carries a ``served`` object (phase 6b's launches, and ``mha`` at the
 served shape beside SDPA and its bound) and a ``mesh`` object (phase
-12's launches a prefill on each rank); ``binned_pull`` and
+12's launches a prefill on each rank, phase 14's in training: 0);
+``binned_pull`` and
 ``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), phase 8's
 ``phase 8:``, phase 9's ``phase 9:``, phase 10's ``phase 10:`` and
-phase 11's ``phase 11:``, phase 12's ``phase 12:`` and phase 13's
-``phase 13:`` JSON lines, the card's name
-and power limit, and as the last line
+phase 11's ``phase 11:``, phase 12's ``phase 12:``, phase 13's
+``phase 13:`` and phase 14's ``phase 14:`` JSON lines, each phase's
+seconds (``phase seconds:``), the card's name and power limit, and as
+the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -3617,6 +3643,9 @@ def phase_11(dev, launches_before) -> dict:
 
 PHASE12_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
 PHASE12_STEPS = 4  # decode steps against the 4 x 4,128 cache
+#: MiniCPM-2B's 40 layers cut to 10 at full width, so that the whole run
+#: stays inside its time limit with phase 14 (PERF.md names the cut)
+PHASE12_LAYERS = 10
 PHASE12_TIMEOUT_S = 600  # the rank group, or it fails
 #: mesh against one rank, bfloat16: phase 6b's tolerance for the kernel
 #: route against the scan route, a logits row's cosine similarity; greedy
@@ -3625,14 +3654,23 @@ PHASE12_TIMEOUT_S = 600  # the rank group, or it fails
 PHASE12_COS = LM_COS
 
 
+def phase12_spec():
+    """MiniCPM-2B with its full config cut to ``PHASE12_LAYERS``."""
+    from repro_torch.configs import base
+
+    spec = base.get(LM_ARCH)
+    cfg = dataclasses.replace(spec.full_config(), n_layers=PHASE12_LAYERS)
+    return dataclasses.replace(spec, full_config=lambda: cfg)
+
+
 def phase12_cells(mesh):
     """MiniCPM-2B's prefill and decode cells at the phase's cuts:
     ``prefill_32k`` 32 x 32,768 -> 4 x 4,096 and ``decode_32k``'s cache
-    128 x 32,768 -> 4 x 4,128 (``LM_PROMPTS``, ``LM_STEPS``' cache)."""
-    from repro_torch.configs import base
+    128 x 32,768 -> 4 x 4,128 (``LM_PROMPTS``, ``LM_STEPS``' cache), at
+    ``PHASE12_LAYERS`` layers."""
     from repro_torch.launch import steps
 
-    spec = base.get(LM_ARCH)
+    spec = phase12_spec()
     b, s = LM_PROMPTS
     shapes = {x.name: x for x in spec.shapes}
     pre = dataclasses.replace(shapes["prefill_32k"], dims=dict(
@@ -3779,7 +3817,7 @@ def phase_12(dev, one_rank_6b=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     fa = fa_mod.flash_attention
-    cfg = lm_config()
+    cfg = phase12_spec().full_config()
     b, s = LM_PROMPTS
     max_seq = s + LM_STEPS
     rng = np.random.default_rng(12)
@@ -3872,7 +3910,7 @@ def phase_12(dev, one_rank_6b=None) -> dict:
         r.pop("logits", None)
     out = {
         "arch": cfg.name, "mesh": list(PHASE12_MESH), "dtype": "bfloat16",
-        "prompts": [b, s], "max_seq": max_seq,
+        "n_layers": PHASE12_LAYERS, "prompts": [b, s], "max_seq": max_seq,
         "decode_steps": PHASE12_STEPS,
         "prefill_ms": prefill_ms,
         "prefill_cold_ms": max(r["prefill_cold_ms"] for r in reps),
@@ -3906,7 +3944,8 @@ def phase_12(dev, one_rank_6b=None) -> dict:
               f"{dw['ms']:.1f} ms, staged {dw['staged_bytes'] / 1e9:.3f} GB;"
               f" peak {r['peak_gb']:.3f} GB; cache block "
               f"{r['cache_block']}", flush=True)
-    print(f"phase 12: {cfg.name} on a {PHASE12_MESH} mesh of {RANKS} gloo "
+    print(f"phase 12: {cfg.name} ({cfg.n_layers} layers) on a "
+          f"{PHASE12_MESH} mesh of {RANKS} gloo "
           f"ranks: prefill [{b}, {s}] {prefill_ms:.1f} ms "
           f"({out['prefill_tokens_per_s']:.0f} tokens/s), decode "
           f"{step:.1f} ms a step ({out['decode_tokens_per_s']:.1f} "
@@ -3914,7 +3953,8 @@ def phase_12(dev, one_rank_6b=None) -> dict:
           f"{one['prefill_ms']:.1f} ms, decode "
           f"{one['decode_ms_per_step']:.1f} ms a step"
           + ("" if one_rank_6b is None else
-             f" (phase 6b: prefill {one_rank_6b['prefill_ms']:.1f} ms, "
+             f" (phase 6b, {lm_config().n_layers} layers: prefill "
+             f"{one_rank_6b['prefill_ms']:.1f} ms, "
              f"decode {one_rank_6b['decode_ms_per_step']:.1f} ms a step)")
           + f"; min cosine {min(x['min_cosine'] for x in rows):.6f}; "
           f"{torch.cuda.get_device_name(dev)}; {out['seconds']:.1f} s",
@@ -3936,6 +3976,10 @@ PHASE13_GNN = (("pna", "full_graph_sm", torch.float64),
                ("mace", "molecule", torch.float32),
                ("equiformer-v2", "molecule", torch.float32))
 PHASE13_SMOKE = False  # a CPU rehearsal builds the smoke configs
+#: layers of the full configs on the mesh and the one-rank reference:
+#: PNA's 4 and EquiformerV2's 12 cut, widths kept, so that the whole run
+#: stays inside its time limit with phase 14 (PERF.md names the cuts)
+PHASE13_LAYERS = {"pna": 2, "equiformer-v2": 4}
 PHASE13_DIMS: dict = {}  # a CPU rehearsal's smaller shapes, by shape name
 PHASE13_CALLS = {"serve_p99": 10, "serve_bulk": 1, "retrieval_cand": 3}
 PHASE13_CHECK_B = RECSYS_CHECK_TRAIN_B  # the float64 DCN-v2 step's batch
@@ -3947,6 +3991,24 @@ PHASE13_CAND_SEED = 13
 # at GNN_GRAD_TOL per leaf, each parameter leaf within 0.1 lr but for one
 # entry or 1% of them (a rounding-sized gradient's sign decides a first
 # AdamW step) and all of it within 2 lr a step
+
+
+@contextlib.contextmanager
+def phase13_depth():
+    """The registry's PNA and EquiformerV2 with ``PHASE13_LAYERS``
+    layers for a ``with`` block (``steps.gnn_cell`` reads the registry);
+    the full configs come back after it."""
+    from repro_torch.configs import base
+
+    saved = {a: base.get(a) for a in PHASE13_LAYERS}
+    for a, n in PHASE13_LAYERS.items():
+        cfg = dataclasses.replace(saved[a].full_config(), n_layers=n)
+        base.REGISTRY[a] = dataclasses.replace(
+            saved[a], full_config=lambda cfg=cfg: cfg)
+    try:
+        yield
+    finally:
+        base.REGISTRY.update(saved)
 
 
 def phase13_cell(mesh, arch: str, shape: str, dims=None):
@@ -4284,7 +4346,8 @@ def phase13_rank(rank: int, world: int, batches: dict, device: str) -> dict:
     mesh = make_mesh(PHASE13_MESH, ("data", "model"), dev)
     out = {"rank": rank, "coords": {a: mesh.coord(a)
                                     for a in mesh.axis_names}}
-    out["gnn"] = phase13_gnn_run(mesh, batches, dev)
+    with phase13_depth():
+        out["gnn"] = phase13_gnn_run(mesh, batches, dev)
     out["dcn"] = phase13_dcn_run(mesh, dev)
     out["launches"] = {k: f.launches for k, f in (
         ("binned_pull", bp_mod.fused_binned_pull),
@@ -4360,7 +4423,8 @@ def phase_13(dev, csr, launches_before) -> dict:
     held_gb = torch.cuda.memory_allocated(dev) / 1e9  # earlier phases'
     batches = phase13_gnn_batches(dev, csr)
     one_mesh = make_mesh((1, 1), ("data", "model"), dev)
-    one_gnn = phase13_gnn_run(one_mesh, batches, dev)
+    with phase13_depth():
+        one_gnn = phase13_gnn_run(one_mesh, batches, dev)
     one_dcn = phase13_dcn_run(one_mesh, dev)
     one_s = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -4517,12 +4581,330 @@ def phase_13(dev, csr, launches_before) -> dict:
     if bad:
         fail(f"phase 13: {bad[:10]}")
     out = {"mesh": list(PHASE13_MESH), "ranks": RANKS, "cells": cells,
+           "n_layers": PHASE13_LAYERS,
            "kernel_launches": launched, "held_before_gb": held_gb,
            "device": torch.cuda.get_device_name(dev),
            "one_rank_s": one_s, "ranks_s": ranks_s,
            "seconds": time.perf_counter() - t0}
     for case, c in cells.items():
         print(f"phase 13: {case}: " + json.dumps(c), flush=True)
+    return out
+
+
+# -- phase 14: LM training on a mesh of ranks ----------------------------------
+
+PHASE14_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
+PHASE14_TIMED = 2  # warm bfloat16 steps after a cold one
+PHASE14_TIMEOUT_S = 600  # the rank group, or it fails
+PHASE14_SEED = 14  # the batch's tokens
+#: the float32 check step, mesh against one rank's ``make_train_step``
+#: (TF32 off; the ranks' sums, cuBLAS's tiling of one row against two and
+#: the split log-sum-exp round in other orders): the loss and the
+#: gradient norm at rtol 1e-5, each moment leaf within 1e-4 of its
+#: largest magnitude, the parameters within ``TRAIN_PARAM_ABS`` for all
+#: but ``TRAIN_PARAM_LOOSE`` of them and within 0.1 lr, except where the
+#: step's gradient is rounding-sized (below 1e-6 of its leaf's largest:
+#: a first AdamW step moves by ``lr g / (|g| + 1e-8)``), there within
+#: 2 lr
+PHASE14_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "moment": 1e-4,
+               "rounding": 1e-6}
+PHASE14_REF = "phase14_ref"  # the one-rank state, under build/, removed
+
+
+def phase14_cell(mesh, dtype):
+    """``train_4k`` of MiniCPM-2B at full width cut to ``RESUME_LAYERS``
+    layers and ``TRAIN_BATCH`` (phases 8c and 8b's cuts), in ``dtype``."""
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+
+    spec = base.get(LM_ARCH)
+    cfg = dataclasses.replace(spec.full_config(), n_layers=RESUME_LAYERS,
+                              dtype=dtype)
+    spec = dataclasses.replace(spec, full_config=lambda: cfg)
+    b, s = TRAIN_BATCH
+    shape = next(x for x in spec.shapes if x.name == "train_4k")
+    shape = dataclasses.replace(shape, dims=dict(seq_len=s, global_batch=b))
+    return steps._lm_cell(spec, shape, mesh, False)
+
+
+def phase14_schedule(cell, mesh_shape: dict, specs: dict,
+                     shapes: dict) -> dict:
+    """``collective_schedule(kind="train")`` of one step of ``cell``,
+    by kind and group (``Wire.by_kind``'s form)."""
+    from repro_torch.models import transformer_mesh as tmesh
+    from repro_torch.nn.module import sharding_rules
+
+    cfg = cell.config
+    n_micro = cell.decisions["n_micro"]
+    rows = cell.dims["global_batch"] // mesh_shape["data"] // n_micro
+    sch = tmesh.collective_schedule(
+        cfg, "train", rows, cell.dims["seq_len"], mesh_shape,
+        sharding_rules(False, True), specs, shapes, n_micro=n_micro)
+    return tmesh.merge_records(sch["global"], *sch["layers"], sch["final"])
+
+
+def _phase14_model(cfg, dev):
+    """``cfg``'s model from seed 0 on ``dev`` (the same weights on every
+    rank and on one rank)."""
+    from repro_torch.models import transformer as tfm
+
+    return tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def phase14_rank(rank: int, world: int, batch: dict, ref_dir: str,
+                 device: str) -> dict:
+    """One of four gloo ranks sharing the card: the cell's model (seed 0,
+    as the one-rank run) cut by ``steps.shard_lm``; a cold and
+    ``PHASE14_TIMED`` warm bfloat16 steps on the global ``batch``, then
+    a float32 step from fresh weights held, block by block, against the
+    one-rank state under ``ref_dir``. Returns each step's ms, loss,
+    norm and collectives (equal to the schedule or not), peak memory,
+    kernel launches and the check's spreads."""
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.block_spmm import block_spmm as bs_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.module import block_of
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    counters = {"binned_pull": bp_mod.fused_binned_pull,
+                "msbfs_extend": mx_mod.msbfs_extend_blocks,
+                "block_spmm": bs_mod.block_spmm,
+                "flash_attention": fa_mod.flash_attention}
+    for f in counters.values():
+        f.launches = 0
+    attn.route_calls.update(dict.fromkeys(attn.route_calls, 0))
+    mesh = make_mesh(PHASE14_MESH, ("data", "model"), dev)
+    gbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    out = {"rank": rank, "coords": {a: mesh.coord(a)
+                                    for a in mesh.axis_names}, "runs": {}}
+
+    def run(dtype, n_steps):
+        cell = phase14_cell(mesh, dtype)
+        model = _phase14_model(cell.config, dev)
+        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        steps.shard_lm(cell, model, mesh)
+        model.requires_grad_(True)
+        opt = adamw_init(steps.params_dict(model), AdamWConfig(
+            moment_dtype=steps._moment_dtype(cell.config)))
+        want = phase14_schedule(cell, mesh.shape, model.shard_specs, shapes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = {"steps": []}
+        for _ in range(n_steps):
+            mesh.wire.reset()
+            (_, opt, loss, gnorm), ms = _timed(
+                lambda: cell.fn(model, opt, gbatch), dev)
+            w = _wire13(mesh)
+            w["by_kind"] = {k: {int(g): list(v) for g, v in d.items()}
+                            for k, d in mesh.wire.by_kind.items()}
+            rec["steps"].append({"ms": ms, "loss": float(loss),
+                                 "grad_norm": float(gnorm), "wire": w,
+                                 "schedule_equal": w["by_kind"] == want})
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rec["notes"] = cell.notes
+        rec["remat"] = cell.decisions["remat"]
+        return rec, model, opt
+
+    rec, model, opt = run(torch.bfloat16, 1 + PHASE14_TIMED)
+    out["runs"]["bfloat16"] = rec
+    del model, opt
+    rec, model, opt = run(torch.float32, 1)
+    out["runs"]["float32"] = rec
+    out["launches"] = {k: f.launches for k, f in counters.items()}
+    out["route_calls"] = dict(attn.route_calls)
+    # the check: each block against its slice of the one-rank state
+    with open(os.path.join(ref_dir, "max.json")) as f:
+        top = json.load(f)
+    lr, specs = 3e-4, model.shard_specs
+    mine = {"params": {k: p.detach() for k, p in model.named_parameters()},
+            "mu": opt.mu, "nu": opt.nu}
+    share = {"mu": 0.0, "nu": 0.0}
+    worst = {}
+    n = loose = over = tiny_n = 0
+    p_max = 0.0
+    for name, spec in specs.items():
+        ref = {part: torch.from_numpy(np.array(block_of(
+            np.load(os.path.join(ref_dir, f"{part}.{name}.npy"),
+                    mmap_mode="r"), spec, mesh))).to(dev)
+            for part in mine}
+        for part in ("mu", "nu"):
+            e = float((mine[part][name].float() - ref[part]).abs().max())
+            e /= max(top[part][name], 1e-30)
+            worst[f"{part} {name}"] = e
+            share[part] = max(share[part], e)
+        d = (mine["params"][name].float() - ref["params"]).abs()
+        tiny = ref["mu"].abs() <= PHASE14_TOL["rounding"] * top["mu"][name]
+        p_max = max(p_max, float(d.max()))
+        over += int(((d > 0.1 * lr) & ~tiny).sum()) + int((d > 2 * lr).sum())
+        tiny_n += int(tiny.sum())
+        n += d.numel()
+        loose += int((d > TRAIN_PARAM_ABS).sum())
+        del ref, d, tiny
+    out["check"] = {"moment_share": share, "param_max_abs": p_max,
+                    "param_over": over, "param_loose": loose,
+                    "param_n": n, "tiny_gradients": tiny_n,
+                    "worst_leaf": max(worst.items(), key=lambda kv: kv[1])}
+    return out
+
+
+def phase_14(dev, launches_before) -> dict:
+    """MiniCPM-2B's ``train_4k`` cell (``launch/steps.py``'s LM train step
+    on a ``Mesh``, ``models/transformer_mesh.py``'s ``loss_fn``) on a
+    ``(2, 2)`` mesh of four gloo ranks sharing the card, against one
+    rank's ``launch/train.py::make_train_step`` on the card from the
+    same seeded weights and batch (the steps in the module
+    docstring)."""
+    import shutil
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh, run_ranks
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = TRAIN_BATCH
+    one_mesh = make_mesh((1, 1), ("data", "model"), dev)
+    cfg16 = phase14_cell(one_mesh, torch.bfloat16).config
+    toks = np.random.default_rng(PHASE14_SEED).integers(
+        0, cfg16.vocab, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    dbatch = train.device_batch(batch, dev)
+    ocfg = AdamWConfig(lr=3e-4)
+    one = {}
+    ref_dir = ROOT / "build" / PHASE14_REF
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    ref_dir.mkdir(parents=True)
+    for dtype, n_steps in ((torch.bfloat16, 1 + PHASE14_TIMED),
+                           (torch.float32, 1)):
+        cfg = phase14_cell(one_mesh, dtype).config
+        step = train.make_train_step(cfg, ocfg)
+        model = _phase14_model(cfg, dev)
+        model.requires_grad_(True)
+        opt = adamw_init(dict(model.named_parameters()), ocfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = []
+        for _ in range(n_steps):
+            (_, opt, loss, gnorm), ms = _timed(
+                lambda: step(model, opt, dbatch, 1.0), dev)
+            runs.append({"ms": ms, "loss": float(loss),
+                         "grad_norm": float(gnorm)})
+        one[str(dtype).split(".")[-1]] = {
+            "steps": runs,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if dtype == torch.float32:  # the reference state, leaf by leaf
+            top = {"mu": {}, "nu": {}}
+            for part, tree in (("params", dict(model.named_parameters())),
+                               ("mu", opt.mu), ("nu", opt.nu)):
+                for name, t in tree.items():
+                    t = t.detach()
+                    if part != "params":
+                        top[part][name] = float(t.abs().max())
+                    np.save(ref_dir / f"{part}.{name}.npy", t.cpu().numpy())
+            (ref_dir / "max.json").write_text(json.dumps(top))
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del dbatch
+    one_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        reps = run_ranks(phase14_rank, RANKS,
+                         (batch, str(ref_dir), f"{DEVICE}:0"),
+                         backend="gloo", timeout_s=PHASE14_TIMEOUT_S)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    ranks_s = time.perf_counter() - t1
+    bad = []
+    o32 = one["float32"]["steps"][0]
+    for r in reps:
+        for dt, rec in r["runs"].items():
+            for i, st in enumerate(rec["steps"]):
+                if not st["schedule_equal"]:
+                    bad.append(f"rank {r['rank']} {dt} step {i}: Wire "
+                               f"{st['wire']['by_kind']} is not the "
+                               "schedule")
+                if not (np.isfinite(st["loss"]) and np.isfinite(
+                        st["grad_norm"])):
+                    bad.append(f"rank {r['rank']} {dt} step {i} not finite")
+        if any(r["launches"].values()):
+            bad.append(f"rank {r['rank']} launched {r['launches']}")
+        if r["route_calls"]["kernel"]:
+            bad.append(f"rank {r['rank']} route calls {r['route_calls']}")
+        m32 = r["runs"]["float32"]["steps"][0]
+        for key in ("loss", "grad_norm"):
+            if abs(m32[key] - o32[key]) > PHASE14_TOL[key] * abs(o32[key]):
+                bad.append(f"rank {r['rank']} float32 {key} {m32[key]} "
+                           f"against one rank's {o32[key]}")
+        c = r["check"]
+        if (max(c["moment_share"].values()) > PHASE14_TOL["moment"]
+                or c["param_over"]
+                or c["param_loose"] > TRAIN_PARAM_LOOSE * c["param_n"]):
+            bad.append(f"rank {r['rank']} float32 state against one rank: "
+                       f"{c}")
+    launched = launches_before()
+    if any(launched.values()):
+        bad.append(f"phase 14 launched a port kernel: {launched}")
+    if bad:
+        fail(f"phase 14: {bad[:10]}")
+    warm = [max(r["runs"]["bfloat16"]["steps"][i]["ms"] for r in reps)
+            for i in range(1, 1 + PHASE14_TIMED)]
+    o16 = one["bfloat16"]["steps"]
+    out = {
+        "arch": cfg16.name, "mesh": list(PHASE14_MESH), "ranks": RANKS,
+        "reduced": {"n_layers": RESUME_LAYERS, "global_batch": b,
+                    "seq_len": s, "why": "the published 40 layers and "
+                    "256 x 4,096 cut to phase 8c's 2 layers and phase "
+                    "8b's 2 x 4,096: four ranks share one card and "
+                    "every collective is staged through host memory"},
+        "remat": reps[0]["runs"]["bfloat16"]["remat"],
+        "warm_ms": float(np.median(warm)), "warm_ms_steps": warm,
+        "cold_ms": max(r["runs"]["bfloat16"]["steps"][0]["ms"]
+                       for r in reps),
+        "tokens_per_s": b * s / (float(np.median(warm)) / 1e3),
+        "one_rank": {"warm_ms": float(np.median([x["ms"] for x in o16[1:]])),
+                     "cold_ms": o16[0]["ms"],
+                     "peak_gb": one["bfloat16"]["peak_gb"],
+                     "float32_ms": o32["ms"],
+                     "float32_peak_gb": one["float32"]["peak_gb"]},
+        "check": {"tolerance": PHASE14_TOL, "one_rank": o32,
+                  "mesh": [{k: r["runs"]["float32"]["steps"][0][k]
+                            for k in ("loss", "grad_norm")} for r in reps],
+                  "ranks": [r["check"] for r in reps]},
+        "mha_launches": [r["launches"]["flash_attention"] for r in reps],
+        "kernel_launches": launched, "device": torch.cuda.get_device_name(
+            dev), "one_rank_s": one_s, "ranks_s": ranks_s,
+        "seconds": time.perf_counter() - t0,
+    }
+    for r in reps:
+        w = r["runs"]["bfloat16"]["steps"][-1]["wire"]
+        print(f"phase 14: rank {r['rank']} {r['coords']}: warm bf16 steps "
+              + ", ".join(f"{x['ms']:.1f}" for x in
+                          r["runs"]["bfloat16"]["steps"][1:])
+              + f" ms; a warm step's collectives {w['calls']} calls "
+              f"{w['ms']:.1f} ms by kind {w['ms_by_kind']}, payload "
+              f"{w['payload_bytes'] / 1e9:.4f} GB, staged "
+              f"{w['staged_bytes'] / 1e9:.4f} GB by kind "
+              f"{w['staged_by_kind']}, by axis {w['by_axis']}; peak "
+              f"{r['runs']['bfloat16']['peak_gb']:.3f} GB (float32 "
+              f"{r['runs']['float32']['peak_gb']:.3f} GB); the float32 "
+              f"check {r['check']}", flush=True)
+    print(f"phase 14: {cfg16.name} ({RESUME_LAYERS} layers) train_4k "
+          f"[{b}, {s}] on a {PHASE14_MESH} mesh of {RANKS} gloo ranks: "
+          f"warm step {out['warm_ms']:.1f} ms (slowest rank; cold "
+          f"{out['cold_ms']:.1f}), one rank {out['one_rank']['warm_ms']:.1f}"
+          f" ms; every rank's Wire equals the schedule, mha launches "
+          f"{out['mha_launches']}; {out['device']}; "
+          f"{out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4584,7 +4966,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
+    phase_s: dict = {}
+    current = [None, t_start]
 
+    def mark(phase):
+        """Close the running phase's clock and start ``phase``'s."""
+        now = time.perf_counter()
+        if current[0] is not None:
+            phase_s[current[0]] = now - current[1]
+        current[:] = [phase, now]
+
+    mark("1")
     # -- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
     secs = build.build_all()
@@ -4593,6 +4985,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(secs.items()))
           + ")", flush=True)
 
+    mark("2")
     # -- phase 2: kernels against their plain versions ----------------------
     t0 = time.perf_counter()
     csr = PAPER_DATASETS["ldbc"](SCALE)
@@ -4789,6 +5182,7 @@ def main() -> int:
           f"{cases['flash_attention']} flash_attention cases within "
           f"tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    mark("3")
     # -- phase 3: the main path ---------------------------------------------
     oracle = BFSOracle(csr)
     runs = {
@@ -4848,6 +5242,7 @@ def main() -> int:
         print(f"phase 3: {rname}: " + json.dumps(served[rname]), flush=True)
         torch.cuda.empty_cache()
 
+    mark("3b")
     # -- phase 3b: the open loop, with graph deltas mid-stream --------------
     open_runs = {
         "open dopt_fused x8": (["--backend", "dopt_fused",
@@ -4919,9 +5314,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    mark("3c")
     # -- phase 3c: the weighted relax and the non-reach query kinds ---------
     kinds = phase_3c(dev, csr, check, launches)
 
+    mark("4")
     # -- phase 4: timings at the main path's shapes --------------------------
     # binned_pull: the dense pull of one nTkS morsel of the first served
     # batch at BFS level 2, where the direction switch pulls
@@ -5108,6 +5505,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated",
           flush=True)
 
+    mark("5")
     # -- phase 5: the GNN and LM kernels' entry points at full width ------
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -5194,6 +5592,7 @@ def main() -> int:
           f"device memory {peak / 1e9:.3f} GB "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    mark("6")
     # -- phase 6: timings of the GNN and LM kernels --------------------------
     nnz = int(nz.nz_src.numel())
     # the work's bytes: each nonzero's source id and weight, the offsets,
@@ -5264,10 +5663,12 @@ def main() -> int:
     }
     del qkv, o
 
+    mark("6b")
     # -- phase 6b: the LM serving path at full width --------------------------
     lm = phase_6b(dev, check)
     fa["served"] = lm["served"]
 
+    mark("7")
     # -- phase 7: ranks sharing the card, then one NCCL rank -----------------
     ranks = phase_7(csr, BFSOracle(csr))
 
@@ -5283,9 +5684,11 @@ def main() -> int:
             for op in ranks["ranks"][0]["kernels"] if op.startswith(kname)
         }
 
+    mark("8")
     # -- phase 8: LM training at full width ----------------------------------
     training = phase_8(dev)
 
+    mark("9")
     # -- phase 9: GNN training ---------------------------------------------
     counters = {"binned_pull": bp_mod.fused_binned_pull,
                 "msbfs_extend": mx_mod.msbfs_extend_blocks,
@@ -5295,25 +5698,36 @@ def main() -> int:
     gnn = phase_9(dev, csr, lambda: {k: f.launches - before[k]
                                      for k, f in counters.items()})
 
+    mark("10")
     # -- phase 10: recsys, and the mesh substrate's compression and pipeline
     before = {k: f.launches for k, f in counters.items()}
     recsys = phase_10(dev, lambda: {k: f.launches - before[k]
                                     for k, f in counters.items()})
 
+    mark("11")
     # -- phase 11: the paper engine's Table 2 cells --------------------------
     before = {k: f.launches for k, f in counters.items()}
     paper = phase_11(dev, lambda: {k: f.launches - before[k]
                                    for k, f in counters.items()})
 
+    mark("12")
     # -- phase 12: the LM serving cells on a mesh of ranks --------------------
     mesh_lm = phase_12(dev, lm["serve"])
 
+    mark("13")
     # -- phase 13: the GNN and recsys cells on a mesh of ranks ---------------
     before = {k: f.launches for k, f in counters.items()}
     mesh_cells = phase_13(dev, csr, lambda: {k: f.launches - before[k]
                                              for k, f in counters.items()})
+
+    mark("14")
+    # -- phase 14: LM training on a mesh of ranks ----------------------------
+    before = {k: f.launches for k, f in counters.items()}
+    mesh_train = phase_14(dev, lambda: {k: f.launches - before[k]
+                                        for k, f in counters.items()})
     fa["mesh"] = {"mha_launches_per_prefill":
                   mesh_lm["mha_launches_per_prefill"],
+                  "mha_launches_in_training": mesh_train["mha_launches"],
                   "mesh": mesh_lm["mesh"]}
 
     bp["shard"] = shard_times("binned_pull")
@@ -5410,6 +5824,9 @@ def main() -> int:
     print("phase 12: " + json.dumps({k: v for k, v in mesh_lm.items()
                                      if k != "ranks"}))
     print("phase 13: " + json.dumps(mesh_cells))
+    print("phase 14: " + json.dumps(mesh_train))
+    mark(None)
+    print("phase seconds: " + json.dumps(phase_s))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -35,9 +35,10 @@ Axes are ``launch.mesh.Axes`` (names bound to their mesh); an empty tuple
 or axes of size 1 make every function the identity, which is the
 one-device path.
 
-Two carry a gradient (``torch.autograd.Function``s over ``Wire``, so a
+Three carry a gradient (``torch.autograd.Function``s over ``Wire``, so a
 backward's calls are recorded by kind and axis as a forward's are):
-``gather_rows_grad``, whose backward is a reduce-scatter of the sum, and
+``gather_rows_grad``, whose backward is a reduce-scatter of the sum,
+``psum_scatter_grad``, whose backward gathers the blocks, and
 ``psum_grad``, whose backward is a ``psum``. A rank then runs its share
 of an SPMD program whose losses add up over the ranks to the global
 one.
@@ -544,6 +545,21 @@ class _GatherRows(torch.autograd.Function):
         return psum_scatter(g.contiguous(), ctx.axes, ctx.dim), None, None
 
 
+class _PsumScatter(torch.autograd.Function):
+    """``psum_scatter`` whose backward is the transpose: every rank's
+    block of the gradient gathered along ``dim`` over ``axes``
+    (``gather_rows``, one ``all-gather`` an axis through ``Wire``)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return psum_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_rows(g.contiguous(), ctx.axes, ctx.dim), None, None
+
+
 class _Psum(torch.autograd.Function):
     """``psum`` whose backward is ``psum``: a rank's loss reads the sum
     on every rank, so each rank's gradient of it is a share whose sum
@@ -564,6 +580,13 @@ def gather_rows_grad(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     if _trivial(axes):
         return x
     return _GatherRows.apply(x, axes, dim)
+
+
+def psum_scatter_grad(x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+    """``psum_scatter`` under autograd (its backward all-gathers)."""
+    if _trivial(axes):
+        return x
+    return _PsumScatter.apply(x, axes, dim)
 
 
 def psum_grad(x: torch.Tensor, axes) -> torch.Tensor:

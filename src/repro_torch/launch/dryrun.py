@@ -27,10 +27,11 @@ LM cells: on ``single``/``multi`` the record is analytic as above:
 per-device argument and output bytes under the cell's specs
 (parameters, AdamW moments, caches, tokens), ``lm_cost`` and the port's
 collective schedule (``lm_collectives``: ``transformer_mesh.
-collective_schedule``, the calls ``Wire`` records on a real mesh). On
-``card`` a dense prefill or decode cell runs on a one-rank ``Mesh``
-(``LM_CARD_CUTS``, in ``reduced``): wall ms, tokens a second, peak
-memory, ``mha`` launches. ``--components`` (JAX's
+collective_schedule``, the calls ``Wire`` records on a real mesh; a
+train step's with its recompute, backward and gradient sums). On
+``card`` a dense cell runs on a one-rank ``Mesh`` (``LM_CARD_CUTS``, in
+``reduced``): wall ms, tokens a second, peak memory, ``mha``
+launches. ``--components`` (JAX's
 per-component LM roofline, ``run_components``) sums trips x terms of
 ``steps.lm_components``; each term is the port's analytic count
 (``component_terms``), as XLA's cost analysis has no counterpart here.
@@ -272,13 +273,16 @@ def _card_fields(arch, shape, device, overrides, cut, keep) -> dict:
 
 # ----------------------------------------------------------- LM cells ----
 
-#: ``--mesh card`` cuts of the LM cells, ``chip_smoke.py`` phase 6b's
-#: serving shapes: ``prefill_32k``'s 32 x 32,768 to 4 x 4,096, a decode
-#: cache to 4 x 4,128 (one card; the host wall a reps loop may take)
+#: ``--mesh card`` cuts of the LM cells, ``chip_smoke.py``'s one-card
+#: shapes: phase 6b's ``prefill_32k`` 32 x 32,768 to 4 x 4,096 and
+#: decode cache 4 x 4,128, phase 8b's ``train_4k`` 256 x 4,096 to 2 x
+#: 4,096 (one card; the host wall a reps loop may take)
 LM_CARD_CUTS = {"prefill": {"global_batch": 4, "seq_len": 4096},
-                "decode": {"global_batch": 4, "seq_len": 4128}}
+                "decode": {"global_batch": 4, "seq_len": 4128},
+                "train": {"global_batch": 2, "seq_len": 4096}}
 LM_CUT_WHY = ("one card: the published batch and length are cut to the "
-              "one-card serving shapes (prefill 4 x 4,096, decode 4 x 4,128)")
+              "one-card shapes (prefill 4 x 4,096, decode 4 x 4,128, "
+              "train 2 x 4,096)")
 #: analytic FLOPs a parameter of an AdamW update (moments, bias
 #: corrections, the update and the decay)
 ADAMW_FLOPS = 12
@@ -315,45 +319,22 @@ def _lm_rows(cell, mesh_shape) -> int:
     return b // data if b % data == 0 else b
 
 
-def _lm_schedule(cell, mesh_shape, kind=None) -> dict:
-    """``transformer_mesh.collective_schedule`` of a prefill or decode
-    cell (or of a train cell's forward, ``kind="prefill"``)."""
+def _lm_schedule(cell, mesh_shape) -> dict:
+    """``transformer_mesh.collective_schedule`` of an LM cell (a train
+    cell's rows a microbatch)."""
     from ..models import transformer_mesh as tmesh
     from ..nn.module import sharding_rules
 
     cfg = cell.config
     specs = cell.in_shardings[0]
     shapes = {n: tuple(t.shape) for n, t in cell.args[0].items()}
-    kind = kind or cell.kind
+    n_micro = cell.decisions.get("n_micro", 1)
     rules = sharding_rules(len(cell.decisions["batch_axes"]) > 1,
-                           kind == "prefill")
+                           cell.kind != "decode")
     return tmesh.collective_schedule(
-        cfg, kind, _lm_rows(cell, mesh_shape), cell.dims["seq_len"],
-        mesh_shape, rules, specs, shapes,
-        cell.decisions.get("seq_axes", ("model",)))
-
-
-def _mirror(recs: dict) -> dict:
-    """A backward's collectives: each all-gather's bytes as a
-    reduce-scatter of the same group and each reduce-scatter's as an
-    all-gather (the transposes); all-reduces stay."""
-    swap = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather"}
-    out: dict = {}
-    for kind, groups in recs.items():
-        for g, (c, b) in groups.items():
-            r = out.setdefault(swap.get(kind, kind), {}).setdefault(g, [0, 0])
-            r[0] += c
-            r[1] += b
-    return out
-
-
-def _train_layer(recs: dict) -> dict:
-    """A train step's collectives for one layer of the forward schedule:
-    the forward, its recompute under remat, and the mirrored backward
-    (the FSDP gathers become the gradients' reduce-scatters)."""
-    from ..models.transformer_mesh import merge_records
-
-    return merge_records(recs, recs, _mirror(recs))
+        cfg, cell.kind, _lm_rows(cell, mesh_shape) // n_micro,
+        cell.dims["seq_len"], mesh_shape, rules, specs, shapes,
+        cell.decisions.get("seq_axes", ("model",)), n_micro)
 
 
 def lm_cost(cell, mesh_shape) -> dict:
@@ -401,21 +382,13 @@ def lm_cost(cell, mesh_shape) -> dict:
 
 def lm_collectives(cell, mesh_shape):
     """The port's collectives in one step of an LM cell on one device:
-    the prefill or decode schedule (``transformer_mesh.
-    collective_schedule``); a train step's forward schedule per layer
-    through ``_train_layer``."""
+    the cell's schedule (``transformer_mesh.collective_schedule``)."""
     from ..models.transformer_mesh import merge_records
     from .hlo_analysis import collective_stats
 
-    if cell.kind == "train":
-        sch = _lm_schedule(cell, mesh_shape, "prefill")
-        recs = merge_records(_train_layer(sch["global"]),
-                             *[_train_layer(r) for r in sch["layers"]],
-                             _train_layer(sch["final"]))
-    else:
-        sch = _lm_schedule(cell, mesh_shape)
-        recs = merge_records(sch["global"], *sch["layers"], sch["final"])
-    return collective_stats(recs)
+    sch = _lm_schedule(cell, mesh_shape)
+    return collective_stats(merge_records(sch["global"], *sch["layers"],
+                                          sch["final"]))
 
 
 def _lm_placement(cell, mesh_shape) -> dict:
@@ -471,12 +444,12 @@ def _lm_layout_fields(arch, shape, mesh_tag) -> dict:
 
 
 def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
-    """A dense prefill or decode cell on a one-rank ``Mesh`` of the card,
-    at ``cut`` (default ``LM_CARD_CUTS``): seeded weights
-    (``transformer.init``, seed 0) and tokens, one cold call, then
-    ``REPS`` timed calls (a decode step at position ``seq_len - 32``
-    against empty caches: the same work as a full cache, every slot
-    scored)."""
+    """A dense cell on a one-rank ``Mesh`` of the card, at ``cut``
+    (default ``LM_CARD_CUTS``): seeded weights (``transformer.init``,
+    seed 0) and tokens, one cold call, then ``REPS`` timed calls (a
+    decode step at position ``seq_len - 32`` against empty caches: the
+    same work as a full cache, every slot scored; a train step on one
+    seeded batch, from fresh AdamW moments)."""
     import numpy as np
 
     from ..configs import base as cfgbase
@@ -484,6 +457,7 @@ def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
     from ..models import transformer as tfm
     from ..models import transformer_mesh as tmesh
     from ..nn import attention as attn
+    from ..optim.adamw import AdamWConfig, adamw_init
     from .hlo_analysis import HBM_BW, PEAK_FLOPS, collective_stats
     from .mesh import make_mesh
     from . import steps
@@ -495,8 +469,6 @@ def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
     dev = mesh.device
     cuda = dev.type == "cuda"
     cell = steps._lm_cell(spec, s, mesh, False)
-    if cell.kind == "train":
-        raise NotImplementedError(steps.TRAIN_ITEM)
     t0 = time.perf_counter()
     if cuda:
         torch.cuda.synchronize(dev)
@@ -508,10 +480,20 @@ def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
     b, seq = cell.dims["global_batch"], cell.dims["seq_len"]
     rng = np.random.default_rng(0)
     cfg = cell.config
-    if cell.kind == "prefill":
+    caches = None
+    if cell.kind == "train":
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, seq + 1))).to(
+            dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        model.requires_grad_(True)
+        opt = adamw_init(steps.params_dict(model), AdamWConfig(
+            moment_dtype=steps._moment_dtype(cfg)))
+
+        def call():
+            return cell.fn(model, opt, batch)[2:]
+    elif cell.kind == "prefill":
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, seq))).to(
             dev)
-        caches = None
 
         def call():
             return cell.fn(model, tokens)
@@ -545,7 +527,7 @@ def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
         else None
     p = _lm_placement(cell, mesh.shape)
     wall = statistics.median(walls)
-    tokens_run = b * seq if cell.kind == "prefill" else b
+    tokens_run = b if cell.kind == "decode" else b * seq
     if keep is not None:
         keep.update(cell=cell, model=model, result=res, caches=caches)
     cost = lm_cost(cell, mesh.shape)
@@ -919,7 +901,8 @@ def component_terms(c, mesh_shape) -> dict:
       group's weights as gathered, the activations read and written, the
       device's cache written or read;
     - ``layer_group_fwd_bwd``: the forward's schedule through
-      ``_train_layer``; FLOPs 4 x the forward's (forward, recompute,
+      ``transformer_mesh.train_layer`` (the forward, its recompute and
+      the transposes); FLOPs 4 x the forward's (forward, recompute,
       backward);
     - ``ce_chunk``: logits of one chunk forward and backward (6 x its
       tokens x vocab x d_model), the table read, the chunk's logits
@@ -978,7 +961,7 @@ def component_terms(c, mesh_shape) -> dict:
         nbytes = w_group + act + cache
         if key == "layer_group_fwd_bwd":
             flops *= 4.0
-            recs = _train_layer(recs)
+            recs = tmesh.train_layer(recs)
             nbytes = 3 * w_group + 4 * act
     elif key == "ce_chunk":
         C = min(cfg.ce_chunk, S)
@@ -991,7 +974,7 @@ def component_terms(c, mesh_shape) -> dict:
         tmesh._add(recs, "all-gather", mesh_shape.get(ba[-1], 1),
                    table * el)
         tmesh._add(recs, "all-reduce", m, rows * C * 4, calls=2)
-        recs = tmesh.merge_records(recs, _mirror(
+        recs = tmesh.merge_records(recs, tmesh.transpose(
             {k: v for k, v in recs.items() if k == "all-gather"}))
     elif key == "optimizer":
         n_p = sum(int(_prod(v)) for v in shapes.values())

@@ -39,10 +39,15 @@ cell under the logical-axis rules (``nn.module``): the remat choice and
 ``n_micro`` of a train cell, its moment type, every parameter's
 sanitized spec (``_sanitize``, on ``meta`` tensors), the batch, cache
 and optimizer specs, the decode cache's ``seq_axes``, FLOPs, notes and
-donation. On a ``Mesh`` a dense arch's prefill and decode cells run
-(``models.transformer_mesh``; ``shard_lm`` cuts the model); train cells
-and MoE archs there raise ``NotImplementedError`` naming their ROADMAP
-item.
+donation. On a ``Mesh`` a dense arch's prefill, decode and train cells
+run (``models.transformer_mesh``; ``shard_lm`` cuts the model and the
+moments). The train step is JAX's ``train_step``: the global batch in
+``n_micro`` contiguous blocks of rows, each block's rows over the data
+axes, a rank's loss share and backward a block (the gradients summed in
+float32 over the blocks and divided by ``n_micro`` when there are
+several), the mean loss, and AdamW over the rank's blocks
+(``_mesh_update``). MoE archs there raise ``NotImplementedError``
+naming their ROADMAP item.
 
 GNN and recsys cells on a mesh (``_gnn_cell``, ``_gnn_batch_specs``,
 ``_recsys_cell``): JAX's decisions for every cell (the config change,
@@ -588,8 +593,6 @@ _N_MICRO = {
     "olmoe-1b-7b": 4,
     "llama4-maverick-400b-a17b": 8,
 }
-TRAIN_ITEM = ("LM training on a mesh waits for its slice (ROADMAP section 1, "
-              "item 2: LM train on a mesh)")
 
 
 def _ns(*parts) -> tuple:
@@ -655,14 +658,16 @@ def _run_rules(rules: dict, B: int, mesh, ba) -> dict:
 
 def _lm_cell(spec, shape, mesh, multi_pod) -> Cell:
     """JAX's ``_lm_cell``, decision for decision. On a ``MeshLayout`` the
-    cell holds decisions only (``fn=None``). On a ``Mesh`` a ``prefill``
-    or ``decode`` cell of a dense arch runs the rank's part
-    (``models.transformer_mesh``): ``fn(params, tokens, max_seq=None,
-    route=None)`` and ``fn(params, caches, tokens, pos)`` take the
-    rank's parameter blocks (``shard_lm``), its cache blocks and the
-    global tokens (each rank takes its block), and return the rank's
-    blocks (``decisions["out_specs"]``). A train cell or an MoE arch on
-    a ``Mesh`` raises ``NotImplementedError``."""
+    cell holds decisions only (``fn=None``). On a ``Mesh`` a dense arch's
+    cell runs the rank's part (``models.transformer_mesh``):
+    ``fn(params, tokens, max_seq=None, route=None)``, ``fn(params,
+    caches, tokens, pos)`` and ``fn(params, opt, batch) -> (params, opt,
+    loss, grad_norm)`` take the rank's parameter and moment blocks
+    (``shard_lm``), its cache blocks and the global tokens or batch
+    (each rank takes its block), and return the rank's blocks
+    (``decisions["out_specs"]``; a train step updates the blocks in
+    place and returns JAX's global loss and norm). An MoE arch on a
+    ``Mesh`` raises ``NotImplementedError``."""
     cfg = spec.full_config()
     dims = shape.dims
     B, S = dims["global_batch"], dims["seq_len"]
@@ -680,9 +685,6 @@ def _lm_cell(spec, shape, mesh, multi_pod) -> Cell:
     runnable = isinstance(mesh, Mesh)
     if runnable and cfg.moe is not None:
         raise NotImplementedError(f"{spec.arch_id}: {MOE_ITEM}")
-    if runnable and shape.kind == "train":
-        raise NotImplementedError(f"{spec.arch_id} x {shape.name}: "
-                                  f"{TRAIN_ITEM}")
     # train/prefill: sequence-parallel residual stream; decode: TP
     rules = sharding_rules(multi_pod,
                            seq_parallel=shape.kind in ("train", "prefill"))
@@ -706,8 +708,10 @@ def _lm_cell(spec, shape, mesh, multi_pod) -> Cell:
         decisions.update(n_micro=n_micro, moment_dtype=str(
             ocfg.moment_dtype).split(".")[-1])
         flops = 6.0 * N * (B * S) + 3.0 * _lm_attn_flops(cfg, B, S)
+        fn = (_lm_mesh_step(cfg, mesh, rules, n_micro, ocfg) if runnable
+              else None)
         return Cell(
-            spec.arch_id, shape.name, "train", None,
+            spec.arch_id, shape.name, "train", fn,
             (params, opt, batch), (pshard, opt_shard, bshard), flops,
             notes=f"6ND={6.0 * N * B * S:.3e} n_micro={n_micro}",
             donate=(0, 1), config=cfg, dims=dict(dims),
@@ -771,15 +775,58 @@ def _rows(tokens: torch.Tensor, rules: dict, mesh) -> torch.Tensor:
     return block_of(tokens, logical_to_spec(("batch", None), rules), mesh)
 
 
-def shard_lm(cell: Cell, model, mesh):
+def _lm_mesh_step(cfg, mesh, rules: dict, n_micro: int, ocfg):
+    """JAX's ``train_step`` of ``_lm_cell`` as a rank's share: each of
+    the ``n_micro`` contiguous row blocks of the global batch, the
+    rank's rows of it (``_rows``), its loss share's backward; the
+    gradients of several blocks summed in float32 and divided by
+    ``n_micro``; the losses' global mean; AdamW on the blocks."""
+    every = mesh.axes(_live_axes(mesh, mesh.axis_names))
+    data = _axes_size(mesh, _live_axes(mesh, rules["batch"]))
+
+    def train_step(model, opt, batch):
+        B = batch["tokens"].shape[0]
+        if B % (n_micro * data):
+            raise ValueError(f"a global batch of {B} rows does not split "
+                             f"into n_micro={n_micro} microbatches over "
+                             f"the data axes' {data} ranks")
+        rows = B // n_micro
+        params = params_dict(model)
+        acc, shares = None, []
+        with using_rules(rules, mesh):
+            for i in range(n_micro):
+                share = tmesh.loss_fn(model, cfg, {
+                    k: _rows(v[i * rows:(i + 1) * rows], rules, mesh)
+                    for k, v in batch.items()})
+                share.backward()
+                shares.append(share.detach())
+                if n_micro > 1:
+                    g = _take_grads(params)
+                    acc = ({k: v.float() for k, v in g.items()} if acc is None
+                           else {k: acc[k].add_(v) for k, v in g.items()})
+            grads = (None if acc is None
+                     else {k: v / n_micro for k, v in acc.items()})
+            loss = psum(torch.stack(shares), every).mean()
+            opt, gnorm = _mesh_update(model, opt, ocfg, mesh, grads)
+        return model, opt, loss, gnorm
+
+    return train_step
+
+
+def shard_lm(cell: Cell, model, mesh, opt: Optional[AdamWState] = None):
     """Cut ``model`` (the cell's full config, whole) to this rank's
-    blocks under the cell's rules, in place; the specs must be the
+    blocks under the cell's rules, in place, and ``opt``'s moments
+    (whole, keyed like the parameters) alike; the specs must be the
     cell's."""
     rules = sharding_rules(len(cell.decisions["batch_axes"]) > 1,
                            cell.decisions["seq_parallel"])
     specs = shard_params(model, mesh, rules)
     if specs != cell.in_shardings[0]:
         raise ValueError("the model's specs are not the cell's")
+    if opt is not None:
+        for moments in (opt.mu, opt.nu):
+            for k, v in moments.items():
+                moments[k] = block_of(v, specs[k], mesh).clone()
     return model
 
 
@@ -973,39 +1020,44 @@ def _live_axes(mesh, names) -> tuple:
     return tuple(a for a in names if mesh.shape.get(a, 1) > 1)
 
 
-def _reduce_grads(params: dict, specs: dict, mesh) -> dict:
-    """Every parameter's gradient summed over the mesh axes its spec does
-    not shard (a replicated parameter over every axis; a ``model``-
-    sharded one's block is whole over ``model``, and an FSDP dim's
-    gather already reduce-scattered it over ``data``): one ``psum`` an
-    axis for each group of leaves that sums over the same axes, in one
-    flat buffer (the leaves' own ``.grad`` is dropped once copied in). A
-    leaf with no gradient sums zeros, as JAX's unused leaf's gradient
+def _take_grads(params: dict) -> dict:
+    """Each parameter's gradient, taken off it (``.grad`` set to None); a
+    parameter with none gives zeros, as JAX's unused leaf's gradient
     is zero."""
+    out = {}
+    for name, p in params.items():
+        out[name] = p.grad if p.grad is not None else torch.zeros_like(p)
+        p.grad = None
+    return out
+
+
+def _reduce_grads(grads: dict, specs: dict, mesh) -> dict:
+    """Every gradient (a rank's, by parameter name) summed over the mesh
+    axes its parameter's spec does not shard (a replicated parameter
+    over every axis; a ``model``-sharded one's block is whole over
+    ``model``, and an FSDP dim's gather already reduce-scattered it over
+    ``data``): one ``psum`` an axis for each group of leaves that sums
+    over the same axes, in one flat buffer. Consumes ``grads``: a
+    leaf is dropped from it once copied in."""
+    names = list(grads)
     groups: dict = {}
-    for name in params:
+    for name in names:
         have = {a for part in specs[name] for a in part_axes(part)}
         axes = tuple(a for a in _live_axes(mesh, mesh.axis_names)
                      if a not in have)
         groups.setdefault(axes, []).append(name)
-
-    def grad(name):
-        p = params[name]
-        return p.grad if p.grad is not None else torch.zeros_like(p)
-
     out = {}
-    for axes, names in groups.items():
+    for axes, group in groups.items():
         if not axes:
-            out.update((n, grad(n)) for n in names)
+            out.update((n, grads.pop(n)) for n in group)
             continue
-        flat = torch.cat([grad(n).reshape(-1) for n in names])
-        for n in names:
-            params[n].grad = None
+        shapes = [grads[n].shape for n in group]
+        flat = torch.cat([grads.pop(n).reshape(-1) for n in group])
         flat = psum(flat, mesh.axes(axes))
-        for n, part in zip(names, flat.split(
-                [params[n].numel() for n in names])):
-            out[n] = part.reshape(params[n].shape)
-    return {name: out[name] for name in params}
+        for n, shape, part in zip(group, shapes, flat.split(
+                [math.prod(x) for x in shapes])):
+            out[n] = part.reshape(shape)
+    return {name: out[name] for name in names}
 
 
 def _sharded_norm(grads: dict, specs: dict, mesh) -> torch.Tensor:
@@ -1029,16 +1081,17 @@ def _sharded_norm(grads: dict, specs: dict, mesh) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _mesh_update(model, opt, cfg_opt, mesh):
-    """Sum the rank's gradients (``_reduce_grads``), take the global norm
-    and run AdamW on the rank's blocks; the gradients are set to None."""
+def _mesh_update(model, opt, cfg_opt, mesh, grads: Optional[dict] = None):
+    """Sum the rank's gradients (``grads``, by default the parameters'
+    own, taken off them) over the axes their specs do not shard
+    (``_reduce_grads``), take the global norm and run AdamW on the
+    rank's blocks."""
     params = params_dict(model)
     specs = model.shard_specs
-    grads = _reduce_grads(params, specs, mesh)
+    grads = _reduce_grads(_take_grads(params) if grads is None else grads,
+                          specs, mesh)
     norm = _sharded_norm(grads, specs, mesh)
     _, opt, gnorm = adamw_update(grads, opt, params, cfg_opt, norm=norm)
-    for p in params.values():
-        p.grad = None
     return opt, gnorm
 
 

@@ -1,6 +1,6 @@
-"""The dense LM's serving path on a mesh of ranks: ``prefill`` and
-``decode`` of ``models.transformer`` over each rank's blocks of the
-parameters, under the logical-axis rules (``nn.module``).
+"""The dense LM on a mesh of ranks: ``prefill``, ``decode`` and the
+training loss (``loss_fn``) of ``models.transformer`` over each rank's
+blocks of the parameters, under the logical-axis rules (``nn.module``).
 
 JAX runs these as one GSPMD program; the port runs one process a rank
 with explicit collectives (``core.collectives``, through ``Wire``). A
@@ -36,6 +36,23 @@ its ``Mesh`` installed by ``nn.module.set_activation_rules``. With
   and the row-parallel outputs are reduce-scattered over the sequence
   on ``M`` (``core.collectives.psum_scatter``). JAX's GSPMD moves q to
   the sequence-sharded layout instead; the function is the same.
+- **Training (``loss_fn``, the SP layer of the prefill under autograd).**
+  Every collective of the forward carries a gradient
+  (``core.collectives``): an all-gather's backward reduce-scatters the
+  sum, a reduce-scatter's gathers the blocks, so a block's FSDP gradient
+  is reduce-scattered over ``D`` and the vocab-parallel embedding's
+  over ``M``. Attention takes the scan route by name. Each layer runs
+  under a per-layer non-reentrant checkpoint (``cfg.remat``), its FSDP
+  gather inside it, and the recompute runs to the layer's end, so it
+  sends the layer's forward collectives again, in the same order on
+  every rank. The cross-entropy streams over ``ce_chunk`` slices of
+  the final norm's output gathered over ``M``, each checkpointed: a
+  rank's vocab columns of the logits, the log-sum-exp from a max
+  all-reduced without a gradient and the exponentials' sums added over
+  ``M``, the label's logit taken from the rank that owns its column and
+  added over ``M``. A rank's loss is a share: its rows' negative
+  log-likelihood over the global token count and over the ``M`` ranks
+  that compute the same rows, so the shares add up to JAX's mean.
 - **Decode (tensor parallel).** The residual stream is replicated over
   ``M``. Each layer's cache is ``[B, W, KV, hd]``, the batch over ``D``
   (or replicated when the batch does not divide ``D``) and ``W`` over
@@ -47,10 +64,11 @@ its ``Mesh`` installed by ``nn.module.set_activation_rules``. With
   row-parallel ``wo``.
 
 Float sums across ranks fold in coordinate order, so a run gives the
-same bits under gloo and NCCL. MoE layers and training on a mesh are not
-here (ROADMAP section 1). ``collective_schedule`` is the analytic count
-of what these functions send, by kind: the dry-run's wire term, held
-against ``Wire``'s records in the tests.
+same bits under gloo and NCCL. MoE layers are not here (ROADMAP section
+1). ``collective_schedule`` is the analytic count of what these
+functions send, by kind (a train step's with ``launch.steps``' gradient
+sums): the dry-run's wire term, held against ``Wire``'s records in the
+tests.
 """
 from __future__ import annotations
 
@@ -60,8 +78,16 @@ import types
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
-from ..core.collectives import gather_rows, max_allreduce, psum, psum_scatter
+from ..core.collectives import (
+    gather_rows,
+    gather_rows_grad,
+    max_allreduce,
+    psum,
+    psum_grad,
+    psum_scatter_grad,
+)
 from ..nn.attention import (
     KVCache,
     _mask_logits,
@@ -80,11 +106,12 @@ from ..nn.module import (
     shard_activation,
 )
 from ..nn.rope import apply_rope
+from .transformer import REMAT_POLICIES, _remat as _layer_remat
 
 RES_SP = ("batch", "res_seq", None)  # the prefill's residual stream
 FULL_SEQ = ("batch", None, None)  # a norm's output, gathered
 MOE_ITEM = ("MoE layers on a mesh wait for their slice (ROADMAP section 1, "
-            "item 2: MoE on a mesh)")
+            "item 1: MoE on a mesh)")
 
 
 @dataclasses.dataclass
@@ -131,8 +158,8 @@ def _ctx(model, cfg) -> _Ctx:
 
 def _gather(ctx: _Ctx, names) -> dict:
     """The named blocks all-gathered over the data axes (FSDP) where
-    their spec shards a dim there, in one buffer; ``model`` sharding
-    stays."""
+    their spec shards a dim there, in one buffer (its gradient
+    reduce-scattered back); ``model`` sharding stays."""
     out, pending = {}, []
     for n in names:
         dims = [i for i, part in enumerate(ctx.specs[n])
@@ -148,7 +175,7 @@ def _gather(ctx: _Ctx, names) -> dict:
         pending.append((n, dim))
     if pending:
         flat = torch.cat([ctx.params[n].reshape(-1) for n, _ in pending])
-        g = gather_rows(flat[None], ctx.mesh.axes(ctx.data), 0)
+        g = gather_rows_grad(flat[None], ctx.mesh.axes(ctx.data), 0)
         off = 0
         for n, dim in pending:
             blk = ctx.params[n]
@@ -188,7 +215,7 @@ def _embed(ctx: _Ctx, g: dict, tokens, sp: bool):
         loc = tokens - ctx.mi * n
         ok = (loc >= 0) & (loc < n)
         x = table[loc.clamp(0, n - 1)] * ok[..., None].to(table.dtype)
-        x = (psum_scatter(x, ctx.model_axes(), dim=1) if sp
+        x = (psum_scatter_grad(x, ctx.model_axes(), dim=1) if sp
              else psum(x, ctx.model_axes()))
     else:
         x = table[tokens]
@@ -209,14 +236,14 @@ def _unembed(ctx: _Ctx, g: dict, x):
     if cfg.vocab_padded != cfg.vocab:  # only the columns this rank owns
         lo = ctx.mi * table.shape[0] if ctx.m_sharded(name, 0) else 0
         col = torch.arange(lo, lo + table.shape[0], device=logits.device)
-        logits[..., col >= cfg.vocab] = -1e30
+        logits = logits.masked_fill(col >= cfg.vocab, -1e30)
     return logits
 
 
 def _cols(ctx: _Ctx, y, name: str):
     """A column-parallel product gathered to all its columns."""
     if ctx.m_sharded(name, 1):
-        return gather_rows(y, ctx.model_axes(), y.dim() - 1)
+        return gather_rows_grad(y, ctx.model_axes(), y.dim() - 1)
     return y
 
 
@@ -273,7 +300,7 @@ def _row_parallel(ctx: _Ctx, y, name: str, sp: bool):
     if ctx.m == 1:
         return out
     if sp:
-        return psum_scatter(out, ctx.model_axes(), dim=1)
+        return psum_scatter_grad(out, ctx.model_axes(), dim=1)
     return psum(out, ctx.model_axes())
 
 
@@ -288,10 +315,10 @@ def _ffn(ctx: _Ctx, pre: str, x, sp: bool):
         f, n = cfg.d_ff, cfg.d_ff // ctx.m
         lo = ctx.mi * n
         if x.numel() // x.shape[-1] < cfg.d_model:  # pair the products
-            gu = gather_rows(x @ wi, ctx.model_axes(), x.dim() - 1)
+            gu = gather_rows_grad(x @ wi, ctx.model_axes(), x.dim() - 1)
             g, u = gu[..., lo:lo + n], gu[..., f + lo:f + lo + n]
         else:  # pair the weight's columns
-            full = gather_rows(wi, ctx.model_axes(), 1)
+            full = gather_rows_grad(wi, ctx.model_axes(), 1)
             gu = x @ torch.cat([full[:, lo:lo + n],
                                 full[:, f + lo:f + lo + n]], dim=1)
             g, u = torch.chunk(gu, 2, dim=-1)
@@ -317,8 +344,11 @@ def _seq_block(ctx: _Ctx, cache: KVCache, seq_axes) -> KVCache:
                    slot_pos=cache.slot_pos[sl].contiguous())
 
 
-def _layer_prefill(ctx: _Ctx, i: int, x, positions, route, max_seq,
-                   seq_axes):
+def _layer_sp(ctx: _Ctx, i: int, x, positions, route, max_seq=None,
+              seq_axes=None):
+    """One sequence-parallel layer on ``x`` [b, S/M, d] -> (x, this
+    rank's block of the layer's cache, or None without ``max_seq``: the
+    training forward)."""
     cfg = ctx.cfg
     s = cfg.attn_settings(cfg.layer_kind(i % cfg.group_size))
     pre = _layer_weights(ctx, i)
@@ -326,8 +356,8 @@ def _layer_prefill(ctx: _Ctx, i: int, x, positions, route, max_seq,
     h_in = shard_activation(_norm(cfg, w[pre + "ln_attn.scale"], x),
                             FULL_SEQ, have=RES_SP)
     q, k, v = _project(ctx, s, w, pre + "attn.", h_in, positions, False)
-    cache = _seq_block(ctx, cache_from_kv(s, k, v, positions, max_seq),
-                       seq_axes)
+    cache = None if max_seq is None else _seq_block(
+        ctx, cache_from_kv(s, k, v, positions, max_seq), seq_axes)
     s_loc, k, v = _rank_kv(ctx, s, k, v)
     out = attend_heads(s_loc, q, k, v, positions, route)
     del q, k, v
@@ -372,8 +402,7 @@ def prefill(model, cfg, tokens, max_seq=None, route=None,
     x = _embed(ctx, g, tokens, sp=True)
     caches = []
     for i in range(len(model.blocks)):
-        x, c = _layer_prefill(ctx, i, x, positions, route, max_seq,
-                              seq_axes)
+        x, c = _layer_sp(ctx, i, x, positions, route, max_seq, seq_axes)
         caches.append(c)
     # position S-1 is on the last model coordinate (the norm runs over
     # the rank's block, as transformer.prefill's over the whole)
@@ -381,6 +410,76 @@ def prefill(model, cfg, tokens, max_seq=None, route=None,
     if ctx.m > 1:
         last = gather_rows(last, ctx.model_axes(), 0)[-b:]
     return _unembed(ctx, g, last)[:, 0], caches
+
+
+def _remat(fn, *args):
+    """``transformer._remat`` with the recompute run to the function's
+    end: PyTorch otherwise stops it at the last saved tensor, before a
+    layer's closing reduce-scatter, so the ranks' calls would depend on
+    what each op saves."""
+    with set_checkpoint_early_stop(False):
+        return _layer_remat(fn, *args)
+
+
+def _chunk_ll(ctx: _Ctx, g: dict, x, labels):
+    """The log-likelihood sum of one cross-entropy chunk (``x`` [b, c,
+    d], the whole sequence's slice; ``labels`` [b, c]) over this rank's
+    vocab columns, as ``jax.nn.log_softmax`` takes it: the logits
+    shifted by their max (all-reduced over ``model``, no gradient),
+    the shifted label logit (from the rank that owns its column) less
+    the log of the shifted exponentials' sum, both sums over
+    ``model``."""
+    logits = _unembed(ctx, g, x)
+    n = logits.shape[-1]
+    sharded = ctx.m_sharded(_table_name(ctx.cfg), 0)
+    axes = ctx.model_axes() if sharded else ()
+    shifted = logits - max_allreduce(
+        logits.detach().amax(dim=-1, keepdim=True), axes)
+    loc = labels - (ctx.mi * n if sharded else 0)
+    own = (loc >= 0) & (loc < n)
+    lab = shifted.gather(-1, loc.clamp(0, n - 1)[..., None])[..., 0]
+    sums = psum_grad(torch.stack([shifted.exp().sum(dim=-1),
+                                  torch.where(own, lab, 0.0)]), axes)
+    return (sums[1] - torch.log(sums[0])).sum()
+
+
+def loss_fn(model, cfg, batch):
+    """This rank's share of ``transformer.loss_fn``: ``batch``
+    {"tokens", "labels"} holds the rank's rows [b, S] (the batch over
+    the rules' ``batch`` axes, or whole where those are empty) -> a
+    scalar whose sum over the ranks is the global loss (the rank's
+    negative log-likelihood over the global token count and over the
+    ranks that compute the same rows). Backward through it leaves each
+    parameter block the rank's share of its gradient, summed over the
+    axes its spec shards (``launch.steps._mesh_update`` sums the
+    rest)."""
+    ctx = _ctx(model, cfg)
+    tokens, labels = batch["tokens"], batch["labels"].long()
+    b, seq = tokens.shape
+    if seq % ctx.m:
+        raise ValueError(f"S={seq} does not split over the model axis")
+    c = min(cfg.ce_chunk, seq)
+    if seq % c:
+        raise ValueError(f"S={seq} is not a multiple of ce_chunk {c}")
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device=tokens.device).expand(b, seq)
+    g = _globals(ctx)
+    x = _embed(ctx, g, tokens, sp=True)
+    for i in range(len(model.blocks)):
+        def layer(x, i=i):
+            return _layer_sp(ctx, i, x, positions, "scan")[0]
+
+        x = layer(x) if cfg.remat == "none" else _remat(layer, x)
+    x = shard_activation(_norm(cfg, g["ln_final.scale"], x), FULL_SEQ,
+                         have=RES_SP)
+    total = torch.zeros((), device=x.device)
+    for start in range(0, seq, c):
+        total = total + _remat(_chunk_ll, ctx, g, x[:, start:start + c],
+                               labels[:, start:start + c])
+    rows = math.prod(ctx.mesh.shape.get(a, 1) for a in ctx.rules["batch"])
+    return -total / (b * rows * seq) / (ctx.mesh.size // rows)
 
 
 def init_cache(cfg, batch: int, max_seq: int, mesh, seq_axes,
@@ -499,20 +598,59 @@ def merge_records(*parts) -> dict:
     return out
 
 
+def transpose(recs: dict) -> dict:
+    """The backward's calls of forward ``recs`` of all-gathers and
+    reduce-scatters that carry a gradient: each all-gather's transpose
+    is a reduce-scatter whose result is the gather's input (its bytes
+    over the group), each reduce-scatter's an all-gather of its result
+    times the group."""
+    swap = {"all-gather": ("reduce-scatter", lambda b, k: b // k),
+            "reduce-scatter": ("all-gather", lambda b, k: b * k)}
+    out: dict = {}
+    for kind, groups in recs.items():
+        to, size = swap[kind]
+        for g, (c, b) in groups.items():
+            out.setdefault(to, {})[g] = [c, size(b, g)]
+    return out
+
+
+def train_layer(recs: dict, remat: bool = True) -> dict:
+    """A train step's calls of one layer whose forward sends ``recs``:
+    the forward, again in its recompute (``remat``), and the
+    transposes."""
+    return merge_records(recs, recs if remat else {}, transpose(recs))
+
+
+def _times(recs: dict, n: int) -> dict:
+    return merge_records(*[recs] * n) if n > 1 else recs
+
+
 def collective_schedule(cfg, kind: str, rows: int, seq: int,
                         mesh_shape: dict, rules: dict, specs: dict,
-                        shapes: dict, seq_axes=("model",)) -> dict:
+                        shapes: dict, seq_axes=("model",),
+                        n_micro: int = 1) -> dict:
     """What ``prefill`` (``kind="prefill"``: ``rows`` x ``seq`` tokens
-    on a rank) or one ``decode`` step (``rows`` tokens) sends on one
-    rank, as ``Wire`` records it: ``{"global": recs, "layers": [recs a
-    layer], "final": recs}``, each ``{kind: {group: [calls, result
-    bytes]}}``. ``specs``/``shapes``: every parameter's sanitized spec
-    and global shape. An MoE layer (no mesh path yet) counts its FSDP
-    gathers and attention only, not its experts' exchange."""
+    on a rank), one ``decode`` step (``rows`` tokens) or one train step
+    (``kind="train"``: ``n_micro`` microbatches of ``rows`` x ``seq``
+    tokens a rank, ``launch.steps``' cell) sends on one rank, as
+    ``Wire`` records it: ``{"global": recs, "layers": [recs a layer],
+    "final": recs}``, each ``{kind: {group: [calls, result bytes]}}``.
+    ``specs``/``shapes``: every parameter's sanitized spec and global
+    shape. A train step counts, a microbatch, ``loss_fn``'s forward,
+    each layer's again in its recompute (unless ``cfg.remat`` is
+    ``none``), every gather's and reduce-scatter's transpose, and each
+    cross-entropy chunk's max all-reduce and sums' ``psum`` (again in
+    its recompute, the ``psum`` once more in the backward); then, once
+    a step, the losses' ``psum`` and ``_mesh_update``'s gradient and
+    norm ``psum``s (the gradients float32 when ``n_micro`` > 1). An MoE
+    layer (no mesh path yet) counts its FSDP gathers and attention only,
+    not its experts' exchange."""
     el = torch.tensor([], dtype=cfg.dtype).element_size()
     m = mesh_shape.get("model", 1)
     data = [a for a in rules["embed"] if mesh_shape.get(a, 1) > 1]
     d, hd = cfg.d_model, cfg.d_head
+    train = kind == "train"
+    sp = kind != "decode"
 
     def m_sharded(name, dim):
         return m > 1 and "model" in part_axes(specs[name][dim])
@@ -529,10 +667,9 @@ def collective_schedule(cfg, kind: str, rows: int, seq: int,
     glob: dict = {}
     fsdp(glob, [k for k in ("embed.table", "ln_final.scale", "unembed.table")
                 if k in specs])
-    prefill = kind == "prefill"
-    tokens = rows * (seq if prefill else 1)
+    tokens = rows * (seq if sp else 1)
     if m_sharded("embed.table", 0):
-        if prefill:
+        if sp:
             _add(glob, "reduce-scatter", m, tokens // m * d * el)
         else:
             _add(glob, "all-gather", m, m * tokens * d * el)
@@ -542,7 +679,7 @@ def collective_schedule(cfg, kind: str, rows: int, seq: int,
         pre = f"blocks.{i}."
         recs: dict = {}
         fsdp(recs, [k for k in specs if k.startswith(pre)])
-        if prefill:
+        if sp:
             _add(recs, "all-gather", m, tokens * d * el, calls=2)  # norms
             for w in ("wk", "wv"):
                 if m_sharded(pre + f"attn.{w}.kernel", 1):
@@ -567,6 +704,38 @@ def collective_schedule(cfg, kind: str, rows: int, seq: int,
                  (tokens if tokens < d else d) * 2 * cfg.d_ff * el)
         layers.append(recs)
     final: dict = {}
-    if prefill:
+    if kind == "prefill":
         _add(final, "all-gather", m, m * rows * d * el)
+    if not train:
+        return {"global": glob, "layers": layers, "final": final}
+    _add(final, "all-gather", m, tokens * d * el)  # the final norm's
+    glob = merge_records(glob, transpose(glob))
+    layers = [_times(train_layer(r, cfg.remat != "none"), n_micro)
+              for r in layers]
+    final = merge_records(final, transpose(final))
+    table = "embed.table" if cfg.tie_embeddings else "unembed.table"
+    if m_sharded(table, 0):  # a chunk, its recompute, its backward
+        c = min(cfg.ce_chunk, seq)
+        _add(final, "all-reduce", m, rows * c * 4, calls=2 * (seq // c))
+        _add(final, "all-gather", m, m * 2 * rows * c * 4,
+             calls=3 * (seq // c))
+    glob, final = _times(glob, n_micro), _times(final, n_micro)
+    live = [a for a in mesh_shape if mesh_shape[a] > 1]
+    for a in live:  # the losses
+        _add(final, "all-gather", mesh_shape[a], mesh_shape[a] * n_micro * 4)
+    g_el = 4 if n_micro > 1 else el
+    groups: dict = {}
+    norms: set = set()
+    for name, spec in specs.items():
+        have = {a for p in spec for a in part_axes(p)}
+        key = tuple(a for a in live if a not in have)
+        groups[key] = groups.get(key, 0) + block_numel(
+            shapes[name], spec, mesh_shape)
+        norms.add(tuple(a for a in live if a in have))
+    for key, n in groups.items():  # steps._reduce_grads
+        for a in key:
+            _add(final, "all-gather", mesh_shape[a], mesh_shape[a] * n * g_el)
+    for key in norms - {()}:  # steps._sharded_norm
+        for a in key:
+            _add(final, "all-gather", mesh_shape[a], mesh_shape[a] * 4)
     return {"global": glob, "layers": layers, "final": final}

@@ -194,13 +194,14 @@ def test_layout_records_are_analytic(mesh, tmp_path):
 
 
 def test_unported_cells_record_errors_and_components_raise(tmp_path):
-    rc = dryrun.main(["--arch", "minicpm-2b", "--shape", "train_4k",
+    rc = dryrun.main(["--arch", "olmoe-1b-7b", "--shape", "train_4k",
                       "--mesh", "card", "--device", "cpu", "--out",
                       str(tmp_path)])
     assert rc == 1
-    rec = _load(tmp_path / "minicpm-2b__train_4k__card.json")
+    rec = _load(tmp_path / "olmoe-1b-7b__train_4k__card.json")
     assert rec["status"] == "error"
     assert rec["error"].startswith("NotImplementedError")
+    assert rec["reduced"]["global_batch"] == 2  # LM_CARD_CUTS["train"]
     # --components counts JAX's layouts: refused on the card, and for a
     # family without components
     with pytest.raises(SystemExit):

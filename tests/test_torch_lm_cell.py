@@ -192,12 +192,17 @@ def test_lm_cell_decisions():
 
 
 def test_mesh_cells_raise_for_train_and_moe():
+    """Train cells of the dense archs run on a ``Mesh``; every MoE
+    cell there, train included, still raises."""
     mesh = make_mesh((1, 1), ("data", "model"), "cpu")
-    with pytest.raises(NotImplementedError, match="LM train on a mesh"):
-        steps.build_cell("minicpm-2b", "train_4k", mesh, False)
+    assert not hasattr(steps, "TRAIN_ITEM")
+    for arch in ("minicpm-2b", "gemma2-2b", "deepseek-coder-33b"):
+        cell = steps.build_cell(arch, "train_4k", mesh, False)
+        assert callable(cell.fn) and cell.decisions["fn"] is None
     for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b"):
-        with pytest.raises(NotImplementedError, match="MoE on a mesh"):
-            steps.build_cell(arch, "decode_32k", mesh, False)
+        for shape in ("decode_32k", "train_4k"):
+            with pytest.raises(NotImplementedError, match="MoE on a mesh"):
+                steps.build_cell(arch, shape, mesh, False)
     cell = steps.build_cell("minicpm-2b", "prefill_32k", mesh, False)
     assert callable(cell.fn) and cell.decisions["fn"] is None
     assert cell.args[0]["embed.table"].device == torch.device("meta")

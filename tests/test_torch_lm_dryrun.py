@@ -9,10 +9,11 @@
   (``test_torch_lm_mesh.py``).
 - ``--components``: every LM cell on both layouts, one component a
   ``steps.lm_components`` entry, trips x terms summed.
-- ``card``: a prefill and a decode cell of the smoke config on a
-  one-rank CPU mesh (a cut shape, recorded in ``reduced``), measured;
-  the same cells with no device argument raise without CUDA, and a
-  train cell records its ``NotImplementedError``.
+- ``card``: a prefill, a decode and a train cell of the smoke config on
+  a one-rank CPU mesh (a cut shape, recorded in ``reduced``), measured;
+  the same cells with no device argument raise without CUDA (a train
+  cell's record carries ``LM_CARD_CUTS["train"]``), and an MoE cell
+  records its ``NotImplementedError``.
 """
 import dataclasses
 import json
@@ -109,7 +110,7 @@ def _smoke(monkeypatch, arch):
         spec, full_config=spec.smoke_config))
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
 def test_lm_card_record_on_the_cpu(monkeypatch, tmp_path, shape):
     _smoke(monkeypatch, "gemma2-2b")
     cut = {"global_batch": 2, "seq_len": 128}
@@ -121,10 +122,17 @@ def test_lm_card_record_on_the_cpu(monkeypatch, tmp_path, shape):
     assert rec["collective_counts"] == {}  # one rank sends nothing
     assert len(rec["wall_ms_runs"]) == dryrun.REPS and rec["wall_ms"] > 0
     assert rec["mha_launches"] == 0  # a CPU tensor takes the scan route
-    n = 4 if shape == "prefill_32k" else 0  # four layers, attention scans
+    # four layers' attention scans; a train step's again in the recompute
+    n = {"prefill_32k": 4, "decode_32k": 0, "train_4k": 8}[shape]
     assert rec["route_calls"] == {"kernel": 0, "scan": n}
-    logits = keep["result"][0]
-    assert logits.shape[0] == 2 and torch.isfinite(logits[..., :512]).all()
+    if shape == "train_4k":
+        loss, gnorm = keep["result"]
+        assert torch.isfinite(loss) and float(gnorm) > 0
+        assert rec["decisions"]["remat"] == "minimal"
+    else:
+        logits = keep["result"][0]
+        assert logits.shape[0] == 2 and torch.isfinite(
+            logits[..., :512]).all()
     assert rec["tokens_per_s"] > 0 and rec["bound_ms"] > 0
 
 
@@ -136,8 +144,13 @@ def test_lm_card_needs_cuda_and_train_cells_record_errors(monkeypatch,
     assert rec["status"] == "error"
     assert "CUDA is not available" in rec["error"]
     assert rec["reduced"]["global_batch"] == 4  # the one-card cut, recorded
-    rec = dryrun.run_cell("minicpm-2b", "train_4k", "card", str(tmp_path),
+    rec = dryrun.run_cell("minicpm-2b", "train_4k", "card", str(tmp_path))
+    assert rec["status"] == "error"
+    assert "CUDA is not available" in rec["error"]
+    assert rec["reduced"] == dict(dryrun.LM_CARD_CUTS["train"],
+                                  why=dryrun.LM_CUT_WHY)
+    rec = dryrun.run_cell("olmoe-1b-7b", "train_4k", "card", str(tmp_path),
                           device="cpu")
     assert rec["status"] == "error"
     assert rec["error"].startswith("NotImplementedError")
-    assert "LM train on a mesh" in rec["error"]
+    assert "MoE on a mesh" in rec["error"]

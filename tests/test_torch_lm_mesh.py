@@ -16,9 +16,9 @@ collectives, by kind and group, equal ``collective_schedule``'s count:
 FSDP all-gathers on ``data``, all-gathers and reduce-scatters on
 ``model``. A GQA variant whose kv projection (one head of 6) does not
 divide the model axis keeps ``wk``/``wv`` replicated and equals the
-unsharded model on ``(1, 4)``. MoE archs and train cells on a ``Mesh``
-raise (also in
-``test_torch_lm_cell.py``). Tolerance: 1e-5 relative plus 1e-5 of the
+unsharded model on ``(1, 4)``. MoE archs on a ``Mesh`` raise, train
+cells included (also in ``test_torch_lm_cell.py``; dense training on a
+mesh: ``test_torch_lm_mesh_train.py``). Tolerance: 1e-5 relative plus 1e-5 of the
 tensor's largest magnitude (``test_torch_lm.py``'s).
 """
 from concurrent.futures import ThreadPoolExecutor
@@ -204,10 +204,14 @@ def test_moe_and_train_on_a_mesh_raise():
         shape = next(s for s in spec.shapes if s.name == "prefill_32k")
         with pytest.raises(NotImplementedError, match="MoE on a mesh"):
             steps._lm_cell(spec, shape, mesh, False)
-    spec = TR.lm_smoke_spec(base, "minicpm-2b")
-    shape = next(s for s in spec.shapes if s.name == "train_4k")
-    with pytest.raises(NotImplementedError, match="LM train on a mesh"):
-        steps._lm_cell(spec, shape, mesh, False)
+    for arch in ("olmoe-1b-7b", "minicpm-2b"):  # train: MoE raises
+        spec = TR.lm_smoke_spec(base, arch)
+        shape = next(s for s in spec.shapes if s.name == "train_4k")
+        if arch == "minicpm-2b":
+            assert callable(steps._lm_cell(spec, shape, mesh, False).fn)
+            continue
+        with pytest.raises(NotImplementedError, match="MoE on a mesh"):
+            steps._lm_cell(spec, shape, mesh, False)
     # the mesh path itself refuses an MoE model and a model not cut
     cfg = base.get("olmoe-1b-7b").smoke_config()
     model = ttfm.init(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -1234,3 +1234,106 @@ def recsys_mesh_rank(rank: int, world: int, shape: tuple, tree: dict,
             rec["logits"] = gather_block(logits, spec, mesh).cpu().numpy()
         out[sname] = rec
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM training on a mesh (launch/steps.py's _lm_cell train step on a Mesh).
+# ---------------------------------------------------------------------------
+
+#: (arch, dtype, global batch, length) a mesh trains: deepseek-coder's
+#: n_micro of 4 at batch 8, so each microbatch's two rows split over data
+LM_TRAIN_CASES = {
+    (2, 2): (("minicpm-2b", "float32", 4, 16),
+             ("gemma2-2b", "float32", 4, 16),
+             ("deepseek-coder-33b", "float32", 8, 16),
+             ("minicpm-2b", "bfloat16", 4, 16)),
+    (1, 4): (("minicpm-2b", "float32", 4, 16),
+             ("gemma2-2b", "float32", 4, 16),
+             ("deepseek-coder-33b", "float32", 8, 16)),
+}
+LM_TRAIN_STEPS = 2
+LM_TRAIN_CE = 8  # two cross-entropy chunks of the 16-token sequence
+
+
+def lm_train_cell(mesh, arch: str, b: int, seq: int, dtype: str):
+    """The smoke config's ``train_4k`` cell at ``b`` x ``seq``,
+    ``ce_chunk`` ``LM_TRAIN_CE``, in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+
+    spec = base.get(arch)
+    cfg = dataclasses.replace(spec.smoke_config(), ce_chunk=LM_TRAIN_CE,
+                              dtype=getattr(torch, dtype))
+    spec = dataclasses.replace(spec, full_config=lambda: cfg)
+    shape = base.ShapeSpec("train_4k", "train",
+                           dict(seq_len=seq, global_batch=b))
+    return steps._lm_cell(spec, shape, mesh, False)
+
+
+def lm_train_batch(vocab: int, b: int, seq: int) -> dict:
+    toks = lm_tokens(vocab, b, seq + 1, seed=2)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def lm_train_run(cell, mesh, tree: dict, device: str = "cpu") -> dict:
+    """``LM_TRAIN_STEPS`` steps of a train ``cell`` on this rank of
+    ``mesh`` from JAX's train state ``tree`` (numpy, blocks stacked by
+    group), the model and the moments cut by ``steps.shard_lm``, on the
+    seeded global batch: each step's loss and norm and the global state
+    after it (``{"params", "mu", "nu"}``, by the port's parameter
+    names), and the collectives of the steps by kind and by axis beside
+    ``collective_schedule``'s count."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import transformer_mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.nn.module import gather_block, sharding_rules
+
+    cfg = cell.config
+    model, opt = tfm.state_from_jax(cfg, tree, device)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    steps.shard_lm(cell, model, mesh, opt)
+    specs = model.shard_specs
+    b, seq = cell.dims["global_batch"], cell.dims["seq_len"]
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in lm_train_batch(cfg.vocab, b, seq).items()}
+    mesh.wire.reset()
+    res, blocks = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        _, opt, loss, gnorm = cell.fn(model, opt, batch)
+        res.append((float(loss), float(gnorm)))
+        blocks.append({"params": {k: p.detach().clone() for k, p in
+                                  model.named_parameters()},
+                       "mu": {k: v.clone() for k, v in opt.mu.items()},
+                       "nu": {k: v.clone() for k, v in opt.nu.items()}})
+    wire = {"by_kind": {k: {int(g): list(v) for g, v in d.items()}
+                        for k, d in mesh.wire.by_kind.items()},
+            "by_axis": _wire_axes(mesh), "staged": mesh.wire.staged_bytes}
+    n_micro = cell.decisions["n_micro"]
+    rows = b // mesh.shape.get("data", 1) // n_micro
+    sch = tmesh.collective_schedule(
+        cfg, "train", rows, seq, mesh.shape, sharding_rules(False, True),
+        specs, shapes, n_micro=n_micro)
+    sch = tmesh.merge_records(sch["global"], *sch["layers"], sch["final"])
+    states = [{part: {k: gather_block(v, specs[k], mesh).float().cpu()
+                      .numpy() for k, v in st[part].items()}
+               for part in st} for st in blocks]  # after the wire's read
+    return {"steps": res, "states": states, "wire": wire,
+            "schedule": tmesh.merge_records(*[sch] * LM_TRAIN_STEPS),
+            "n_micro": n_micro}
+
+
+def lm_train_rank(rank: int, world: int, shape: tuple, trees: dict) -> dict:
+    """Each case of ``LM_TRAIN_CASES[shape]`` on this rank
+    (``lm_train_run``), from ``trees[(arch, dtype)]``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn.module import set_activation_rules
+
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    out = {}
+    for arch, dtype, b, seq in LM_TRAIN_CASES[shape]:
+        cell = lm_train_cell(mesh, arch, b, seq, dtype)
+        out[arch, dtype] = lm_train_run(cell, mesh, trees[arch, dtype])
+        set_activation_rules(None)
+    return out

@@ -255,7 +255,7 @@ Phases (any failure exits non-zero and prints no result):
    (analytic: decisions, per-device bytes, roofline);
 12. the LM serving cells on a mesh of ranks (``launch/steps.py``'s LM
    cells, ``models/transformer_mesh.py``): MiniCPM-2B at full width cut
-   to ``PHASE12_LAYERS`` (10) of its 40 layers, in
+   to ``PHASE12_LAYERS`` (4) of its 40 layers, in
    bfloat16 (seed 0) on a ``(2, 2)`` ``("data", "model")`` mesh of four
    gloo ranks sharing the card (``run_ranks``, as phase 7). Each rank
    builds the model and cuts it with ``steps.shard_lm`` (every block
@@ -282,7 +282,7 @@ Phases (any failure exits non-zero and prints no result):
    on a ``minibatch_lg`` batch sampled on the card from the scale-10
    proxy's forward ELL (1,024 seeds, fanouts (15, 10)), both in float64,
    and of SchNet, MACE and EquiformerV2 on ``molecule`` in float32, all
-   at full width (PNA cut to 2 of its 4 layers and EquiformerV2 to 4 of
+   at full width (PNA cut to 1 of its 4 layers and EquiformerV2 to 2 of
    its 12, ``PHASE13_LAYERS``), against the one-rank cell on the card from the same
    seeded weights and batches: the loss and gradient norm of each step,
    every parameter and moment leaf (float64 at 1e-6, parameters within
@@ -304,7 +304,7 @@ Phases (any failure exits non-zero and prints no result):
    ``e_pad``;
 14. LM training on a mesh of ranks (``launch/steps.py``'s LM train cell
    on a ``Mesh``, ``models/transformer_mesh.py``'s ``loss_fn``):
-   MiniCPM-2B's ``train_4k`` at full width, cut to ``RESUME_LAYERS`` (2)
+   MiniCPM-2B's ``train_4k`` at full width, cut to ``PHASE14_LAYERS`` (1)
    layers and ``TRAIN_BATCH`` (2 x 4,096), on the same ``(2, 2)`` mesh of
    four gloo ranks sharing the card (one row a data rank, the sequence
    over ``model``; the cell's ``minimal`` remat, ``n_micro`` 1). One
@@ -322,7 +322,37 @@ Phases (any failure exits non-zero and prints no result):
    kernel counter moves. Prints the slowest rank's warm step beside one
    rank's, per rank the collectives' calls, ms by kind, payload and
    staged bytes by kind and axis, peak device memory and the check's
-   spreads.
+   spreads;
+15. MoE layers on a mesh of ranks (``models/transformer_mesh.py``'s
+   expert-parallel ``_moe``: each ``model`` rank runs its 32 of the 64
+   experts over the tokens it holds, with JAX's global capacity, slot
+   order and aux loss): olmoe-1b-7b at full width (d 2,048, 16 heads of
+   128, 64 experts top-8 of width 1,024, vocab 50,304) in bfloat16 from
+   seed 0, on the same ``(2, 2)`` mesh. One rank on the card first:
+   ``transformer.prefill``/``decode`` (``nn/moe.py``) at 2 of 16 layers,
+   ``prefill_32k`` cut to 4 x 4,096 (T 16,384, capacity 2,560 an expert)
+   and 4 greedy decode steps against 4 x 4,128 slots, the one-rank cell
+   beside it (its kept slots a layer), the same in float32 (TF32 off:
+   the prefill and a decode step; where 1.25 drops nothing, a prefill at
+   capacity factor 0.5), then the one-rank train cell at 1
+   layer on ``train_4k`` cut to 8 x 1,024 (``n_micro`` 4): two bfloat16
+   steps and a float32 step whose state is written under ``build/`` as
+   the reference (every leaf, and of each expert tensor the first 4
+   experts of each model rank's block). Each rank then cuts the same
+   models: a cold and a warm prefill (``mha`` once a layer, at (2, 8,
+   4,096, 128); rank 0's first call against the plain version) and the
+   decode steps fed the one-rank greedy tokens in bfloat16, the float32
+   calls, two bfloat16 train steps and the float32 step checked block by
+   block at ``PHASE15_TOL``. The float32 logits must lie within 1e-4 of
+   one rank's largest (phase 6b's float32 tolerance); bfloat16 logits are
+   compared for the record only (a router's top-8 of 64 flips at near
+   ties under rounding in another order); every call's and step's
+   ``Wire`` equal to ``collective_schedule``.
+   Prints prefill ms, decode ms a step, train step ms and tokens/s beside
+   one rank's, the kept slots a layer, per rank the collectives' calls,
+   ms, payload and staged bytes by kind and axis and peak memory, and
+   ``mha`` at the ranks' shape beside its plain version, SDPA and its
+   bound.
 
 Prints the build times, each serve run's warm p50/p99, one ``{"kernels":
 [...]}`` JSON line (``route`` is the language, ``cuda``; ``design`` names
@@ -333,13 +363,16 @@ object with that op's launches and timings and a ``lanes`` object with
 the lane ops' timings and their library yardstick; ``flash_attention``
 carries a ``served`` object (phase 6b's launches, and ``mha`` at the
 served shape beside SDPA and its bound) and a ``mesh`` object (phase
-12's launches a prefill on each rank, phase 14's in training: 0);
+12's launches a prefill on each rank, phase 14's in training: 0, and
+phase 15's ``olmoe``: launches a prefill on each rank and ``mha`` at
+their shape beside SDPA and its bound);
 ``binned_pull`` and
 ``msbfs_extend`` carry a
 ``shard`` object with each rank's times at its shard shape), phase 8's
 ``phase 8:``, phase 9's ``phase 9:``, phase 10's ``phase 10:`` and
 phase 11's ``phase 11:``, phase 12's ``phase 12:``, phase 13's
-``phase 13:`` and phase 14's ``phase 14:`` JSON lines, each phase's
+``phase 13:``, phase 14's ``phase 14:`` and phase 15's ``phase 15:``
+JSON lines, each phase's
 seconds (``phase seconds:``), the card's name and power limit, and as
 the last line
 ``{"ok": true, "device": {...}}``.
@@ -957,6 +990,9 @@ def tile_swap_graph(csr_from_edges, GraphDelta, erdos_renyi):
 # -- phase 7: ranks --------------------------------------------------------
 
 RANKS = 4  # processes sharing the card over gloo
+#: a rank's intra-op threads: its share of the cores this process may use
+#: (the ranks are alone on the machine)
+RANK_THREADS = max(1, len(os.sched_getaffinity(0)) // RANKS)
 RANKS_TIMEOUT_S = 600  # the whole rank group, or it fails
 TILE = 128  # block_mxu tile size
 
@@ -1450,7 +1486,8 @@ def phase_7(csr, oracle) -> dict:
     deltas, graphs = phase7_deltas(csr, GraphDelta, apply_delta_csr,
                                    padded_n(csr.n_nodes, RANKS, TILE))
     reports = run_ranks(phase7_rank, RANKS, (SCALE, src8, src64, deltas),
-                        backend="gloo", timeout_s=RANKS_TIMEOUT_S)
+                        backend="gloo", timeout_s=RANKS_TIMEOUT_S,
+                        threads=RANK_THREADS)
     n = csr.n_nodes
     refs = {"": (oracle.levels(src8), oracle.levels(src64))}
     for step, g in enumerate(graphs, 1):
@@ -1527,7 +1564,7 @@ def phase_7(csr, oracle) -> dict:
         fail(f"phase 7 serve runs launched no kernel: {kernel_launch}")
     t1 = time.perf_counter()
     (nccl,) = run_ranks(phase7_nccl, 1, (SCALE,), backend="nccl",
-                        timeout_s=RANKS_TIMEOUT_S)
+                        timeout_s=RANKS_TIMEOUT_S, threads=RANK_THREADS)
     if nccl["rc"] != 0 or nccl["backend"] != "nccl":
         fail(f"phase 7 NCCL run: {nccl['rc']}, {nccl['backend']}")
     for srcs, lv in nccl["batches"]:
@@ -3455,7 +3492,8 @@ def phase_10d() -> dict:
     torch.cuda.empty_cache()
     layer = minicpm_layer_shapes()
     reps = run_ranks(phase10_rank, RANKS, (layer, f"{DEVICE}:0"),
-                     backend="gloo", timeout_s=PHASE10_TIMEOUT_S)
+                     backend="gloo", timeout_s=PHASE10_TIMEOUT_S,
+                     threads=RANK_THREADS)
     for key in ("pipeline", "compressed_psum"):
         digests = {r[key]["digest"] for r in reps}
         if len(digests) != 1:
@@ -3643,9 +3681,10 @@ def phase_11(dev, launches_before) -> dict:
 
 PHASE12_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
 PHASE12_STEPS = 4  # decode steps against the 4 x 4,128 cache
-#: MiniCPM-2B's 40 layers cut to 10 at full width, so that the whole run
-#: stays inside its time limit with phase 14 (PERF.md names the cut)
-PHASE12_LAYERS = 10
+#: MiniCPM-2B's 40 layers cut to 4 at full width, so that the whole run
+#: stays inside its time limit with phases 14 and 15 (PERF.md names the
+#: cut)
+PHASE12_LAYERS = 4
 PHASE12_TIMEOUT_S = 600  # the rank group, or it fails
 #: mesh against one rank, bfloat16: phase 6b's tolerance for the kernel
 #: route against the scan route, a logits row's cosine similarity; greedy
@@ -3856,7 +3895,8 @@ def phase_12(dev, one_rank_6b=None) -> dict:
     # the mesh
     t1 = time.perf_counter()
     reps = run_ranks(phase12_rank, RANKS, (prompts, forced, f"{DEVICE}:0"),
-                     backend="gloo", timeout_s=PHASE12_TIMEOUT_S)
+                     backend="gloo", timeout_s=PHASE12_TIMEOUT_S,
+                     threads=RANK_THREADS)
     ranks_s = time.perf_counter() - t1
     if len({r["digest"] for r in reps}) != 1:
         fail("phase 12: the ranks' gathered logits differ")
@@ -3978,8 +4018,9 @@ PHASE13_GNN = (("pna", "full_graph_sm", torch.float64),
 PHASE13_SMOKE = False  # a CPU rehearsal builds the smoke configs
 #: layers of the full configs on the mesh and the one-rank reference:
 #: PNA's 4 and EquiformerV2's 12 cut, widths kept, so that the whole run
-#: stays inside its time limit with phase 14 (PERF.md names the cuts)
-PHASE13_LAYERS = {"pna": 2, "equiformer-v2": 4}
+#: stays inside its time limit with phases 14 and 15 (PERF.md names the
+#: cuts)
+PHASE13_LAYERS = {"pna": 1, "equiformer-v2": 2}
 PHASE13_DIMS: dict = {}  # a CPU rehearsal's smaller shapes, by shape name
 PHASE13_CALLS = {"serve_p99": 10, "serve_bulk": 1, "retrieval_cand": 3}
 PHASE13_CHECK_B = RECSYS_CHECK_TRAIN_B  # the float64 DCN-v2 step's batch
@@ -4431,7 +4472,8 @@ def phase_13(dev, csr, launches_before) -> dict:
     # the ranks' caching allocators grow in place (four share the card)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     reps = run_ranks(phase13_rank, RANKS, (batches, f"{DEVICE}:0"),
-                     backend="gloo", timeout_s=PHASE13_TIMEOUT_S)
+                     backend="gloo", timeout_s=PHASE13_TIMEOUT_S,
+                     threads=RANK_THREADS)
     reps = [_tree_map(r, np.ndarray, torch.from_numpy) for r in reps]
     ranks_s = time.perf_counter() - t1
     lr = steps.GNN_ADAMW.lr
@@ -4594,6 +4636,9 @@ def phase_13(dev, csr, launches_before) -> dict:
 # -- phase 14: LM training on a mesh of ranks ----------------------------------
 
 PHASE14_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
+#: MiniCPM-2B's 40 layers cut to 1 at full width, so that the whole run
+#: stays inside its time limit with phase 15 (PERF.md names the cut)
+PHASE14_LAYERS = 1
 PHASE14_TIMED = 2  # warm bfloat16 steps after a cold one
 PHASE14_TIMEOUT_S = 600  # the rank group, or it fails
 PHASE14_SEED = 14  # the batch's tokens
@@ -4612,13 +4657,13 @@ PHASE14_REF = "phase14_ref"  # the one-rank state, under build/, removed
 
 
 def phase14_cell(mesh, dtype):
-    """``train_4k`` of MiniCPM-2B at full width cut to ``RESUME_LAYERS``
+    """``train_4k`` of MiniCPM-2B at full width cut to ``PHASE14_LAYERS``
     layers and ``TRAIN_BATCH`` (phases 8c and 8b's cuts), in ``dtype``."""
     from repro_torch.configs import base
     from repro_torch.launch import steps
 
     spec = base.get(LM_ARCH)
-    cfg = dataclasses.replace(spec.full_config(), n_layers=RESUME_LAYERS,
+    cfg = dataclasses.replace(spec.full_config(), n_layers=PHASE14_LAYERS,
                               dtype=dtype)
     spec = dataclasses.replace(spec, full_config=lambda: cfg)
     b, s = TRAIN_BATCH
@@ -4820,7 +4865,8 @@ def phase_14(dev, launches_before) -> dict:
     try:
         reps = run_ranks(phase14_rank, RANKS,
                          (batch, str(ref_dir), f"{DEVICE}:0"),
-                         backend="gloo", timeout_s=PHASE14_TIMEOUT_S)
+                         backend="gloo", timeout_s=PHASE14_TIMEOUT_S,
+                         threads=RANK_THREADS)
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
     ranks_s = time.perf_counter() - t1
@@ -4861,10 +4907,10 @@ def phase_14(dev, launches_before) -> dict:
     o16 = one["bfloat16"]["steps"]
     out = {
         "arch": cfg16.name, "mesh": list(PHASE14_MESH), "ranks": RANKS,
-        "reduced": {"n_layers": RESUME_LAYERS, "global_batch": b,
+        "reduced": {"n_layers": PHASE14_LAYERS, "global_batch": b,
                     "seq_len": s, "why": "the published 40 layers and "
-                    "256 x 4,096 cut to phase 8c's 2 layers and phase "
-                    "8b's 2 x 4,096: four ranks share one card and "
+                    "256 x 4,096 cut to 1 layer and phase 8b's 2 x "
+                    "4,096: four ranks share one card and "
                     "every collective is staged through host memory"},
         "remat": reps[0]["runs"]["bfloat16"]["remat"],
         "warm_ms": float(np.median(warm)), "warm_ms_steps": warm,
@@ -4898,13 +4944,816 @@ def phase_14(dev, launches_before) -> dict:
               f"{r['runs']['bfloat16']['peak_gb']:.3f} GB (float32 "
               f"{r['runs']['float32']['peak_gb']:.3f} GB); the float32 "
               f"check {r['check']}", flush=True)
-    print(f"phase 14: {cfg16.name} ({RESUME_LAYERS} layers) train_4k "
+    print(f"phase 14: {cfg16.name} ({PHASE14_LAYERS} layers) train_4k "
           f"[{b}, {s}] on a {PHASE14_MESH} mesh of {RANKS} gloo ranks: "
           f"warm step {out['warm_ms']:.1f} ms (slowest rank; cold "
           f"{out['cold_ms']:.1f}), one rank {out['one_rank']['warm_ms']:.1f}"
           f" ms; every rank's Wire equals the schedule, mha launches "
           f"{out['mha_launches']}; {out['device']}; "
           f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 15: MoE layers on a mesh of ranks ---------------------------------
+
+PHASE15_ARCH = "olmoe-1b-7b"  # 64 experts, top-8, every layer MoE
+PHASE15_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
+#: olmoe's 16 layers cut to 2 to serve and to 1 to train, at full width,
+#: so that the phase stays inside the run's time limit (PERF.md names
+#: the cuts: at 4 and 2 layers the phase took 214 s, 160 s of it in the
+#: ranks' host-staged collectives)
+PHASE15_LAYERS = 2
+PHASE15_TRAIN_LAYERS = 1
+PHASE15_PROMPTS = (4, 4096)  # prefill_32k's 32 x 32,768, cut as phase 12's
+PHASE15_STEPS = 4  # decode steps against 4 x 4,128 slots (dropless)
+#: train_4k's 256 x 4,096 cut to 8 x 1,024: olmoe's n_micro 4 x data 2,
+#: one row a rank a microbatch
+PHASE15_TRAIN = (8, 1024)
+PHASE15_TIMED = 2  # bfloat16 steps on the mesh (the first one cold)
+#: a prefill at this capacity factor runs the global-order drop path
+#: where the published 1.25 drops nothing on the seeded weights
+PHASE15_CAPACITY = 0.5
+#: the float32 check holds every leaf but the experts' whole, and of
+#: each expert tensor the first experts of each model rank's block
+PHASE15_EXPERTS_CHECKED = 4
+PHASE15_TIMEOUT_S = 600  # the rank group, or it fails
+PHASE15_SEED = 15  # the prompts and the batch's tokens
+PHASE15_REF = "phase15_ref"  # the one-rank float32 state, under build/
+#: mesh against one rank, float32 (TF32 off): phase 6b's tolerance for
+#: float32 logits, relative to the largest magnitude. bfloat16 logits are
+#: compared for the record only (cosine, greedy tokens): a router's top-8
+#: of 64 flips at a near tie under bfloat16 rounding in another order,
+#: which swaps an expert for that token
+PHASE15_F32_TOL = LM_F32_TOL
+PHASE15_F32_STEPS = 1  # float32 decode steps after the float32 prefill
+#: the float32 step against one rank: phase 14's, but a gradient counts
+#: as rounding-sized (its step may then differ by up to 2 lr) below the
+#: moments' own tolerance of the leaf's largest, not 1e-6 of it: its sign
+#: is not determined at the precision the moments are held to (olmoe's
+#: attention gradients differ between the ranks' sums and one rank's by
+#: about 1e-5 of their largest, MiniCPM's by less than 1e-6)
+PHASE15_TOL = dict(PHASE14_TOL, rounding=PHASE14_TOL["moment"])
+#: mha at the ranks' shape, (B 2, H 8, S 4,096, D 128): 2 rows a data
+#: rank, 8 of olmoe's 16 heads a model rank
+PHASE15_MHA = (2, 8, 4096, 128)
+
+
+def phase15_spec(n_layers: int, dtype=None, capacity=None):
+    """olmoe-1b-7b with its full config cut to ``n_layers``, in
+    ``dtype`` if given, at ``capacity`` (a capacity factor) if given."""
+    from repro_torch.configs import base
+
+    spec = base.get(PHASE15_ARCH)
+    cfg = dataclasses.replace(spec.full_config(), n_layers=n_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity))
+    return dataclasses.replace(spec, full_config=lambda: cfg)
+
+
+def phase15_cells(mesh, capacity=None, dtype=None):
+    """The prefill (``PHASE15_PROMPTS``) and decode (their cache and
+    ``PHASE15_STEPS``) cells at ``PHASE15_LAYERS``."""
+    from repro_torch.launch import steps
+
+    spec = phase15_spec(PHASE15_LAYERS, dtype, capacity)
+    b, s = PHASE15_PROMPTS
+    shapes = {x.name: x for x in spec.shapes}
+    pre = dataclasses.replace(shapes["prefill_32k"], dims=dict(
+        seq_len=s, global_batch=b))
+    dec = dataclasses.replace(shapes["decode_32k"], dims=dict(
+        seq_len=s + PHASE15_STEPS, global_batch=b))
+    return (steps._lm_cell(spec, pre, mesh, False),
+            steps._lm_cell(spec, dec, mesh, False))
+
+
+def phase15_train_cell(mesh, dtype):
+    """``train_4k`` at ``PHASE15_TRAIN`` and ``PHASE15_TRAIN_LAYERS``."""
+    from repro_torch.launch import steps
+
+    spec = phase15_spec(PHASE15_TRAIN_LAYERS, dtype)
+    b, s = PHASE15_TRAIN
+    shape = next(x for x in spec.shapes if x.name == "train_4k")
+    shape = dataclasses.replace(shape, dims=dict(seq_len=s, global_batch=b))
+    return steps._lm_cell(spec, shape, mesh, False)
+
+
+def phase15_schedule(cell, mesh_shape: dict, specs: dict, shapes: dict,
+                     calls: int = 1) -> dict:
+    """``collective_schedule`` of ``calls`` calls of ``cell`` (a
+    prefill, a decode step or a train step), by kind and group."""
+    from repro_torch.models import transformer_mesh as tmesh
+    from repro_torch.nn.module import sharding_rules
+
+    data = mesh_shape["data"]
+    n_micro = cell.decisions.get("n_micro", 1)
+    rows = cell.dims["global_batch"] // data // n_micro
+    sch = tmesh.collective_schedule(
+        cell.config, cell.kind, rows, cell.dims["seq_len"], mesh_shape,
+        sharding_rules(False, cell.kind != "decode"), specs, shapes,
+        cell.decisions.get("seq_axes", ("model",)), n_micro)
+    one = tmesh.merge_records(sch["global"], *sch["layers"], sch["final"])
+    return tmesh.merge_records(*[one] * calls)
+
+
+def _by_kind(mesh) -> dict:
+    return {k: {int(g): list(v) for g, v in d.items()}
+            for k, d in mesh.wire.by_kind.items()}
+
+
+def _kept(log) -> list:
+    """(kept, slots) a layer of one call's ``transformer_mesh.moe_log``."""
+    return [[r["kept"], r["slots"]] for r in log]
+
+
+def phase15_sampled(name: str, t, mesh_shape: dict):
+    """An expert tensor's checked experts: the first
+    ``PHASE15_EXPERTS_CHECKED`` of each model rank's block (dim 0), so
+    that the block of the result under ``spec`` is a rank's first ones;
+    any other leaf whole."""
+    if not name.endswith(("experts.wi.kernel", "experts.wo.kernel")):
+        return t
+    m = mesh_shape["model"]
+    e_loc = t.shape[0] // m
+    sel = [i * e_loc + j for i in range(m)
+           for j in range(PHASE15_EXPERTS_CHECKED)]
+    return t[sel]
+
+
+def phase15_rank(rank: int, world: int, prompts: np.ndarray,
+                 forced: np.ndarray, batch: dict, cap_case: bool,
+                 ref_dir: str, device: str) -> dict:
+    """One of four gloo ranks sharing the card: olmoe-1b-7b (seed 0, as
+    the one-rank runs) at ``PHASE15_LAYERS`` cut by ``steps.shard_lm`` on
+    the ``(2, 2)`` mesh, every block checked against its spec's slice; a
+    cold and a warm prefill of ``prompts`` (the first ``mha`` call kept
+    for rank 0's check against the plain version) and ``PHASE15_STEPS``
+    decode steps fed ``forced``, in bfloat16; the same model in float32:
+    the prefill, ``PHASE15_F32_STEPS`` decode steps and, with
+    ``cap_case``, a prefill at ``PHASE15_CAPACITY``; then the train cell
+    at ``PHASE15_TRAIN_LAYERS``: ``PHASE15_TIMED`` bfloat16 steps on the
+    global ``batch`` and a float32 step from fresh weights held, block by
+    block, against the one-rank state under ``ref_dir``. Returns logits
+    (rank 0), timings, kept slots a layer, launches, every call's
+    collectives beside the schedule, peak memory, the check's spreads
+    and the wall clock at each stage of the rank's start."""
+    wall = {"entry": time.time()}
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.block_spmm import block_spmm as bs_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import transformer_mesh as tmesh
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.module import block_of, gather_block
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    wall["imports"] = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    wall["cuda"] = time.time()
+    counters = {"binned_pull": bp_mod.fused_binned_pull,
+                "msbfs_extend": mx_mod.msbfs_extend_blocks,
+                "block_spmm": bs_mod.block_spmm,
+                "flash_attention": fa_mod.flash_attention}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+        attn.route_calls.update(dict.fromkeys(attn.route_calls, 0))
+
+    def launched():
+        return {k: f.launches for k, f in counters.items()}
+
+    mesh = make_mesh(PHASE15_MESH, ("data", "model"), dev)
+    wall["mesh"] = time.time()
+    pcell, dcell = phase15_cells(mesh)
+    cfg = pcell.config
+    wall["cells"] = time.time()
+    out = {"rank": rank, "coords": {a: mesh.coord(a)
+                                    for a in mesh.axis_names},
+           "calls": {}, "section_s": {}, "wall": wall}
+    clock = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        out["section_s"][name] = now - clock[0]
+        clock[0] = now
+    model = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    whole = dict(model.named_parameters())
+    steps.shard_lm(pcell, model, mesh)
+    blocks_ok = True
+    for name, p in model.named_parameters():
+        blocks_ok &= torch.equal(p, _spec_block(whole[name],
+                                                model.shard_specs[name],
+                                                mesh))
+    out["blocks_equal_spec"] = bool(blocks_ok)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("init")
+    specs = model.shard_specs
+    toks = torch.from_numpy(prompts).to(dev)
+    feed = torch.from_numpy(forced).to(dev)
+    b, s = prompts.shape
+    out_spec = pcell.decisions["out_specs"][0]
+    real_mha, first = attn.mha, []
+
+    def keep_first(q, k, v, **kw):
+        if not first:
+            first.append((q.clone(), k.clone(), v.clone(), kw))
+        return real_mha(q, k, v, **kw)
+
+    def call(name, fn, cell, n_calls=1):
+        """One timed call (or ``n_calls`` decode steps inside ``fn``)
+        with the wire and the MoE log read around it."""
+        mesh.wire.reset()
+        tmesh.moe_log = []
+        try:
+            res, ms = _timed(fn, dev)
+            log = tmesh.moe_log
+        finally:
+            tmesh.moe_log = None
+        w = _wire13(mesh)
+        w["by_kind"] = _by_kind(mesh)
+        w["schedule_equal"] = w["by_kind"] == phase15_schedule(
+            cell, mesh.shape, specs, shapes, n_calls)  # specs: any dtype
+        out["calls"][name] = {"ms": ms, "wire": w, "kept": _kept(log)}
+        return res
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    attn.mha = keep_first
+    try:
+        zero()
+        (_, caches), cold_ms = _timed(
+            lambda: pcell.fn(model, toks, max_seq=s + PHASE15_STEPS), dev)
+        out["cold_launches"] = launched()
+        del caches
+        zero()
+        logits, caches = call("prefill", lambda: pcell.fn(
+            model, toks, max_seq=s + PHASE15_STEPS), pcell)
+        out["launches"] = launched()
+        out["route_calls"] = dict(attn.route_calls)
+    finally:
+        attn.mha = real_mha
+    out["prefill_cold_ms"] = cold_ms
+    rows = [gather_block(logits, out_spec, mesh)[:, :cfg.vocab].float()
+            .cpu()]
+    if rank == 0:  # the first call against the plain version
+        q, k, v, kw = first[0]
+        got = real_mha(q, k, v, **kw)
+        exp = real_mha(q, k, v, use_ref=True, **kw)
+        torch.cuda.synchronize(dev)
+        out["mha_check"] = {
+            "shape": list(q.shape), "dtype": str(q.dtype).split(".")[-1],
+            "max_abs_err": max_abs_err(got, exp),
+            "ok": bool(torch.allclose(got.float(), exp.float(),
+                                      rtol=ATTN_TOL[torch.bfloat16][0],
+                                      atol=ATTN_TOL[torch.bfloat16][1]))}
+    del first[:]
+
+    def decode():
+        nonlocal caches
+        got, ms = [], []
+        for t in range(feed.shape[1]):
+            (o, caches), step = _timed(lambda: dcell.fn(
+                model, caches, feed[:, t:t + 1], s + t), dev)
+            ms.append(step)
+            got.append(o[:, 0])
+        return got, ms
+
+    zero()
+    got, step_ms = call("decode", decode, dcell, PHASE15_STEPS)
+    rows += [gather_block(o, out_spec, mesh)[:, :cfg.vocab].float().cpu()
+             for o in got]  # after the calls' wire was read
+    out["decode_launches"] = launched()
+    out["decode_step_ms"] = step_ms
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["digest"] = _digest(torch.stack(rows).numpy())
+    if rank == 0:
+        out["logits"] = [r.numpy() for r in rows]
+    del model, caches, logits, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("serve_bf16")
+
+    # float32 (TF32 off): the prefill, a decode step and, with
+    # ``cap_case``, a prefill at PHASE15_CAPACITY, held against one rank
+    fcell, fdcell = phase15_cells(mesh, dtype=torch.float32)
+    model = tfm.init(fcell.config,
+                     torch.Generator(device=dev).manual_seed(0), dev)
+    steps.shard_lm(fcell, model, mesh)
+    f32 = {}
+    zero()
+    logits, caches = call("prefill_f32", lambda: fcell.fn(
+        model, toks, max_seq=s + PHASE15_STEPS), fcell)
+    f32["prefill"] = logits
+    for t in range(PHASE15_F32_STEPS):
+        o, caches = call(f"decode_f32_{t}", lambda: fdcell.fn(
+            model, caches, feed[:, t:t + 1], s + t), fdcell)
+        f32[f"decode_{t}"] = o[:, 0]
+    del caches
+    if cap_case:
+        ccell, _ = phase15_cells(mesh, PHASE15_CAPACITY, torch.float32)
+        f32["capacity"], _ = call("capacity_f32", lambda: ccell.fn(
+            model, toks), ccell)
+    f32 = {k: gather_block(v, out_spec, mesh)[:, :cfg.vocab].cpu().numpy()
+           for k, v in f32.items()}  # on every rank
+    out["f32_digest"] = _digest(np.stack(list(f32.values())))
+    if rank == 0:
+        out["f32_logits"] = f32
+    out["f32_launches"] = launched()
+    del model, logits, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("serve_f32")
+
+    # training: bfloat16 steps, then a float32 step checked
+    gbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    out["train"] = {}
+    zero()
+    for dtype, n_steps in ((torch.bfloat16, PHASE15_TIMED),
+                           (torch.float32, 1)):
+        tcell = phase15_train_cell(mesh, dtype)
+        tcfg = tcell.config
+        model = tfm.init(tcfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+        tshapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        steps.shard_lm(tcell, model, mesh)
+        model.requires_grad_(True)
+        opt = adamw_init(steps.params_dict(model), AdamWConfig(
+            moment_dtype=steps._moment_dtype(tcfg)))
+        want = phase15_schedule(tcell, mesh.shape, model.shard_specs,
+                                tshapes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = {"steps": [], "remat": tcell.decisions["remat"],
+               "n_micro": tcell.decisions["n_micro"]}
+        for _ in range(n_steps):
+            mesh.wire.reset()
+            (_, opt, loss, gnorm), ms = _timed(
+                lambda: tcell.fn(model, opt, gbatch), dev)
+            w = _wire13(mesh)
+            w["by_kind"] = _by_kind(mesh)
+            rec["steps"].append({"ms": ms, "loss": float(loss),
+                                 "grad_norm": float(gnorm), "wire": w,
+                                 "schedule_equal": w["by_kind"] == want})
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["train"][str(dtype).split(".")[-1]] = rec
+        section(f"train_{str(dtype).split('.')[-1]}")
+        if dtype == torch.bfloat16:
+            del model, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["train_launches"] = launched()
+    out["train_route_calls"] = dict(attn.route_calls)
+    # the float32 step, block by block, against the one-rank state
+    with open(os.path.join(ref_dir, "max.json")) as f:
+        top = json.load(f)
+    lr, specs = 3e-4, model.shard_specs
+    mine = {"params": {k: p.detach() for k, p in model.named_parameters()},
+            "mu": opt.mu, "nu": opt.nu}
+    share = {"mu": 0.0, "nu": 0.0}
+    worst, over_at = {}, {}
+    n = loose = over = tiny_n = 0
+    p_max = 0.0
+    for name, spec in specs.items():
+        cut = name.endswith(("experts.wi.kernel", "experts.wo.kernel"))
+        ref = {part: torch.from_numpy(np.array(block_of(
+            np.load(os.path.join(ref_dir, f"{part}.{name}.npy"),
+                    mmap_mode="r"), spec, mesh))).to(dev)
+            for part in mine}
+        have = {part: (mine[part][name][:PHASE15_EXPERTS_CHECKED] if cut
+                       else mine[part][name]) for part in mine}
+        for part in ("mu", "nu"):
+            e = float((have[part].float() - ref[part]).abs().max())
+            e /= max(top[part][name], 1e-30)
+            worst[f"{part} {name}"] = e
+            share[part] = max(share[part], e)
+        d = (have["params"].float() - ref["params"]).abs()
+        tiny = ref["mu"].abs() <= PHASE15_TOL["rounding"] * top["mu"][name]
+        p_max = max(p_max, float(d.max()))
+        bad_at = ((d > 0.1 * lr) & ~tiny) | (d > 2 * lr)
+        if bad_at.any():  # where, against the leaf's gradients
+            g_ref = ref["mu"][bad_at].abs()
+            over_at[name] = {
+                "n": int(bad_at.sum()),
+                "ref_mu_max": float(g_ref.max()) / top["mu"][name],
+                "mu_diff_max": float((have["mu"].float() - ref["mu"])[
+                    bad_at].abs().max()) / top["mu"][name]}
+        over += int(((d > 0.1 * lr) & ~tiny).sum()) + int((d > 2 * lr).sum())
+        tiny_n += int(tiny.sum())
+        n += d.numel()
+        loose += int((d > TRAIN_PARAM_ABS).sum())
+        del ref, d, tiny
+    out["check"] = {"moment_share": share, "param_max_abs": p_max,
+                    "param_over": over, "param_loose": loose,
+                    "param_n": n, "tiny_gradients": tiny_n,
+                    "worst_leaf": max(worst.items(), key=lambda kv: kv[1]),
+                    "over_by_leaf": over_at}
+    section("check")
+    out["wall"]["return"] = time.time()
+    return out
+
+
+def _vs_one_rank(got: list, ref: list) -> list:
+    """Each step's logits rows of the mesh against one rank's, for the
+    record: the smallest cosine, the largest difference and the greedy
+    tokens (phase 12's measures)."""
+    rows = []
+    for t, (g, r) in enumerate(zip(got, ref)):
+        g = torch.as_tensor(g)
+        r = torch.as_tensor(r)
+        cos = torch.nn.functional.cosine_similarity(g.double(), r.double(),
+                                                    dim=-1)
+        delta = (g - r).abs().max(dim=-1).values
+        top2 = r.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 2 * delta
+        agree = g.argmax(-1) == r.argmax(-1)
+        rows.append({"step": t, "min_cosine": float(cos.min()),
+                     "max_abs": float(delta.max()),
+                     "max_rel": float(delta.max() / r.abs().max()),
+                     "tokens_clear": int(clear.sum()),
+                     "tokens_equal": int(agree.sum()),
+                     "clear_and_unequal": int((clear & ~agree).sum())})
+    return rows
+
+
+def phase_15(dev, launches_before) -> dict:
+    """olmoe-1b-7b's prefill, decode and train cells
+    (``models/transformer_mesh.py``'s expert-parallel MoE) on a ``(2, 2)``
+    mesh of four gloo ranks sharing the card, against the one-rank port
+    on the card from the same seeded weights (the steps in the module
+    docstring)."""
+    import shutil
+
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh, run_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import transformer_mesh as tmesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = phase15_spec(PHASE15_LAYERS).full_config()
+    b, s = PHASE15_PROMPTS
+    max_seq = s + PHASE15_STEPS
+    rng = np.random.default_rng(PHASE15_SEED)
+    prompts = rng.integers(0, cfg.vocab, (b, s))
+    # one rank through transformer.prefill/decode (nn/moe.py on the card)
+    model = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(prompts).to(dev)
+    tfm.prefill(model, cfg, toks, max_seq=max_seq)  # cold
+    torch.cuda.reset_peak_memory_stats(dev)
+    (last, caches), pre_ms = _timed(
+        lambda: tfm.prefill(model, cfg, toks, max_seq=max_seq), dev)
+    one = {"prefill_ms": pre_ms}
+    ref = [last[:, :cfg.vocab].float()]
+    fed, step_ms = [], []
+    for t in range(PHASE15_STEPS):
+        tok = ref[-1].argmax(-1, keepdim=True)
+        fed.append(tok)
+        (o, caches), ms = _timed(
+            lambda: tfm.decode(model, cfg, caches, tok, s + t), dev)
+        step_ms.append(ms)
+        ref.append(o[:, 0, :cfg.vocab].float())
+    one.update(decode_step_ms=step_ms,
+               decode_ms_per_step=float(np.median(step_ms)),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    ref = [r.cpu() for r in ref]
+    forced = torch.cat(fed, dim=1).cpu().numpy()
+    del caches, o, last
+    one_clock = {"serve_bf16": time.perf_counter() - t0}
+    # the one-rank cell (transformer_mesh on a (1, 1) mesh): slots kept a
+    # layer at the published capacity factor, bfloat16
+    one_mesh = make_mesh((1, 1), ("data", "model"), dev)
+    pcell1, _ = phase15_cells(one_mesh)
+    steps.shard_lm(pcell1, model, one_mesh)
+    tmesh.moe_log = []
+    try:
+        pcell1.fn(model, toks, max_seq=max_seq)
+        kept = _kept(tmesh.moe_log)
+    finally:
+        tmesh.moe_log = None
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # float32 (TF32 off): the prefill and a decode step through nn/moe.py,
+    # the one-rank cell's kept slots and, where 1.25 drops nothing, both
+    # again at PHASE15_CAPACITY
+    fcfg = phase15_spec(PHASE15_LAYERS, torch.float32).full_config()
+    model = tfm.init(fcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    last, caches = tfm.prefill(model, fcfg, toks, max_seq=max_seq)
+    f32 = {"prefill": last}
+    for t in range(PHASE15_F32_STEPS):
+        o, caches = tfm.decode(model, fcfg, caches,
+                               torch.from_numpy(forced[:, t:t + 1]).to(dev),
+                               s + t)
+        f32[f"decode_{t}"] = o[:, 0]
+    del caches, o, last
+    fcell1, _ = phase15_cells(one_mesh, dtype=torch.float32)
+    steps.shard_lm(fcell1, model, one_mesh)
+    tmesh.moe_log = []
+    try:
+        fcell1.fn(model, toks, max_seq=max_seq)
+        kept32 = _kept(tmesh.moe_log)
+    finally:
+        tmesh.moe_log = None
+    cap_case = all(k == n for k, n in kept32)
+    kept_cap = None
+    if cap_case:  # nothing dropped at 1.25: the drop path at 0.5
+        ccfg = phase15_spec(PHASE15_LAYERS, torch.float32,
+                            PHASE15_CAPACITY).full_config()
+        f32["capacity"] = tfm.prefill(model, ccfg, toks)[0]
+        ccell1, _ = phase15_cells(one_mesh, PHASE15_CAPACITY, torch.float32)
+        tmesh.moe_log = []
+        try:
+            ccell1.fn(model, toks)
+            kept_cap = _kept(tmesh.moe_log)
+        finally:
+            tmesh.moe_log = None
+    f32 = {k: v[:, :cfg.vocab].cpu().numpy() for k, v in f32.items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_clock["serve_f32"] = time.perf_counter() - t0
+    # training: the one-rank train cell, bfloat16 steps then a float32
+    # step whose state (the checked experts of it) is the reference
+    tb, ts = PHASE15_TRAIN
+    toks_t = np.random.default_rng(PHASE15_SEED + 1).integers(
+        0, cfg.vocab, (tb, ts + 1)).astype(np.int32)
+    batch = {"tokens": toks_t[:, :-1], "labels": toks_t[:, 1:]}
+    dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    ref_dir = ROOT / "build" / PHASE15_REF
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    ref_dir.mkdir(parents=True)
+    one["train"] = {}
+    for dtype, n_steps in ((torch.bfloat16, PHASE15_TIMED),
+                           (torch.float32, 1)):
+        tcell = phase15_train_cell(one_mesh, dtype)
+        model = tfm.init(tcell.config,
+                         torch.Generator(device=dev).manual_seed(0), dev)
+        steps.shard_lm(tcell, model, one_mesh)
+        model.requires_grad_(True)
+        opt = adamw_init(steps.params_dict(model), AdamWConfig(
+            moment_dtype=steps._moment_dtype(tcell.config)))
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = []
+        for _ in range(n_steps):
+            (_, opt, loss, gnorm), ms = _timed(
+                lambda: tcell.fn(model, opt, dbatch), dev)
+            runs.append({"ms": ms, "loss": float(loss),
+                         "grad_norm": float(gnorm)})
+        one["train"][str(dtype).split(".")[-1]] = {
+            "steps": runs,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if dtype == torch.float32:
+            top = {"mu": {}, "nu": {}}
+            for part, tree in (("params", dict(model.named_parameters())),
+                               ("mu", opt.mu), ("nu", opt.nu)):
+                for name, t in tree.items():
+                    t = t.detach()
+                    if part != "params":
+                        top[part][name] = float(t.abs().max())
+                    np.save(ref_dir / f"{part}.{name}.npy", phase15_sampled(
+                        name, t, dict(zip(("data", "model"),
+                                          PHASE15_MESH))).cpu().numpy())
+            (ref_dir / "max.json").write_text(json.dumps(top))
+        del model, opt, tcell
+        gc.collect()
+        torch.cuda.empty_cache()
+    del dbatch
+    one_s = one_clock["train"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    spawned = time.time()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        reps = run_ranks(phase15_rank, RANKS,
+                         (prompts, forced, batch, cap_case, str(ref_dir),
+                          f"{DEVICE}:0"), backend="gloo",
+                         timeout_s=PHASE15_TIMEOUT_S, threads=RANK_THREADS)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    ranks_s = time.perf_counter() - t1
+    # the group's start (spawn to each rank's mesh) and end (the last
+    # return to the group's join)
+    lag = {f"{stage}_s": max(r["wall"][stage] for r in reps) - spawned
+           for stage in ("entry", "imports", "cuda", "mesh", "cells")}
+    lag["end_s"] = time.time() - max(r["wall"]["return"] for r in reps)
+    bad = []
+    for key in ("digest", "f32_digest"):
+        if len({r[key] for r in reps}) != 1:
+            bad.append(f"the ranks' gathered logits differ ({key})")
+    r0 = next(r for r in reps if r["rank"] == 0)
+    serve = _vs_one_rank(r0["logits"], ref)
+    f32_spread = {}
+    for key, exp in f32.items():  # the decisive check
+        got = r0["f32_logits"][key]
+        e = float(np.abs(got - exp).max()) / float(np.abs(exp).max())
+        f32_spread[key] = e
+        if not (np.isfinite(got).all() and e <= PHASE15_F32_TOL):
+            bad.append(f"float32 {key} logits against one rank: {e} of "
+                       f"the largest magnitude (tolerance "
+                       f"{PHASE15_F32_TOL})")
+    if not all(np.isfinite(x).all() for x in r0["logits"]):
+        bad.append("bfloat16 mesh logits not finite")
+    n_l = cfg.n_layers
+    want = {"binned_pull": 0, "msbfs_extend": 0, "block_spmm": 0,
+            "flash_attention": n_l}
+    for r in reps:
+        if not r["blocks_equal_spec"]:
+            bad.append(f"rank {r['rank']}'s blocks are not the spec's slices")
+        for what in ("cold_launches", "launches"):
+            if r[what] != want:
+                bad.append(f"rank {r['rank']} {what} {r[what]}, not {want}")
+        if r["route_calls"] != {"kernel": n_l, "scan": 0}:
+            bad.append(f"rank {r['rank']} route calls {r['route_calls']}")
+        if r["f32_launches"]["flash_attention"] != n_l * (1 + cap_case):
+            bad.append(f"rank {r['rank']} float32 prefill launches "
+                       f"{r['f32_launches']}")
+        for what in ("decode_launches", "train_launches"):
+            if any(r[what].values()):
+                bad.append(f"rank {r['rank']} {what} {r[what]}")
+        if r["train_route_calls"]["kernel"]:
+            bad.append(f"rank {r['rank']} train route calls "
+                       f"{r['train_route_calls']}")
+        for name, c in r["calls"].items():
+            if not c["wire"]["schedule_equal"]:
+                bad.append(f"rank {r['rank']} {name}: Wire "
+                           f"{c['wire']['by_kind']} is not the schedule")
+        for dt, rec in r["train"].items():
+            for i, st in enumerate(rec["steps"]):
+                if not st["schedule_equal"]:
+                    bad.append(f"rank {r['rank']} {dt} step {i}: Wire "
+                               f"{st['wire']['by_kind']} is not the "
+                               "schedule")
+                if not (np.isfinite(st["loss"])
+                        and np.isfinite(st["grad_norm"])):
+                    bad.append(f"rank {r['rank']} {dt} step {i} not finite")
+        m32 = r["train"]["float32"]["steps"][0]
+        o32 = one["train"]["float32"]["steps"][0]
+        for key in ("loss", "grad_norm"):
+            if abs(m32[key] - o32[key]) > PHASE15_TOL[key] * abs(o32[key]):
+                bad.append(f"rank {r['rank']} float32 {key} {m32[key]} "
+                           f"against one rank's {o32[key]}")
+        c = r["check"]
+        if (max(c["moment_share"].values()) > PHASE15_TOL["moment"]
+                or c["param_over"]
+                or c["param_loose"] > TRAIN_PARAM_LOOSE * c["param_n"]):
+            bad.append(f"rank {r['rank']} float32 state against one rank: "
+                       f"{c}")
+    mc = r0["mha_check"]
+    if not mc["ok"] or mc["shape"] != list(PHASE15_MHA):
+        bad.append(f"rank 0's first mha call against its plain version: "
+                   f"{mc}")
+    launched = launches_before()
+    if launched != {**dict.fromkeys(launched, 0),
+                    "flash_attention": launched["flash_attention"]}:
+        bad.append(f"phase 15 launched another kernel: {launched}")
+    # the slots kept a layer over the whole batch: the data ranks' sums
+    # (the model ranks of a data block route the same tokens)
+    def kept_total(call):
+        return [[sum(r["calls"][call]["kept"][i][j] for r in reps
+                     if r["coords"]["model"] == 0) for j in (0, 1)]
+                for i in range(n_l)]
+
+    # mha at the ranks' shape, alone on the card: seeded q, k, v
+    gen = torch.Generator(device=dev).manual_seed(PHASE15_SEED)
+    qkv = [torch.randn(PHASE15_MHA, generator=gen, device=dev,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    mb, mh, ms_, md = PHASE15_MHA
+    pairs = ms_ * (ms_ + 1) // 2
+    fa_ops = 4 * md * pairs * mb * mh
+    fa_bytes = 4 * 2 * qkv[0].numel()
+    mha_t = {
+        "shape": list(PHASE15_MHA), "dtype": "bfloat16",
+        "ms": time_ms(lambda: mha(*qkv, causal=True), reps=5),
+        "plain_ms": time_ms(lambda: mha(*qkv, causal=True, use_ref=True),
+                            reps=2, rounds=3),
+        "bound_ms": max(fa_bytes / HBM_BYTES_PER_S,
+                        fa_ops / BF16_OPS_PER_S) * 1e3,
+        "bound_by": ("bytes" if fa_bytes / HBM_BYTES_PER_S
+                     >= fa_ops / BF16_OPS_PER_S else "operations"),
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *qkv, is_causal=True), reps=5),
+        "launches_per_prefill": [r["launches"]["flash_attention"]
+                                 for r in reps],
+        "max_abs_err": mc["max_abs_err"],
+    }
+    del qkv
+    prefill_ms = max(r["calls"]["prefill"]["ms"] for r in reps)
+    step = float(np.median([max(r["decode_step_ms"][t] for r in reps)
+                            for t in range(PHASE15_STEPS)]))
+    warm = [max(r["train"]["bfloat16"]["steps"][i]["ms"] for r in reps)
+            for i in range(1, PHASE15_TIMED)]
+    o16 = one["train"]["bfloat16"]["steps"]
+    for r in reps:
+        r.pop("logits", None)
+        r.pop("f32_logits", None)
+    out = {
+        "arch": cfg.name, "mesh": list(PHASE15_MESH), "ranks": RANKS,
+        "dtype": "bfloat16",
+        "reduced": {
+            "serve": {"n_layers": PHASE15_LAYERS, "prompts": [b, s],
+                      "cache": [b, max_seq], "decode_steps": PHASE15_STEPS},
+            "train": {"n_layers": PHASE15_TRAIN_LAYERS,
+                      "global_batch": tb, "seq_len": ts},
+            "why": "olmoe's 16 layers cut to 4 (serving) and 2 "
+                   "(training), prefill_32k's 32 x 32,768 to phase 12's 4 "
+                   "x 4,096, train_4k's 256 x 4,096 to 8 x 1,024 (n_micro "
+                   "4 x data 2): four ranks share one card and every "
+                   "collective is staged through host memory",
+            "float32_check": f"every leaf whole but the expert tensors, "
+                             f"of which the first "
+                             f"{PHASE15_EXPERTS_CHECKED} experts of each "
+                             "model rank's block"},
+        "capacity_factor": cfg.moe.capacity_factor,
+        "kept_per_layer": {"one_rank": kept,
+                           "mesh": kept_total("prefill"),
+                           "float32_one_rank": kept32,
+                           "float32_mesh": kept_total("prefill_f32")},
+        "decode_kept_per_layer": kept_total("decode"),
+        "capacity_case": None if not cap_case else {
+            "capacity_factor": PHASE15_CAPACITY,
+            "one_rank_kept": kept_cap,
+            "mesh_kept": kept_total("capacity_f32")},
+        "float32_vs_one_rank": f32_spread,
+        "prefill_ms": prefill_ms,
+        "prefill_cold_ms": max(r["prefill_cold_ms"] for r in reps),
+        "prefill_tokens_per_s": b * s / (prefill_ms / 1e3),
+        "decode_ms_per_step": step,
+        "decode_tokens_per_s": b / (step / 1e3),
+        "train_warm_ms": warm, "train_cold_ms": max(
+            r["train"]["bfloat16"]["steps"][0]["ms"] for r in reps),
+        "train_tokens_per_s": tb * ts / (float(np.median(warm)) / 1e3),
+        "bfloat16_vs_one_rank": serve,
+        "tolerance": {"float32_logits": PHASE15_F32_TOL,
+                      "float32_train": PHASE15_TOL},
+        "one_rank": {**one, "prefill_tokens_per_s":
+                     b * s / (one["prefill_ms"] / 1e3),
+                     "train_warm_ms": [x["ms"] for x in o16[1:]]},
+        "check": [r["check"] for r in reps],
+        "float32_step": {"one_rank": one["train"]["float32"]["steps"][0],
+                         "mesh": [{k: r["train"]["float32"]["steps"][0][k]
+                                   for k in ("loss", "grad_norm")}
+                                  for r in reps]},
+        "mha": mha_t, "kernel_launches": launched,
+        "device": torch.cuda.get_device_name(dev), "one_rank_s": one_s,
+        "one_rank_clock_s": one_clock, "ranks_s": ranks_s, "ranks_lag": lag,
+        "rank_sections_s": [r["section_s"] for r in reps],
+        "seconds": time.perf_counter() - t0,
+    }
+    for r in reps:
+        pw, dw = r["calls"]["prefill"]["wire"], r["calls"]["decode"]["wire"]
+        tw = r["train"]["bfloat16"]["steps"][-1]["wire"]
+        print(f"phase 15: rank {r['rank']} {r['coords']}: prefill "
+              f"{r['calls']['prefill']['ms']:.1f} ms, collectives "
+              f"{pw['calls']} calls {pw['ms']:.1f} ms by kind "
+              f"{pw['ms_by_kind']}, payload {pw['payload_bytes'] / 1e9:.4f}"
+              f" GB, staged {pw['staged_bytes'] / 1e9:.4f} GB by kind "
+              f"{pw['staged_by_kind']}, by axis {pw['by_axis']}; decode "
+              f"{PHASE15_STEPS} steps {sum(r['decode_step_ms']):.1f} ms, "
+              f"collectives {dw['ms']:.1f} ms, staged "
+              f"{dw['staged_bytes'] / 1e9:.4f} GB; serving peak "
+              f"{r['serve_peak_gb']:.3f} GB; train steps "
+              + ", ".join(f"{x['ms']:.1f}" for x in
+                          r["train"]["bfloat16"]["steps"])
+              + f" ms, a step's collectives {tw['calls']} calls "
+              f"{tw['ms']:.1f} ms by kind {tw['ms_by_kind']}, payload "
+              f"{tw['payload_bytes'] / 1e9:.4f} GB, staged "
+              f"{tw['staged_bytes'] / 1e9:.4f} GB by axis {tw['by_axis']}; "
+              f"train peak {r['train']['bfloat16']['peak_gb']:.3f} GB "
+              f"(float32 {r['train']['float32']['peak_gb']:.3f}); the "
+              f"float32 check {r['check']}", flush=True)
+    print(f"phase 15: {cfg.name} ({n_l} layers) on a {PHASE15_MESH} mesh "
+          f"of {RANKS} gloo ranks: prefill [{b}, {s}] {prefill_ms:.1f} ms "
+          f"({out['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{step:.1f} ms a step; one rank prefill {one['prefill_ms']:.1f} "
+          f"ms, decode {one['decode_ms_per_step']:.1f} ms a step; kept "
+          f"slots a layer {out['kept_per_layer']['mesh']} (one rank "
+          f"{kept}); train [{tb}, {ts}] ({PHASE15_TRAIN_LAYERS} layers) "
+          f"warm {warm} ms against one rank's "
+          f"{out['one_rank']['train_warm_ms']}; float32 logits within "
+          f"{max(f32_spread.values()):.3e} of one rank's largest "
+          f"(bfloat16 min cosine {min(x['min_cosine'] for x in serve):.6f}"
+          f"); mha "
+          f"{mha_t['ms']:.4f} ms at {list(PHASE15_MHA)} (SDPA "
+          f"{mha_t['library_ms']:.4f}); {out['device']}; "
+          f"{out['seconds']:.1f} s (one rank {one_clock}, rank 0 "
+          f"{r0['section_s']}, the group's {lag})", flush=True)
+    if bad:
+        fail(f"phase 15: {bad[:10]}")
     return out
 
 
@@ -5725,10 +6574,16 @@ def main() -> int:
     before = {k: f.launches for k, f in counters.items()}
     mesh_train = phase_14(dev, lambda: {k: f.launches - before[k]
                                         for k, f in counters.items()})
+
+    mark("15")
+    # -- phase 15: MoE layers on a mesh of ranks -----------------------------
+    before = {k: f.launches for k, f in counters.items()}
+    mesh_moe = phase_15(dev, lambda: {k: f.launches - before[k]
+                                      for k, f in counters.items()})
     fa["mesh"] = {"mha_launches_per_prefill":
                   mesh_lm["mha_launches_per_prefill"],
                   "mha_launches_in_training": mesh_train["mha_launches"],
-                  "mesh": mesh_lm["mesh"]}
+                  "mesh": mesh_lm["mesh"], "olmoe": mesh_moe["mha"]}
 
     bp["shard"] = shard_times("binned_pull")
     mx["shard"] = shard_times("msbfs_extend")
@@ -5825,6 +6680,7 @@ def main() -> int:
                                      if k != "ranks"}))
     print("phase 13: " + json.dumps(mesh_cells))
     print("phase 14: " + json.dumps(mesh_train))
+    print("phase 15: " + json.dumps(mesh_moe))
     mark(None)
     print("phase seconds: " + json.dumps(phase_s))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -29,9 +29,11 @@ per-device argument and output bytes under the cell's specs
 collective schedule (``lm_collectives``: ``transformer_mesh.
 collective_schedule``, the calls ``Wire`` records on a real mesh; a
 train step's with its recompute, backward and gradient sums). On
-``card`` a dense cell runs on a one-rank ``Mesh`` (``LM_CARD_CUTS``, in
+``card`` a cell runs on a one-rank ``Mesh`` (``lm_card_cut``, in
 ``reduced``): wall ms, tokens a second, peak memory, ``mha``
-launches. ``--components`` (JAX's
+launches; a cell whose state exceeds the card (``lm_state_bytes``:
+llama4 at full width, olmoe's AdamW state) records an error naming the
+bytes. ``--components`` (JAX's
 per-component LM roofline, ``run_components``) sums trips x terms of
 ``steps.lm_components``; each term is the port's analytic count
 (``component_terms``), as XLA's cost analysis has no counterpart here.
@@ -282,7 +284,8 @@ LM_CARD_CUTS = {"prefill": {"global_batch": 4, "seq_len": 4096},
                 "train": {"global_batch": 2, "seq_len": 4096}}
 LM_CUT_WHY = ("one card: the published batch and length are cut to the "
               "one-card shapes (prefill 4 x 4,096, decode 4 x 4,128, "
-              "train 2 x 4,096)")
+              "train 2 x 4,096, its batch rounded up to the arch's "
+              "n_micro)")
 #: analytic FLOPs a parameter of an AdamW update (moments, bias
 #: corrections, the update and the decay)
 ADAMW_FLOPS = 12
@@ -443,6 +446,38 @@ def _lm_layout_fields(arch, shape, mesh_tag) -> dict:
                 coll=lm_collectives(cell, layout.shape), measured=False)
 
 
+def lm_card_cut(arch: str, kind: str) -> dict:
+    """``LM_CARD_CUTS[kind]``, a train batch rounded up to the arch's
+    ``n_micro`` (the cell splits the batch into that many blocks)."""
+    from .steps import _N_MICRO
+
+    cut = dict(LM_CARD_CUTS[kind])
+    if kind == "train":
+        n = _N_MICRO.get(arch, 1)
+        cut["global_batch"] = -(-cut["global_batch"] // n) * n
+    return cut
+
+
+def lm_state_bytes(cell) -> int:
+    """The bytes a one-rank LM cell holds before its activations: the
+    parameters, a train step's AdamW moments and gradients (float32 sums
+    too when it accumulates microbatches), a serving cell's caches."""
+    params = cell.args[0]
+    n = sum(t.numel() for t in params.values())
+    total = sum(t.numel() * t.element_size() for t in params.values())
+    if cell.kind == "train":
+        mom = cell.args[1].mu["embed.table"].element_size()
+        el = params["embed.table"].element_size()
+        total += n * (2 * mom + el + (4 if cell.decisions["n_micro"] > 1
+                                      else 0))
+    else:
+        caches = (cell.args[1] if cell.kind == "decode"
+                  else _prefill_cache_args(cell))
+        total += sum(t.numel() * t.element_size() for c in caches
+                     for t in c)
+    return int(total)
+
+
 def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
     """A dense cell on a one-rank ``Mesh`` of the card, at ``cut``
     (default ``LM_CARD_CUTS``): seeded weights (``transformer.init``,
@@ -469,6 +504,12 @@ def _lm_card_fields(arch, shape, device, cut, keep) -> dict:
     dev = mesh.device
     cuda = dev.type == "cuda"
     cell = steps._lm_cell(spec, s, mesh, False)
+    need = lm_state_bytes(cell)
+    if need > HBM_BYTES:
+        raise ValueError(f"{arch} {shape}: its state needs {need:,} bytes "
+                         f"({need / 1e9:.1f} GB: parameters, and moments "
+                         "and gradients to train), more than one card's "
+                         f"{HBM_BYTES / 1e9:.0f} GB")
     t0 = time.perf_counter()
     if cuda:
         torch.cuda.synchronize(dev)
@@ -821,7 +862,7 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
             kind = next(x.kind for x in cfgbase.get(arch).shapes
                         if x.name == shape)
             if not cut and kind in LM_CARD_CUTS:
-                cut = dict(LM_CARD_CUTS[kind])
+                cut = lm_card_cut(arch, kind)
                 rec["reduced"] = dict(cut, why=LM_CUT_WHY)
             f = _lm_card_fields(arch, shape, device, cut or {}, keep)
         elif mesh_tag == "card":
@@ -900,10 +941,10 @@ def component_terms(c, mesh_shape) -> dict:
       flops`` of the group's layers), over the devices; bytes: the
       group's weights as gathered, the activations read and written, the
       device's cache written or read;
-    - ``layer_group_fwd_bwd``: the forward's schedule through
-      ``transformer_mesh.train_layer`` (the forward, its recompute and
-      the transposes); FLOPs 4 x the forward's (forward, recompute,
-      backward);
+    - ``layer_group_fwd_bwd``: the group's layers of the train schedule
+      (the forward, its recompute and the transposes; an MoE layer's
+      counts and aux sums without a transpose); FLOPs 4 x the
+      forward's (forward, recompute, backward);
     - ``ce_chunk``: logits of one chunk forward and backward (6 x its
       tokens x vocab x d_model), the table read, the chunk's logits
       written and read in float32; the table's FSDP gather, and the
@@ -959,9 +1000,11 @@ def component_terms(c, mesh_shape) -> dict:
             cache += 2 * rows * w * at.n_kv_heads * at.d_head * 2
         cache //= _prod(mesh_shape.get(a, 1) for a in seq_axes)
         nbytes = w_group + act + cache
-        if key == "layer_group_fwd_bwd":
+        if key == "layer_group_fwd_bwd":  # one microbatch's layers
             flops *= 4.0
-            recs = tmesh.train_layer(recs)
+            recs = tmesh.merge_records(*tmesh.collective_schedule(
+                cfg, "train", rows, S, mesh_shape, rules, specs,
+                shapes)["layers"][:gs])
             nbytes = 3 * w_group + 4 * act
     elif key == "ce_chunk":
         C = min(cfg.ce_chunk, S)

@@ -32,7 +32,6 @@ import datetime
 import faulthandler
 import math
 import os
-import socket
 import sys
 import time
 import traceback
@@ -284,17 +283,13 @@ def init_distributed(backend: str, init_method: str | None = None,
     return device
 
 
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return int(s.getsockname()[1])
-
-
-def _rank_main(rank, world, port, backend, timeout_s, fn, args, queue):
+def _rank_main(rank, world, store, backend, timeout_s, threads, env, fn,
+               args, queue):
+    os.environ.update(env)  # the caller's, as a spawned process has it
     faulthandler.dump_traceback_later(timeout_s, exit=True)
-    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    torch.set_num_threads(threads)
     try:
-        init_distributed(backend, f"tcp://127.0.0.1:{port}", rank, world,
+        init_distributed(backend, f"file://{store}", rank, world,
                          timeout_s=timeout_s)
         out = fn(rank, world, *args)
         queue.put((rank, "ok", out))
@@ -311,21 +306,30 @@ def _rank_main(rank, world, port, backend, timeout_s, fn, args, queue):
 
 
 def run_ranks(fn, world: int, args: tuple = (), backend: str = "gloo",
-              timeout_s: float = 120.0) -> list:
-    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes on
-    this host (one rank each, process group initialised, ``fn``
-    importable by name) and return their results by rank. A rank that
+              timeout_s: float = 120.0, threads: int = 1) -> list:
+    """Run ``fn(rank, world, *args)`` in ``world`` new processes on this
+    host (one rank each, process group initialised, ``fn`` importable by
+    name, ``threads`` intra-op threads a rank, the caller's environment)
+    and return their results by rank. The ranks fork from a server
+    process that imported torch once (``forkserver``: a group starts in
+    a fraction of a second after the first, where a spawned rank imports
+    torch anew, 7-9 s on the chip machine), and meet through a file
+    store in a directory of their own (no port to race for). A rank that
     raises, dies or hangs past ``timeout_s`` (it dumps its traceback and
     exits) fails the whole group: the others are stopped and this
     raises."""
     import multiprocessing as mp
+    import shutil
+    import tempfile
 
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
     queue = ctx.Queue()
-    port = free_port()
+    where = tempfile.mkdtemp(prefix="ranks-")
     procs = [
         ctx.Process(target=_rank_main,
-                    args=(r, world, port, backend, timeout_s, fn, args,
+                    args=(r, world, os.path.join(where, "store"), backend,
+                          timeout_s, threads, dict(os.environ), fn, args,
                           queue))
         for r in range(world)
     ]
@@ -368,6 +372,7 @@ def run_ranks(fn, world: int, args: tuple = (), backend: str = "gloo",
                 p.join(timeout=5)
             if p.is_alive():
                 p.kill()
+        shutil.rmtree(where, ignore_errors=True)
     if errors:
         raise RuntimeError("rank group failed:\n" + "\n".join(errors))
     return [results[r] for r in range(world)]

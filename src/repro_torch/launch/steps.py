@@ -39,15 +39,15 @@ cell under the logical-axis rules (``nn.module``): the remat choice and
 ``n_micro`` of a train cell, its moment type, every parameter's
 sanitized spec (``_sanitize``, on ``meta`` tensors), the batch, cache
 and optimizer specs, the decode cache's ``seq_axes``, FLOPs, notes and
-donation. On a ``Mesh`` a dense arch's prefill, decode and train cells
-run (``models.transformer_mesh``; ``shard_lm`` cuts the model and the
-moments). The train step is JAX's ``train_step``: the global batch in
+donation. On a ``Mesh`` every arch's prefill, decode and train cells
+run (``models.transformer_mesh``, MoE layers expert-parallel over
+``model``; ``shard_lm`` cuts the model and the moments). The train step is JAX's ``train_step``: the global batch in
 ``n_micro`` contiguous blocks of rows, each block's rows over the data
 axes, a rank's loss share and backward a block (the gradients summed in
 float32 over the blocks and divided by ``n_micro`` when there are
 several), the mean loss, and AdamW over the rank's blocks
-(``_mesh_update``). MoE archs there raise ``NotImplementedError``
-naming their ROADMAP item.
+(``_mesh_update``). An MoE layer's capacity and aux loss are a
+microbatch's, as in JAX's scan.
 
 GNN and recsys cells on a mesh (``_gnn_cell``, ``_gnn_batch_specs``,
 ``_recsys_cell``): JAX's decisions for every cell (the config change,
@@ -93,7 +93,7 @@ from .mesh import Mesh, all_axes, batch_axes
 from ..models import dcn_v2 as dcn
 from ..models import transformer as tfm
 from ..models import transformer_mesh as tmesh
-from ..models.transformer_mesh import MOE_ITEM, decode_seq_axes
+from ..models.transformer_mesh import decode_seq_axes
 from ..nn.attention import KVCache
 from ..nn.module import (
     block_of,
@@ -658,16 +658,15 @@ def _run_rules(rules: dict, B: int, mesh, ba) -> dict:
 
 def _lm_cell(spec, shape, mesh, multi_pod) -> Cell:
     """JAX's ``_lm_cell``, decision for decision. On a ``MeshLayout`` the
-    cell holds decisions only (``fn=None``). On a ``Mesh`` a dense arch's
-    cell runs the rank's part (``models.transformer_mesh``):
-    ``fn(params, tokens, max_seq=None, route=None)``, ``fn(params,
+    cell holds decisions only (``fn=None``). On a ``Mesh`` the cell
+    runs the rank's part (``models.transformer_mesh``): ``fn(params,
+    tokens, max_seq=None, route=None)``, ``fn(params,
     caches, tokens, pos)`` and ``fn(params, opt, batch) -> (params, opt,
     loss, grad_norm)`` take the rank's parameter and moment blocks
     (``shard_lm``), its cache blocks and the global tokens or batch
     (each rank takes its block), and return the rank's blocks
     (``decisions["out_specs"]``; a train step updates the blocks in
-    place and returns JAX's global loss and norm). An MoE arch on a
-    ``Mesh`` raises ``NotImplementedError``."""
+    place and returns JAX's global loss and norm)."""
     cfg = spec.full_config()
     dims = shape.dims
     B, S = dims["global_batch"], dims["seq_len"]
@@ -683,8 +682,6 @@ def _lm_cell(spec, shape, mesh, multi_pod) -> Cell:
         cfg = dataclasses.replace(
             cfg, remat="full" if saved > 6e9 else "minimal")
     runnable = isinstance(mesh, Mesh)
-    if runnable and cfg.moe is not None:
-        raise NotImplementedError(f"{spec.arch_id}: {MOE_ITEM}")
     # train/prefill: sequence-parallel residual stream; decode: TP
     rules = sharding_rules(multi_pod,
                            seq_parallel=shape.kind in ("train", "prefill"))

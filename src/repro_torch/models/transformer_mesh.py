@@ -1,4 +1,4 @@
-"""The dense LM on a mesh of ranks: ``prefill``, ``decode`` and the
+"""The LM (dense and MoE) on a mesh of ranks: ``prefill``, ``decode`` and the
 training loss (``loss_fn``) of ``models.transformer`` over each rank's
 blocks of the parameters, under the logical-axis rules (``nn.module``).
 
@@ -62,13 +62,26 @@ its ``Mesh`` installed by ``nn.module.set_activation_rules``. With
   flash-decoding style: an all-reduce of the max, then sums of the
   exponentials and of the weighted values (``psum``), which feed the
   row-parallel ``wo``.
+- **MoE (expert parallel over ``model``).** Every token of a data block
+  is already on every ``model`` rank before the FFN (the gathered norm
+  output under SP, the replicated residual in decode), so each rank
+  routes the same tokens and runs only its ``E / M`` experts; the
+  combine is the row-parallel reduce over ``model`` the dense FFN ends
+  with, and no token is exchanged. JAX's GSPMD moves tokens by an
+  all-to-all at dispatch and at combine instead; the function is the
+  same because routing stays global: the capacity comes from the
+  call's global token count, and a slot's position in its expert is
+  the count over all slots of the call in global token-major order
+  (each rank's local count offset by the expert counts of the data
+  blocks before it, all-gathered over the batch axes). The aux loss is
+  JAX's product of two global means, from the router probabilities'
+  sums (``psum_grad`` over the batch axes) and the top-1 counts.
 
 Float sums across ranks fold in coordinate order, so a run gives the
-same bits under gloo and NCCL. MoE layers are not here (ROADMAP section
-1). ``collective_schedule`` is the analytic count of what these
-functions send, by kind (a train step's with ``launch.steps``' gradient
-sums): the dry-run's wire term, held against ``Wire``'s records in the
-tests.
+same bits under gloo and NCCL. ``collective_schedule`` is the analytic
+count of what these functions send, by kind (a train step's with
+``launch.steps``' gradient sums): the dry-run's wire term, held against
+``Wire``'s records in the tests.
 """
 from __future__ import annotations
 
@@ -110,8 +123,12 @@ from .transformer import REMAT_POLICIES, _remat as _layer_remat
 
 RES_SP = ("batch", "res_seq", None)  # the prefill's residual stream
 FULL_SEQ = ("batch", None, None)  # a norm's output, gathered
-MOE_ITEM = ("MoE layers on a mesh wait for their slice (ROADMAP section 1, "
-            "item 1: MoE on a mesh)")
+#: when a list, each MoE layer of a ``prefill``/``decode`` call appends
+#: its routing on this rank: ``{"layer", "experts" [t, K], "keep" [t*K]
+#: (token-major), "kept", "slots", "capacity"}`` on the host, and each
+#: ``loss_fn`` call its layers' aux sum (``{"aux"}``); None records
+#: nothing (and syncs nothing)
+moe_log = None
 
 
 @dataclasses.dataclass
@@ -131,6 +148,12 @@ class _Ctx:
     def model_axes(self):
         return self.mesh.axes(("model",))
 
+    def batch_axes(self):
+        """The axes that split the batch (the rules' ``batch``; none
+        where the run keeps it replicated)."""
+        return self.mesh.axes(tuple(a for a in self.rules["batch"]
+                                    if self.mesh.shape.get(a, 1) > 1))
+
     def m_sharded(self, name: str, dim: int) -> bool:
         return self.m > 1 and "model" in part_axes(self.specs[name][dim])
 
@@ -140,8 +163,6 @@ def _ctx(model, cfg) -> _Ctx:
     if rules is None or mesh is None:
         raise RuntimeError("the mesh path needs the rules and the rank's "
                            "Mesh installed (nn.module.set_activation_rules)")
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_ITEM)
     specs = getattr(model, "shard_specs", None)
     if specs is None:
         raise ValueError("cut the model to this rank's blocks first "
@@ -151,6 +172,12 @@ def _ctx(model, cfg) -> _Ctx:
         raise ValueError(f"{cfg.n_heads} heads and d_ff {cfg.d_ff} must "
                          f"split over the model axis ({m}): attention is "
                          "head-parallel")
+    mo = cfg.moe
+    if mo is not None and (mo.n_experts % m or (mo.d_ff * mo.n_shared) % m):
+        raise ValueError(f"{mo.n_experts} experts and a shared expert of "
+                         f"{mo.d_ff * mo.n_shared} must split over the "
+                         f"model axis ({m}): the experts are "
+                         "expert-parallel")
     data = tuple(a for a in rules["embed"] if mesh.shape.get(a, 1) > 1)
     return _Ctx(cfg, mesh, rules, dict(model.named_parameters()), specs,
                 data, m, mesh.coord("model") if m > 1 else 0)
@@ -292,11 +319,9 @@ def _rank_kv(ctx: _Ctx, s, k, v):
             k[:, :, idx], v[:, :, idx])
 
 
-def _row_parallel(ctx: _Ctx, y, name: str, sp: bool):
-    """``y`` (this rank's rows of ``name``) times its block, the partial
-    sums reduced over ``model``: reduce-scattered over the sequence
-    (``sp``) or summed."""
-    out = y @ ctx.layer_w[name]
+def _reduce(ctx: _Ctx, out, sp: bool):
+    """Partial sums reduced over ``model``: reduce-scattered over the
+    sequence (``sp``) or summed."""
     if ctx.m == 1:
         return out
     if sp:
@@ -304,17 +329,23 @@ def _row_parallel(ctx: _Ctx, y, name: str, sp: bool):
     return psum(out, ctx.model_axes())
 
 
-def _ffn(ctx: _Ctx, pre: str, x, sp: bool):
-    """SwiGLU over this rank's hidden units, row-parallel ``wo``."""
-    cfg = ctx.cfg
+def _row_parallel(ctx: _Ctx, y, name: str, sp: bool):
+    """``y`` (this rank's rows of ``name``) times its block, the partial
+    sums reduced over ``model``."""
+    return _reduce(ctx, y @ ctx.layer_w[name], sp)
+
+
+def _ffn_partial(ctx: _Ctx, pre: str, x, f: int):
+    """SwiGLU of width ``f`` over this rank's hidden units: this rank's
+    partial sum of the row-parallel ``wo`` (unreduced)."""
     wi = ctx.layer_w[pre + "wi.kernel"]
     if ctx.m == 1:
         gu = x @ wi
         g, u = torch.chunk(gu, 2, dim=-1)
-    else:  # _ctx checked that H and d_ff split over "model"
-        f, n = cfg.d_ff, cfg.d_ff // ctx.m
+    else:  # _ctx checked that the width splits over "model"
+        n = f // ctx.m
         lo = ctx.mi * n
-        if x.numel() // x.shape[-1] < cfg.d_model:  # pair the products
+        if x.numel() // x.shape[-1] < ctx.cfg.d_model:  # pair the products
             gu = gather_rows_grad(x @ wi, ctx.model_axes(), x.dim() - 1)
             g, u = gu[..., lo:lo + n], gu[..., f + lo:f + lo + n]
         else:  # pair the weight's columns
@@ -323,7 +354,80 @@ def _ffn(ctx: _Ctx, pre: str, x, sp: bool):
                                 full[:, f + lo:f + lo + n]], dim=1)
             g, u = torch.chunk(gu, 2, dim=-1)
     h = F.silu(g.float()).to(x.dtype) * u
-    return _row_parallel(ctx, h, pre + "wo.kernel", sp)
+    return h @ ctx.layer_w[pre + "wo.kernel"]
+
+
+def _ffn(ctx: _Ctx, pre: str, x, sp: bool):
+    """SwiGLU over this rank's hidden units, row-parallel ``wo``."""
+    return _reduce(ctx, _ffn_partial(ctx, pre, x, ctx.cfg.d_ff), sp)
+
+
+def _moe(ctx: _Ctx, i: int, pre: str, x, sp: bool, with_aux: bool):
+    """``nn.moe.moe`` over this rank's ``E / M`` experts on ``x`` [b, S,
+    d] (every token of the rank's data block, the same on every
+    ``model`` rank) -> (the output reduced over ``model`` as
+    ``_reduce``'s, the layer's aux loss or None). Capacity and slot
+    positions are JAX's global ones (the module docstring); a slot
+    kept on another rank's expert adds zero here."""
+    mo, w = ctx.cfg.moe, ctx.layer_w
+    b, seq, d = x.shape
+    t, e_all, k = b * seq, mo.n_experts, mo.top_k
+    xt = x.reshape(t, d)
+    probs = torch.softmax((xt @ w[pre + "router.kernel"]).float(), dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :k], idx[:, :k]  # ties to the lower expert
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    batch = ctx.batch_axes()
+    t_all = t * batch.size  # the call's tokens: C is nn.moe.moe's of them
+    dropless = t_all * k <= mo.dropless_threshold
+    cap = (t_all * k if dropless
+           else max(int(mo.capacity_factor * t_all * k / e_all), 1))
+    e_flat = idx.reshape(t * k)  # token-major
+    pos = (torch.cumsum(F.one_hot(e_flat, e_all), dim=0) - 1).gather(
+        1, e_flat[:, None])[:, 0]  # the slot's place among this block's
+    counts = []  # [n, E] integers: all slots (kept or not), top-1 picks
+    if not dropless:
+        counts.append(torch.bincount(e_flat, minlength=e_all))
+    if with_aux:
+        counts.append(torch.bincount(idx[:, 0], minlength=e_all))
+    if counts:  # every data block's, in flat-coordinate order
+        every = gather_rows(torch.stack(counts)[None], batch, 0)
+    keep = torch.ones_like(pos, dtype=torch.bool)
+    if not dropless:  # the data blocks before this one come first
+        keep = pos + every[:batch.index(), 0].sum(0)[e_flat] < cap
+    # this rank's experts: one buffer row a kept slot, at the slot's place
+    # among this block's (a prefix of the expert's kept places)
+    e_loc = e_all // ctx.m
+    lo = ctx.mi * e_loc
+    rows = min(cap, t * k)
+    mine = keep & (e_flat >= lo) & (e_flat < lo + e_loc)
+    trash = e_loc * rows  # a zero row: another rank's slot or a dropped one
+    dst = torch.where(mine, (e_flat - lo) * rows + pos, trash)
+    src = torch.full((trash + 1,), t, dtype=torch.long, device=x.device)
+    src[dst] = torch.arange(t * k, device=x.device) // k
+    src[trash] = t
+    xz = torch.cat([xt, xt.new_zeros(1, d)])
+    buf = xz[src[:trash]].reshape(e_loc, rows, d)
+    gu = torch.bmm(buf, w[pre + "experts.wi.kernel"])
+    g, u = torch.chunk(gu, 2, dim=-1)
+    h = F.silu(g) * u  # in the compute dtype, as in JAX
+    out = torch.bmm(h, w[pre + "experts.wo.kernel"]).reshape(trash, d)
+    out = torch.cat([out, out.new_zeros(1, d)])
+    y = (out[dst] * gates.reshape(t * k)[:, None].to(x.dtype)).reshape(
+        t, k, d).sum(dim=1).reshape(b, seq, d)
+    if mo.n_shared:
+        y = y + _ffn_partial(ctx, pre + "shared.", x, mo.d_ff * mo.n_shared)
+    aux = None
+    if with_aux:  # JAX's: E w sum_e mean(probs)_e mean(top-1)_e, global
+        me = psum_grad(probs.sum(dim=0), batch) / t_all
+        ce = every[:, -1].sum(0).float() / t_all
+        aux = (me * ce).sum() * e_all * mo.router_aux_weight
+    if moe_log is not None and not torch.is_grad_enabled():
+        moe_log.append({"layer": i, "experts": idx.cpu().numpy(),
+                        "keep": keep.cpu().numpy(),
+                        "kept": int(keep.sum()), "slots": t * k,
+                        "capacity": cap})
+    return _reduce(ctx, y, sp), aux
 
 
 def _layer_weights(ctx: _Ctx, i: int) -> str:
@@ -348,7 +452,7 @@ def _layer_sp(ctx: _Ctx, i: int, x, positions, route, max_seq=None,
               seq_axes=None):
     """One sequence-parallel layer on ``x`` [b, S/M, d] -> (x, this
     rank's block of the layer's cache, or None without ``max_seq``: the
-    training forward)."""
+    training forward, the layer's MoE aux loss, or None)."""
     cfg = ctx.cfg
     s = cfg.attn_settings(cfg.layer_kind(i % cfg.group_size))
     pre = _layer_weights(ctx, i)
@@ -367,11 +471,15 @@ def _layer_sp(ctx: _Ctx, i: int, x, positions, route, max_seq=None,
     x = _residual(cfg, x, h)
     m_in = shard_activation(_norm(cfg, w[pre + "ln_mlp.scale"], x),
                             FULL_SEQ, have=RES_SP)
-    h = _ffn(ctx, pre + "mlp.", m_in, sp=True)
+    aux = None
+    if cfg.layer_is_moe(i % cfg.group_size):
+        h, aux = _moe(ctx, i, pre + "moe.", m_in, True, max_seq is None)
+    else:
+        h = _ffn(ctx, pre + "mlp.", m_in, sp=True)
     if cfg.use_post_norm:
         h = _norm(cfg, w[pre + "ln_mlp_post.scale"], h)
     ctx.layer_w = None
-    return _residual(cfg, x, h), cache
+    return _residual(cfg, x, h), cache, aux
 
 
 def decode_seq_axes(batch: int, mesh_shape: dict, batch_axes: tuple):
@@ -402,7 +510,7 @@ def prefill(model, cfg, tokens, max_seq=None, route=None,
     x = _embed(ctx, g, tokens, sp=True)
     caches = []
     for i in range(len(model.blocks)):
-        x, c = _layer_sp(ctx, i, x, positions, route, max_seq, seq_axes)
+        x, c, _ = _layer_sp(ctx, i, x, positions, route, max_seq, seq_axes)
         caches.append(c)
     # position S-1 is on the last model coordinate (the norm runs over
     # the rank's block, as transformer.prefill's over the whole)
@@ -467,11 +575,16 @@ def loss_fn(model, cfg, batch):
                              device=tokens.device).expand(b, seq)
     g = _globals(ctx)
     x = _embed(ctx, g, tokens, sp=True)
+    aux = torch.zeros((), device=x.device)
     for i in range(len(model.blocks)):
         def layer(x, i=i):
-            return _layer_sp(ctx, i, x, positions, "scan")[0]
+            x, _, a = _layer_sp(ctx, i, x, positions, "scan")
+            return x, (torch.zeros((), device=x.device) if a is None else a)
 
-        x = layer(x) if cfg.remat == "none" else _remat(layer, x)
+        x, a = layer(x) if cfg.remat == "none" else _remat(layer, x)
+        aux = aux + a
+    if moe_log is not None and cfg.moe is not None:
+        moe_log.append({"aux": float(aux.detach())})
     x = shard_activation(_norm(cfg, g["ln_final.scale"], x), FULL_SEQ,
                          have=RES_SP)
     total = torch.zeros((), device=x.device)
@@ -479,7 +592,9 @@ def loss_fn(model, cfg, batch):
         total = total + _remat(_chunk_ll, ctx, g, x[:, start:start + c],
                                labels[:, start:start + c])
     rows = math.prod(ctx.mesh.shape.get(a, 1) for a in ctx.rules["batch"])
-    return -total / (b * rows * seq) / (ctx.mesh.size // rows)
+    # the aux is global on every rank: each adds its share of it
+    return (-total / (b * rows * seq) / (ctx.mesh.size // rows)
+            + aux / ctx.mesh.size)
 
 
 def init_cache(cfg, batch: int, max_seq: int, mesh, seq_axes,
@@ -545,8 +660,11 @@ def _layer_decode(ctx: _Ctx, i: int, x, cache: KVCache, pos: int,
     if cfg.use_post_norm:
         hh = _norm(cfg, w[pre + "ln_attn_post.scale"], hh)
     x = _residual(cfg, x, hh)
-    hh = _ffn(ctx, pre + "mlp.", _norm(cfg, w[pre + "ln_mlp.scale"], x),
-              sp=False)
+    m_in = _norm(cfg, w[pre + "ln_mlp.scale"], x)
+    if cfg.layer_is_moe(i % cfg.group_size):
+        hh, _ = _moe(ctx, i, pre + "moe.", m_in, False, False)
+    else:
+        hh = _ffn(ctx, pre + "mlp.", m_in, sp=False)
     if cfg.use_post_norm:
         hh = _norm(cfg, w[pre + "ln_mlp_post.scale"], hh)
     ctx.layer_w = None
@@ -643,8 +761,13 @@ def collective_schedule(cfg, kind: str, rows: int, seq: int,
     its recompute, the ``psum`` once more in the backward); then, once
     a step, the losses' ``psum`` and ``_mesh_update``'s gradient and
     norm ``psum``s (the gradients float32 when ``n_micro`` > 1). An MoE
-    layer (no mesh path yet) counts its FSDP gathers and attention only,
-    not its experts' exchange."""
+    layer adds, to its FSDP gathers (router, experts, shared expert) and
+    attention, the shared expert's gate/up pairing, the combine's reduce
+    over ``model`` (where the dense FFN's is), the gather of the expert
+    counts over the batch axes where the call can drop slots, and in
+    training the aux's top-1 counts in that gather and its probability
+    sums' ``psum`` (forward, recompute, backward); the counts carry no
+    gradient, so no transpose."""
     el = torch.tensor([], dtype=cfg.dtype).element_size()
     m = mesh_shape.get("model", 1)
     data = [a for a in rules["embed"] if mesh_shape.get(a, 1) > 1]
@@ -673,11 +796,16 @@ def collective_schedule(cfg, kind: str, rows: int, seq: int,
             _add(glob, "reduce-scatter", m, tokens // m * d * el)
         else:
             _add(glob, "all-gather", m, m * tokens * d * el)
-    layers = []
+    batch = [a for a in rules["batch"] if mesh_shape.get(a, 1) > 1]
+    n_b = int(math.prod(mesh_shape[a] for a in batch))
+    remat = train and cfg.remat != "none"
+    layers, extras = [], []
     for i in range(cfg.n_layers):
         s = cfg.attn_settings(cfg.layer_kind(i % cfg.group_size))
         pre = f"blocks.{i}."
         recs: dict = {}
+        extra: dict = {}  # no gradient: not transposed
+        moe = cfg.layer_is_moe(i)
         fsdp(recs, [k for k in specs if k.startswith(pre)])
         if sp:
             _add(recs, "all-gather", m, tokens * d * el, calls=2)  # norms
@@ -699,19 +827,35 @@ def collective_schedule(cfg, kind: str, rows: int, seq: int,
                 _add(recs, "all-gather", k, k * tokens * s.n_heads * 4)
                 _add(recs, "all-gather", k, k * tokens * s.n_heads * hd * 4)
             _add(recs, "all-gather", m, m * tokens * d * el, calls=2)
-        if m > 1 and not cfg.layer_is_moe(i):  # wi's gate/up pairing
+        f = (cfg.d_ff if not moe
+             else cfg.moe.d_ff * cfg.moe.n_shared)
+        if m > 1 and f:  # wi's gate/up pairing
             _add(recs, "all-gather", m,
-                 (tokens if tokens < d else d) * 2 * cfg.d_ff * el)
+                 (tokens if tokens < d else d) * 2 * f * el)
+        if moe:
+            mo = cfg.moe
+            drops = tokens * n_b * mo.top_k > mo.dropless_threshold
+            n = (int(drops) + int(train)) * mo.n_experts  # int64 counts
+            for a in reversed(batch) if n else ():  # minor axis first
+                n *= mesh_shape[a]
+                _add(extra, "all-gather", mesh_shape[a], n * 8,
+                     calls=1 + remat)
+            if train:  # the probability sums: forward, recompute, backward
+                for a in batch:
+                    _add(extra, "all-gather", mesh_shape[a],
+                         mesh_shape[a] * mo.n_experts * 4, calls=2 + remat)
         layers.append(recs)
+        extras.append(extra)
     final: dict = {}
     if kind == "prefill":
         _add(final, "all-gather", m, m * rows * d * el)
     if not train:
-        return {"global": glob, "layers": layers, "final": final}
+        return {"global": glob, "final": final, "layers": [
+            merge_records(r, x) for r, x in zip(layers, extras)]}
     _add(final, "all-gather", m, tokens * d * el)  # the final norm's
     glob = merge_records(glob, transpose(glob))
-    layers = [_times(train_layer(r, cfg.remat != "none"), n_micro)
-              for r in layers]
+    layers = [_times(merge_records(train_layer(r, remat), x), n_micro)
+              for r, x in zip(layers, extras)]
     final = merge_records(final, transpose(final))
     table = "embed.table" if cfg.tie_embeddings else "unembed.table"
     if m_sharded(table, 0):  # a chunk, its recompute, its backward

@@ -194,14 +194,20 @@ def test_layout_records_are_analytic(mesh, tmp_path):
 
 
 def test_unported_cells_record_errors_and_components_raise(tmp_path):
+    """A cell that cannot run records its error and the exit code counts
+    it: olmoe's train state (AdamW moments and float32 gradient sums
+    over 6.9B parameters) outgrows one card, named in bytes before
+    anything is allocated, at the one-card cut split into its 4
+    microbatches."""
     rc = dryrun.main(["--arch", "olmoe-1b-7b", "--shape", "train_4k",
                       "--mesh", "card", "--device", "cpu", "--out",
                       str(tmp_path)])
     assert rc == 1
     rec = _load(tmp_path / "olmoe-1b-7b__train_4k__card.json")
     assert rec["status"] == "error"
-    assert rec["error"].startswith("NotImplementedError")
-    assert rec["reduced"]["global_batch"] == 2  # LM_CARD_CUTS["train"]
+    assert rec["error"].startswith("ValueError") and "bytes" in rec["error"]
+    assert "NotImplementedError" not in rec["error"]
+    assert rec["reduced"]["global_batch"] == 4  # n_micro 4, a row each
     # --components counts JAX's layouts: refused on the card, and for a
     # family without components
     with pytest.raises(SystemExit):

@@ -11,9 +11,8 @@ have, and a group dim on the caches; the port's spec of every layer must
 equal JAX's less that leading ``None``. The cells' other decisions (the
 remat choice for training, ``n_micro``, the moment type, the decode
 cache's ``seq_axes``) show in those notes, FLOPs and specs. On a
-``MeshLayout`` every cell's ``fn`` is None; on a ``Mesh`` a train cell
-and the MoE archs raise ``NotImplementedError`` naming their ROADMAP
-item.
+``MeshLayout`` every cell's ``fn`` is None; on a ``Mesh`` every cell,
+MoE and train cells included, runs the rank's part.
 """
 import json
 import os
@@ -192,17 +191,21 @@ def test_lm_cell_decisions():
 
 
 def test_mesh_cells_raise_for_train_and_moe():
-    """Train cells of the dense archs run on a ``Mesh``; every MoE
-    cell there, train included, still raises."""
+    """Every cell runs on a ``Mesh`` now: the dense archs' train cells
+    and every MoE cell, train included, build a runnable ``fn`` (nothing
+    raises; the MoE runs are ``test_torch_moe_mesh.py``'s)."""
     mesh = make_mesh((1, 1), ("data", "model"), "cpu")
     assert not hasattr(steps, "TRAIN_ITEM")
+    assert not hasattr(steps.tmesh, "MOE_ITEM")
     for arch in ("minicpm-2b", "gemma2-2b", "deepseek-coder-33b"):
         cell = steps.build_cell(arch, "train_4k", mesh, False)
         assert callable(cell.fn) and cell.decisions["fn"] is None
     for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b"):
-        for shape in ("decode_32k", "train_4k"):
-            with pytest.raises(NotImplementedError, match="MoE on a mesh"):
-                steps.build_cell(arch, shape, mesh, False)
+        for shape in ("prefill_32k", "decode_32k", "train_4k"):
+            cell = steps.build_cell(arch, shape, mesh, False)
+            assert callable(cell.fn) and cell.decisions["fn"] is None
+    assert steps.build_cell("olmoe-1b-7b", "train_4k", mesh,
+                            False).decisions["n_micro"] == 4
     cell = steps.build_cell("minicpm-2b", "prefill_32k", mesh, False)
     assert callable(cell.fn) and cell.decisions["fn"] is None
     assert cell.args[0]["embed.table"].device == torch.device("meta")

@@ -12,8 +12,9 @@
 - ``card``: a prefill, a decode and a train cell of the smoke config on
   a one-rank CPU mesh (a cut shape, recorded in ``reduced``), measured;
   the same cells with no device argument raise without CUDA (a train
-  cell's record carries ``LM_CARD_CUTS["train"]``), and an MoE cell
-  records its ``NotImplementedError``.
+  cell's record carries ``LM_CARD_CUTS["train"]``); an MoE train cell
+  runs at the cut split into its microbatches, and llama4 at full width
+  records the bytes it would need.
 """
 import dataclasses
 import json
@@ -149,8 +150,21 @@ def test_lm_card_needs_cuda_and_train_cells_record_errors(monkeypatch,
     assert "CUDA is not available" in rec["error"]
     assert rec["reduced"] == dict(dryrun.LM_CARD_CUTS["train"],
                                   why=dryrun.LM_CUT_WHY)
+    # an MoE train cell runs on the card mesh: its one-card cut splits
+    # into olmoe's 4 microbatches (the smoke model, at a CPU length)
+    _smoke(monkeypatch, "olmoe-1b-7b")
+    monkeypatch.setitem(dryrun.LM_CARD_CUTS, "train",
+                        dict(dryrun.LM_CARD_CUTS["train"], seq_len=32))
+    keep = {}
     rec = dryrun.run_cell("olmoe-1b-7b", "train_4k", "card", str(tmp_path),
-                          device="cpu")
-    assert rec["status"] == "error"
-    assert rec["error"].startswith("NotImplementedError")
-    assert "MoE on a mesh" in rec["error"]
+                          device="cpu", keep=keep)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["reduced"]["global_batch"] == 4
+    assert rec["decisions"]["n_micro"] == 4
+    loss, gnorm = keep["result"]
+    assert torch.isfinite(loss) and float(gnorm) > 0
+    # llama4 at full width: the record names the bytes it needs
+    rec = dryrun.run_cell("llama4-maverick-400b-a17b", "prefill_32k",
+                          "card", str(tmp_path), device="cpu")
+    assert rec["status"] == "error" and "bytes" in rec["error"]
+    assert dryrun.lm_state_bytes(keep["cell"]) < dryrun.HBM_BYTES

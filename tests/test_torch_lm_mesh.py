@@ -16,10 +16,11 @@ collectives, by kind and group, equal ``collective_schedule``'s count:
 FSDP all-gathers on ``data``, all-gathers and reduce-scatters on
 ``model``. A GQA variant whose kv projection (one head of 6) does not
 divide the model axis keeps ``wk``/``wv`` replicated and equals the
-unsharded model on ``(1, 4)``. MoE archs on a ``Mesh`` raise, train
-cells included (also in ``test_torch_lm_cell.py``; dense training on a
-mesh: ``test_torch_lm_mesh_train.py``). Tolerance: 1e-5 relative plus 1e-5 of the
-tensor's largest magnitude (``test_torch_lm.py``'s).
+unsharded model on ``(1, 4)``. MoE archs' cells run on a ``Mesh`` too,
+train cells included (their mesh runs: ``test_torch_moe_mesh.py``;
+dense training on a mesh: ``test_torch_lm_mesh_train.py``). Tolerance:
+1e-5 relative plus 1e-5 of the tensor's largest magnitude
+(``test_torch_lm.py``'s).
 """
 from concurrent.futures import ThreadPoolExecutor
 
@@ -198,28 +199,28 @@ def test_mesh_collectives_follow_the_schedule(ranks, shape, arch, b):
 
 
 def test_moe_and_train_on_a_mesh_raise():
+    """MoE and train cells build and run on a ``Mesh`` (nothing raises
+    there any more); the mesh path still refuses a model that was not
+    cut, and runs only with the rules installed."""
     mesh = make_mesh((1, 1), ("data", "model"), "cpu")
-    for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b"):
+    for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b", "minicpm-2b"):
         spec = TR.lm_smoke_spec(base, arch)
-        shape = next(s for s in spec.shapes if s.name == "prefill_32k")
-        with pytest.raises(NotImplementedError, match="MoE on a mesh"):
-            steps._lm_cell(spec, shape, mesh, False)
-    for arch in ("olmoe-1b-7b", "minicpm-2b"):  # train: MoE raises
-        spec = TR.lm_smoke_spec(base, arch)
-        shape = next(s for s in spec.shapes if s.name == "train_4k")
-        if arch == "minicpm-2b":
+        for name in ("prefill_32k", "train_4k"):
+            shape = next(s for s in spec.shapes if s.name == name)
             assert callable(steps._lm_cell(spec, shape, mesh, False).fn)
-            continue
-        with pytest.raises(NotImplementedError, match="MoE on a mesh"):
-            steps._lm_cell(spec, shape, mesh, False)
-    # the mesh path itself refuses an MoE model and a model not cut
-    cfg = base.get("olmoe-1b-7b").smoke_config()
+        set_activation_rules(None)
+    # an MoE smoke model cut by its cell runs the mesh prefill
+    pcell, _ = TR.lm_cells(mesh, "olmoe-1b-7b", 1, 8, 0)
+    cfg = pcell.config
     model = ttfm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    set_activation_rules({"embed": ("data",)}, mesh)
-    with pytest.raises(NotImplementedError, match="MoE on a mesh"):
-        tmesh.prefill(model, cfg, torch.zeros((1, 8), dtype=torch.long))
+    steps.shard_lm(pcell, model, mesh)
+    logits, caches = pcell.fn(model, torch.zeros((1, 8), dtype=torch.long))
+    assert logits.shape == (1, cfg.vocab_padded) and len(caches) == 2
+    assert torch.isfinite(logits[:, :cfg.vocab]).all()
+    # a model not cut is refused
     cfg = base.get("minicpm-2b").smoke_config()
     model = ttfm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    set_activation_rules({"embed": ("data",)}, mesh)
     with pytest.raises(ValueError, match="shard_params"):
         tmesh.prefill(model, cfg, torch.zeros((1, 8), dtype=torch.long))
     set_activation_rules(None)

@@ -198,13 +198,21 @@ def one_rank(arch, dtype, trees):
     return _ONE[arch, dtype]
 
 
-def check_state(got: dict, exp: dict, what: str, tiny: dict) -> None:
+def leaf_tol(part: str, name: str, exp: dict) -> float:
+    """A moment leaf's tolerance: ``MOMENT_TOL`` of its largest
+    magnitude."""
+    return MOMENT_TOL * float(np.abs(exp[part][name]).max())
+
+
+def check_state(got: dict, exp: dict, what: str, tiny: dict,
+                moment_tol=leaf_tol) -> None:
     """``got`` against ``exp`` after a step (the module docstring's
     list); ``tiny``: by name, where a step so far had a rounding-sized
-    gradient."""
+    gradient; ``moment_tol(part, name, exp)``: a moment leaf's
+    tolerance."""
     for part in ("mu", "nu"):
         for name, e in exp[part].items():
-            tol = MOMENT_TOL * float(np.abs(e).max())
+            tol = moment_tol(part, name, exp)
             np.testing.assert_allclose(got[part][name], e, rtol=0, atol=tol,
                                        err_msg=f"{what} {part} {name}")
     n = loose = 0
@@ -217,7 +225,7 @@ def check_state(got: dict, exp: dict, what: str, tiny: dict) -> None:
     assert loose <= PARAM_LOOSE * n, (what, loose, n)
 
 
-def check_run(run, want, what):
+def check_run(run, want, what, moment_tol=leaf_tol):
     """Each step of ``run`` against ``want``'s (loss, norm, state); a
     step's gradient (clipped) is ``(mu - b1 mu_before) / (1 - b1)``."""
     tiny, mu0 = None, None
@@ -231,7 +239,8 @@ def check_run(run, want, what):
                for k, g in grads.items()}
         tiny = now if tiny is None else {k: tiny[k] | now[k] for k in now}
         mu0 = state["mu"]
-        check_state(run["states"][i], state, f"{what} step {i}", tiny)
+        check_state(run["states"][i], state, f"{what} step {i}", tiny,
+                    moment_tol)
 
 
 @pytest.mark.parametrize("shape,arch,dtype", F32)

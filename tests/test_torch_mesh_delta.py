@@ -209,8 +209,11 @@ def runs(tmp_path_factory):
         [sys.executable, "-c", JAX_SCRIPT, str(paths[m]), str(ROOT / "tests"),
          m], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for m in names}
+    # a delta group takes 36-140 s alone on 8 CPUs, one thread a rank;
+    # under the whole suite's six workers a group ran 3.5 times longer
+    # (210 s for one of 60 s), so each gets 3.5 x 140 s, rounded up
     try:
-        port = {m: run_ranks(TR.delta_rank, 4, (m,), timeout_s=240)
+        port = {m: run_ranks(TR.delta_rank, 4, (m,), timeout_s=500)
                 for m in names}
         stream = run_ranks(TR.stream_rank, 2, (TR.STREAM_ARGV,),
                            timeout_s=180)

@@ -898,16 +898,25 @@ LM_MESH_CASES = {
 }
 
 
-def lm_smoke_spec(base, arch: str, dtype=None):
+def lm_smoke_spec(base, arch: str, dtype=None, moe: dict | None = None):
     """The arch with ``full_config`` replaced by its smoke config
-    (``_lm_cell`` builds from ``full_config``), in ``dtype`` if given."""
+    (``_lm_cell`` builds from ``full_config``), in ``dtype`` if given,
+    its ``MoESettings`` fields changed by ``moe``."""
     import dataclasses
 
     spec = base.get(arch)
-    if dtype is None:
+    if dtype is None and not moe:
         return dataclasses.replace(spec, full_config=spec.smoke_config)
-    return dataclasses.replace(spec, full_config=lambda: dataclasses.replace(
-        spec.smoke_config(), dtype=dtype))
+
+    def config():
+        cfg = spec.smoke_config()
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, **moe))
+        return cfg if dtype is None else dataclasses.replace(cfg,
+                                                             dtype=dtype)
+
+    return dataclasses.replace(spec, full_config=config)
 
 
 def lm_tokens(vocab: int, b: int, n: int, seed: int = 1) -> np.ndarray:
@@ -915,13 +924,14 @@ def lm_tokens(vocab: int, b: int, n: int, seed: int = 1) -> np.ndarray:
     return rng.integers(0, vocab, (b, n)).astype(np.int32)
 
 
-def lm_cells(mesh, arch: str, b: int, seq: int, steps_: int, dtype=None):
+def lm_cells(mesh, arch: str, b: int, seq: int, steps_: int, dtype=None,
+             moe: dict | None = None):
     """The smoke config's prefill cell (``b`` x ``seq``) and decode cell
     (a cache of ``seq + steps_`` slots) on ``mesh``."""
     from repro_torch.configs import base
     from repro_torch.launch import steps
 
-    spec = lm_smoke_spec(base, arch, dtype)
+    spec = lm_smoke_spec(base, arch, dtype, moe)
     p = base.ShapeSpec("prefill_32k", "prefill",
                        dict(seq_len=seq, global_batch=b))
     d = base.ShapeSpec("decode_32k", "decode",
@@ -937,18 +947,9 @@ def lm_mesh_rank(rank: int, world: int, shape: tuple, trees: dict,
     ``steps.shard_lm``, a prefill and ``steps_`` decode steps fed
     ``lm_tokens``; the global logits of each, this rank's cache blocks
     after the prefill, and the collectives the path sent (by kind and by
-    axis) beside ``collective_schedule``'s count."""
-    import torch
-
-    from repro_torch.launch import steps
+    axis) beside ``collective_schedule``'s count (``lm_serve_case``)."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models import transformer_mesh as tmesh
-    from repro_torch.nn.module import (
-        gather_block,
-        set_activation_rules,
-        sharding_rules,
-    )
+    from repro_torch.nn.module import set_activation_rules
 
     if device != "cpu":  # gloo ranks sharing the card
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -956,14 +957,36 @@ def lm_mesh_rank(rank: int, world: int, shape: tuple, trees: dict,
     mesh = make_mesh(shape, ("data", "model"), device)
     out = {"coords": {a: mesh.coord(a) for a in mesh.axis_names}}
     for arch, b, seq, n in LM_MESH_CASES[shape]:
-        name = f"{arch}/{b}"
-        pcell, dcell = lm_cells(mesh, arch, b, seq, n)
-        cfg = pcell.config
-        model = tfm.params_from_jax(cfg, trees[arch], device=device)
-        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
-        steps.shard_lm(pcell, model, mesh)
-        toks = torch.from_numpy(lm_tokens(cfg.vocab, b, seq + n)).to(device)
-        mesh.wire.reset()
+        out[f"{arch}/{b}"] = lm_serve_case(mesh, arch, b, seq, n,
+                                           trees[arch], device)
+        set_activation_rules(None)
+    return out
+
+
+def lm_serve_case(mesh, arch: str, b: int, seq: int, n: int, tree: dict,
+                  device: str = "cpu", moe: dict | None = None) -> dict:
+    """One serving case on this rank of ``mesh``: the smoke model (its
+    ``MoESettings`` changed by ``moe``) carried from JAX's numpy
+    ``tree``, cut by ``steps.shard_lm``, a prefill of ``b`` x ``seq``
+    ``lm_tokens`` and ``n`` decode steps; the global logits of each,
+    this rank's cache blocks after the prefill, the collectives the
+    path sent (by kind and by axis) beside ``collective_schedule``'s
+    count, and the MoE layers' routing on this rank
+    (``transformer_mesh.moe_log``)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import transformer_mesh as tmesh
+    from repro_torch.nn.module import gather_block, sharding_rules
+
+    pcell, dcell = lm_cells(mesh, arch, b, seq, n, moe=moe)
+    cfg = pcell.config
+    model = tfm.params_from_jax(cfg, tree, device=device)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    steps.shard_lm(pcell, model, mesh)
+    toks = torch.from_numpy(lm_tokens(cfg.vocab, b, seq + n)).to(device)
+    mesh.wire.reset()
+    tmesh.moe_log = []
+    try:
         logits, caches = pcell.fn(model, toks[:, :seq], max_seq=seq + n)
         blocks = [{f: getattr(c, f).cpu().numpy().copy() for f in c._fields}
                   for c in caches]
@@ -972,30 +995,33 @@ def lm_mesh_rank(rank: int, world: int, shape: tuple, trees: dict,
             o, caches = dcell.fn(model, caches, toks[:, seq + t:seq + t + 1],
                                  seq + t)
             outs.append(o[:, 0])
-        by_kind = {k: {int(g): list(v) for g, v in d.items()}
-                   for k, d in mesh.wire.by_kind.items()}
-        by_axis = {a: {k: list(v) for k, v in d.items()}
-                   for a, d in mesh.wire.by_axis.items()}
-        spec = pcell.decisions["out_specs"][0]
-        out[name] = {
-            "logits": [gather_block(x, spec, mesh).cpu().numpy()
-                       for x in outs],
-            "staged": mesh.wire.staged_bytes,
-            "caches": blocks,
-            "by_kind": by_kind, "by_axis": by_axis,
-            "seq_axes": dcell.decisions["seq_axes"],
-        }
-        specs = model.shard_specs
-        rows = b // shape[0] if b % shape[0] == 0 else b
-        sch = [tmesh.collective_schedule(
-            cfg, kind, rows, seq, mesh.shape,
-            sharding_rules(False, kind == "prefill"), specs, shapes,
-            dcell.decisions["seq_axes"]) for kind in ("prefill", "decode")]
-        parts = [sch[0]["global"], *sch[0]["layers"], sch[0]["final"]]
-        for _ in range(n):
-            parts += [sch[1]["global"], *sch[1]["layers"], sch[1]["final"]]
-        out[name]["schedule"] = tmesh.merge_records(*parts)
-        set_activation_rules(None)
+        routing = tmesh.moe_log
+    finally:
+        tmesh.moe_log = None
+    by_kind = {k: {int(g): list(v) for g, v in d.items()}
+               for k, d in mesh.wire.by_kind.items()}
+    by_axis = {a: {k: list(v) for k, v in d.items()}
+               for a, d in mesh.wire.by_axis.items()}
+    spec = pcell.decisions["out_specs"][0]
+    out = {
+        "logits": [gather_block(x, spec, mesh).cpu().numpy() for x in outs],
+        "staged": mesh.wire.staged_bytes,
+        "caches": blocks,
+        "by_kind": by_kind, "by_axis": by_axis,
+        "seq_axes": dcell.decisions["seq_axes"],
+        "routing": routing,
+    }
+    specs = model.shard_specs
+    data = mesh.shape.get("data", 1)
+    rows = b // data if b % data == 0 else b
+    sch = [tmesh.collective_schedule(
+        cfg, kind, rows, seq, mesh.shape,
+        sharding_rules(False, kind == "prefill"), specs, shapes,
+        dcell.decisions["seq_axes"]) for kind in ("prefill", "decode")]
+    parts = [sch[0]["global"], *sch[0]["layers"], sch[0]["final"]]
+    for _ in range(n):
+        parts += [sch[1]["global"], *sch[1]["layers"], sch[1]["final"]]
+    out["schedule"] = tmesh.merge_records(*parts)
     return out
 
 
@@ -1283,8 +1309,9 @@ def lm_train_run(cell, mesh, tree: dict, device: str = "cpu") -> dict:
     group), the model and the moments cut by ``steps.shard_lm``, on the
     seeded global batch: each step's loss and norm and the global state
     after it (``{"params", "mu", "nu"}``, by the port's parameter
-    names), and the collectives of the steps by kind and by axis beside
-    ``collective_schedule``'s count."""
+    names), the collectives of the steps by kind and by axis beside
+    ``collective_schedule``'s count, and an MoE model's aux loss (its
+    layers' sum) of each microbatch of each step."""
     from repro_torch.models import transformer as tfm
     from repro_torch.models import transformer_mesh as tmesh
     from repro_torch.launch import steps
@@ -1300,13 +1327,18 @@ def lm_train_run(cell, mesh, tree: dict, device: str = "cpu") -> dict:
              for k, v in lm_train_batch(cfg.vocab, b, seq).items()}
     mesh.wire.reset()
     res, blocks = [], []
-    for _ in range(LM_TRAIN_STEPS):
-        _, opt, loss, gnorm = cell.fn(model, opt, batch)
-        res.append((float(loss), float(gnorm)))
-        blocks.append({"params": {k: p.detach().clone() for k, p in
-                                  model.named_parameters()},
-                       "mu": {k: v.clone() for k, v in opt.mu.items()},
-                       "nu": {k: v.clone() for k, v in opt.nu.items()}})
+    tmesh.moe_log = [] if cfg.moe is not None else None
+    try:
+        for _ in range(LM_TRAIN_STEPS):
+            _, opt, loss, gnorm = cell.fn(model, opt, batch)
+            res.append((float(loss), float(gnorm)))
+            blocks.append({"params": {k: p.detach().clone() for k, p in
+                                      model.named_parameters()},
+                           "mu": {k: v.clone() for k, v in opt.mu.items()},
+                           "nu": {k: v.clone() for k, v in opt.nu.items()}})
+        aux = [r["aux"] for r in tmesh.moe_log or ()]
+    finally:
+        tmesh.moe_log = None
     wire = {"by_kind": {k: {int(g): list(v) for g, v in d.items()}
                         for k, d in mesh.wire.by_kind.items()},
             "by_axis": _wire_axes(mesh), "staged": mesh.wire.staged_bytes}
@@ -1321,7 +1353,7 @@ def lm_train_run(cell, mesh, tree: dict, device: str = "cpu") -> dict:
                for part in st} for st in blocks]  # after the wire's read
     return {"steps": res, "states": states, "wire": wire,
             "schedule": tmesh.merge_records(*[sch] * LM_TRAIN_STEPS),
-            "n_micro": n_micro}
+            "n_micro": n_micro, "aux": aux}
 
 
 def lm_train_rank(rank: int, world: int, shape: tuple, trees: dict) -> dict:
@@ -1336,4 +1368,46 @@ def lm_train_rank(rank: int, world: int, shape: tuple, trees: dict) -> dict:
         cell = lm_train_cell(mesh, arch, b, seq, dtype)
         out[arch, dtype] = lm_train_run(cell, mesh, trees[arch, dtype])
         set_activation_rules(None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE layers on a mesh (models/transformer_mesh.py's expert-parallel _moe).
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("olmoe-1b-7b", "llama4-maverick-400b-a17b")
+MOE_SERVE = (4, 32, 4)  # global batch, prompt length, decode steps
+#: both packages' smoke ``MoESettings`` changed so that about half of
+#: the slots of a 4 x 32 prefill drop, which ones by the global order
+MOE_CAPACITY = {"dropless_threshold": 0, "capacity_factor": 0.5}
+#: (arch, global batch, length) a (2, 2) mesh trains in float32: each
+#: arch's n_micro (4 and 8), one row a data rank a microbatch
+MOE_TRAIN = (("olmoe-1b-7b", 8, 16), ("llama4-maverick-400b-a17b", 16, 16))
+
+
+def moe_mesh_rank(rank: int, world: int, shape: tuple, trees: dict) -> dict:
+    """On this rank of ``shape``: each MoE arch served
+    (``lm_serve_case``, ``MOE_SERVE``) from ``trees[arch]``, then a
+    prefill at ``MOE_CAPACITY``; on ``(2, 2)`` also ``MOE_TRAIN``'s
+    train cells (``lm_train_run``) from ``trees[arch, "float32"]``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn.module import set_activation_rules
+
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    out = {"coords": {a: mesh.coord(a) for a in mesh.axis_names}}
+    b, seq, n = MOE_SERVE
+    for arch in MOE_ARCHS:
+        out["serve", arch] = lm_serve_case(mesh, arch, b, seq, n,
+                                           trees[arch])
+        set_activation_rules(None)
+        out["capacity", arch] = lm_serve_case(mesh, arch, b, seq, 0,
+                                              trees[arch],
+                                              moe=MOE_CAPACITY)
+        set_activation_rules(None)
+    if shape == (2, 2):
+        for arch, b, seq in MOE_TRAIN:
+            cell = lm_train_cell(mesh, arch, b, seq, "float32")
+            out["train", arch] = lm_train_run(cell, mesh,
+                                              trees[arch, "float32"])
+            set_activation_rules(None)
     return out

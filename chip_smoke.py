@@ -29,7 +29,8 @@ Phases (any failure exits non-zero and prints no result):
    with 8 sources per batch (nTkS, pulls through ``binned_pull``) and the
    default ``recommend`` with 64 sources per batch (nTkMS on
    ``block_mxu``, through ``msbfs_extend``). Every source's levels are
-   checked against a BFS written here with scipy; each kernel's launch
+   checked against a BFS written here (sparse products on the card,
+   ``BFSOracle``); each kernel's launch
    counter is set to 0 before its run and must be above 0 after it;
 3b. serve the same graph through the open-loop entry point (the default
    path of ``serve.main``: a seeded Poisson stream from two tenants
@@ -44,7 +45,15 @@ Phases (any failure exits non-zero and prints no result):
    counters as in phase 3; one JSON line per run with the warm and
    all-in p50/p99, cold ms, batches and their mean size in sources,
    overlap occupancy, shed, deadline misses and each delta's report and
-   ``apply_delta`` ms;
+   ``apply_delta`` ms; then, on each run's dispatcher and last graph
+   version, the run's first 48 queries (40 for x64) as one backlog due at
+   time 0, served one query a batch with overlap on, off, off, on
+   (``overlap_comparison``): results
+   bitwise equal across the four and to the BFS oracle, every finalize but
+   the last overlapped, and per run the warm per-batch wall ms p50,
+   phase-1 ms (to the join, and to the worker's end of phase 1), finalize
+   ms and the finalizes that started before the in-flight batch's phase 1
+   ended (``overlap_probe`` wraps the loop for them);
 3c. the weighted relax and the non-reach query kinds on the same graph,
    weighted as ``serve`` weights it (``default_rng(7).uniform(0.1, 2.0)``
    float32): ``bellman_ford`` through ``run_recursive_query`` under
@@ -55,8 +64,8 @@ Phases (any failure exits non-zero and prints no result):
    ``serve.main --query-kind`` for ``topk_paths``, ``ppr`` and
    ``pattern_counts``, closed loop and open loop (the ``topk_paths``
    stream with one weighted delta), every delivered result against an
-   oracle written here: a float32 k-slot Jacobi over the edge list
-   (``topk_paths``, bitwise), int64 sparse products wrapped to int32
+   oracle written here: a float32 k-slot Jacobi over the edge list in
+   torch on the card (``topk_paths``, bitwise), int64 sparse products wrapped to int32
    (``pattern_counts``, exact), a float32 sparse diffusion (``ppr`` mass
    within rtol 1e-5, atol 1e-7, and equal iteration counts in the closed
    loop); a PPR batch run twice must give the same bits; ``min_dist`` is
@@ -137,9 +146,9 @@ Phases (any failure exits non-zero and prints no result):
    shard tiles with ``torch.equal`` to their plain versions, and each
    case's launches; then ``serve`` on the
    ``(1, 4)`` mesh, rank 0 driving and the others following: closed
-   loop nTkS ``dopt_fused`` x8 (4 batches) and ``recommend`` x64 (3
+   loop nTkS ``dopt_fused`` x8 (3 batches) and ``recommend`` x64 (2
    batches), and open loops with ``--mutate-stream``: ``dopt_fused``
-   x8, 40 arrivals and 2 deltas, ``recommend`` x64, 20 arrivals and 1
+   x8, 24 arrivals and 2 deltas, ``recommend`` x64, 12 arrivals and 1
    delta, every query against the BFS of the graph it was admitted
    under and every rank's finalized batches equal to rank 0's. Per rank
    it prints the kernels' launches and shard shapes, their times beside
@@ -161,16 +170,17 @@ Phases (any failure exits non-zero and prints no result):
    off, batch [2, 64], lr 1e-3) on the card against the same steps on
    the CPU from the same weights: losses and gradient norms within rtol
    1e-5, every parameter within 0.1 lr and all but 0.1% within 1e-6;
-   (8b) ``build("minicpm-2b", smoke=False)``: MiniCPM-2B at full width,
-   bf16 parameters, float32 AdamW moments, ``train_4k`` cut to [2,
-   4096], four steps (step 0 at lr scale 0 moves no parameter, step 1
-   moves some; every loss and gradient norm finite; 40 scan-route calls
-   a forward and 40 more in the backward's recompute, no kernel-route
+   (8b) ``build("minicpm-2b", smoke=False)``: MiniCPM-2B at full width
+   cut to ``TRAIN_LAYERS`` (10) of its 40 layers, bf16 parameters,
+   float32 AdamW moments, ``train_4k`` cut to [2, 4096], four steps
+   (step 0 at lr scale 0 moves no parameter, step 1 moves some; every
+   loss and gradient norm finite; a scan-route call a layer a forward
+   and one more a layer in the backward's recompute, no kernel-route
    call), then one warm step under ``torch.profiler``; prints the warm
    step's ms, tokens/s, the model-FLOP bound with its formula, the
    optimizer's ms, peak device memory, the device idle share, the five
    largest kernels and the scan attention's share of device time; (8c)
-   the full-width config cut to 2 layers, [2, 1024]: an uninterrupted run
+   the full-width config cut to 1 layer, [2, 1024]: an uninterrupted run
    of 4 steps, then ``TrainGuard`` with checkpoints every 2 steps and a
    failure injected at step 3 after the step-2 checkpoint is on disk,
    both under ``torch.use_deterministic_algorithms(True)``: the restored
@@ -255,7 +265,7 @@ Phases (any failure exits non-zero and prints no result):
    (analytic: decisions, per-device bytes, roofline);
 12. the LM serving cells on a mesh of ranks (``launch/steps.py``'s LM
    cells, ``models/transformer_mesh.py``): MiniCPM-2B at full width cut
-   to ``PHASE12_LAYERS`` (4) of its 40 layers, in
+   to ``PHASE12_LAYERS`` (2) of its 40 layers, in
    bfloat16 (seed 0) on a ``(2, 2)`` ``("data", "model")`` mesh of four
    gloo ranks sharing the card (``run_ranks``, as phase 7). Each rank
    builds the model and cuts it with ``steps.shard_lm`` (every block
@@ -264,7 +274,7 @@ Phases (any failure exits non-zero and prints no result):
    sequence over ``model``: FSDP gathers on ``data``, the SP gathers and
    reduce-scatters on ``model``, head-parallel attention through
    ``mha``), its caches in the decode cell's layout (4 x 4,128 slots, W
-   over ``model``), then 4 decode steps fed a one-rank run's greedy
+   over ``model``), then 2 decode steps fed a one-rank run's greedy
    tokens. Held against that one-rank run of the same weights on the
    card: each logits row's cosine similarity at least 0.999 (phase 6b's
    bfloat16 tolerance) and the greedy token equal wherever the one-rank
@@ -329,9 +339,9 @@ Phases (any failure exits non-zero and prints no result):
    order and aux loss): olmoe-1b-7b at full width (d 2,048, 16 heads of
    128, 64 experts top-8 of width 1,024, vocab 50,304) in bfloat16 from
    seed 0, on the same ``(2, 2)`` mesh. One rank on the card first:
-   ``transformer.prefill``/``decode`` (``nn/moe.py``) at 2 of 16 layers,
+   ``transformer.prefill``/``decode`` (``nn/moe.py``) at 1 of 16 layers,
    ``prefill_32k`` cut to 4 x 4,096 (T 16,384, capacity 2,560 an expert)
-   and 4 greedy decode steps against 4 x 4,128 slots, the one-rank cell
+   and 2 greedy decode steps against 4 x 4,098 slots, the one-rank cell
    beside it (its kept slots a layer), the same in float32 (TF32 off:
    the prefill and a decode step; where 1.25 drops nothing, a prefill at
    capacity factor 0.5), then the one-rank train cell at 1
@@ -495,90 +505,93 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 class BFSOracle:
-    """Level-synchronous BFS on scipy sparse products, one column per
-    source: levels [k, n] int32, -1 = unreached."""
+    """Level-synchronous BFS on sparse products on the card (``A^T`` in
+    torch's CSR layout times a dense frontier), one column per source:
+    levels [k, n] int32, -1 = unreached. Sums of ones are exact in
+    float32, so a level is the same on any device."""
 
-    def __init__(self, csr):
-        from scipy.sparse import csr_matrix
-
-        n = csr.n_nodes
-        a = csr_matrix(
-            (np.ones(csr.n_edges, np.float32), csr.indices, csr.indptr),
-            shape=(n, n),
-        )
-        self.at = a.T.tocsr()
-        self.n = n
+    def __init__(self, csr, dev=None):
+        at = transpose_csr(csr, np.float32)
+        self.n, self.dev = csr.n_nodes, torch.device(dev or DEVICE)
+        self.at = torch.sparse_csr_tensor(
+            torch.from_numpy(at.indptr.astype(np.int64)),
+            torch.from_numpy(at.indices.astype(np.int64)),
+            torch.from_numpy(at.data), size=(self.n, self.n)).to(self.dev)
 
     def levels(self, sources) -> np.ndarray:
-        src = np.asarray(sources, np.int64)
-        k = len(src)
-        lv = np.full((self.n, k), -1, np.int32)
-        cols = np.arange(k)
+        src = torch.as_tensor(np.asarray(sources, np.int64), device=self.dev)
+        k = src.numel()
+        cols = torch.arange(k, device=self.dev)
+        lv = torch.full((self.n, k), -1, dtype=torch.int32, device=self.dev)
         lv[src, cols] = 0
-        f = np.zeros((self.n, k), np.float32)
+        f = torch.zeros((self.n, k), dtype=torch.float32, device=self.dev)
         f[src, cols] = 1.0
         visited = f > 0
         d = 0
-        while f.any():
+        while bool(f.any()):
             d += 1
             new = ((self.at @ f) > 0) & ~visited
             visited |= new
             lv[new] = d
-            f = new.astype(np.float32)
-        return lv.T.copy()
+            f = new.to(torch.float32)
+        return lv.T.contiguous().cpu().numpy()
 
     def levels_of(self, queries) -> list:
         """Levels of many source arrays, the sources batched into columns
-        of 64 and the batches spread over threads (scipy's products
-        release the GIL)."""
+        of 1,024."""
         flat = np.concatenate([np.asarray(q, np.int64) for q in queries])
-        parts = [flat[i : i + 64] for i in range(0, len(flat), 64)]
-        with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
-            lv = np.concatenate(list(ex.map(self.levels, parts)))
+        lv = np.concatenate([self.levels(flat[i : i + 1024])
+                             for i in range(0, len(flat), 1024)])
         bounds = np.cumsum([0] + [len(q) for q in queries])
         return [lv[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 
 
 class TopkOracle:
-    """k-best walk lengths as a float32 Jacobi over the edge list: each
-    round every node's k smallest of its seed value and ``d[u, j] + w``
-    over its in-edges (one sort of (node, value) keys a round; values are
-    non-negative, so their float32 bit patterns sort as the values do)."""
+    """k-best walk lengths as a float32 Jacobi over the edge list, in torch
+    on the card: each round every node's k smallest of its seed value and
+    ``d[u, j] + w`` over its in-edges (one sort of (node, value) keys a
+    round; values are non-negative, so their float32 bit patterns sort as
+    the values do). Float32 adds round alike on any device."""
 
-    def __init__(self, csr, cap: int, k: int = 4):
+    def __init__(self, csr, cap: int, k: int = 4, dev=None):
         src, dst = csr.edge_list()
-        self.src, self.dst = src.astype(np.int64), dst.astype(np.int64)
-        self.w = csr.weights.astype(np.float32)
+        self.dev = torch.device(dev or DEVICE)
+        self.src = torch.from_numpy(src.astype(np.int64)).to(self.dev)
+        self.dst = torch.from_numpy(dst.astype(np.int64)).to(self.dev)
+        self.w = torch.from_numpy(csr.weights.astype(np.float32)).to(
+            self.dev)
         self.n, self.k, self.cap = csr.n_nodes, k, cap
 
-    def dists(self, source: int):
+    def dists(self, source: int) -> np.ndarray:
         """At the fixpoint, or after ``cap`` rounds as the engine stops."""
-        n, k = self.n, self.k
-        seed = np.full((n, k), np.inf, np.float32)
-        seed[source, 0] = 0.0
-        d = seed.copy()
+        n, k, dev = self.n, self.k, self.dev
+        d = torch.full((n, k), float("inf"), device=dev)
+        d[source, 0] = 0.0
+        seed_t = torch.tensor([source], dtype=torch.int64, device=dev)
+        seed_v = torch.zeros(1, dtype=torch.float32, device=dev)
         for _ in range(self.cap):
-            e, j = np.nonzero(np.isfinite(d[self.src]))
-            vals = np.concatenate([d[self.src[e], j] + self.w[e], [0.0]])
-            tgt = np.concatenate([self.dst[e], [source]])
-            key = (tgt << 32) | vals.astype(np.float32).view(np.uint32)
-            key.sort()
+            e, j = torch.nonzero(torch.isfinite(d[self.src]), as_tuple=True)
+            vals = torch.cat([d[self.src[e], j] + self.w[e], seed_v])
+            tgt = torch.cat([self.dst[e], seed_t])
+            key = (tgt << 32) | vals.view(torch.int32).to(torch.int64)
+            key = torch.sort(key).values
             t = key >> 32
-            v = (key & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
-            first = np.flatnonzero(np.r_[True, t[1:] != t[:-1]])
-            rank = np.arange(len(key)) - np.repeat(
-                first, np.diff(np.r_[first, len(key)]))
+            v = (key & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
+            head = torch.ones_like(t, dtype=torch.bool)
+            head[1:] = t[1:] != t[:-1]
+            pos = torch.arange(key.numel(), device=dev)
+            first = torch.cummax(torch.where(head, pos, 0), 0).values
+            rank = pos - first
             keep = rank < k
-            new = np.full((n, k), np.inf, np.float32)
+            new = torch.full((n, k), float("inf"), device=dev)
             new[t[keep], rank[keep]] = v[keep]
-            if np.array_equal(new, d):
-                return d
+            if torch.equal(new, d):
+                break
             d = new
-        return d
+        return d.cpu().numpy()
 
     def dists_of(self, sources) -> list:
-        with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
-            return list(ex.map(self.dists, [int(s) for s in sources]))
+        return [self.dists(int(s)) for s in sources]
 
 
 def transpose_csr(csr, dtype):
@@ -757,12 +770,12 @@ def phase_3c(dev, csr, check, launches) -> dict:
     # enough batches that each kind has at least MIN_WARM warm ones in
     # each loop (the first batches of a kind build its engines)
     kind_runs = {
-        "topk_paths": (["--sources-per-batch", "2", "--batches", "10"],
+        "topk_paths": (["--sources-per-batch", "2", "--batches", "8"],
                        ["--sources-per-batch", "1", "--arrivals", "10",
                         "--mutate-stream", "1"]),
-        "ppr": (["--sources-per-batch", "4", "--batches", "10"],
+        "ppr": (["--sources-per-batch", "4", "--batches", "8"],
                 ["--sources-per-batch", "2", "--arrivals", "10"]),
-        "pattern_counts": (["--sources-per-batch", "4", "--batches", "10"],
+        "pattern_counts": (["--sources-per-batch", "4", "--batches", "8"],
                            ["--sources-per-batch", "2", "--arrivals", "10"]),
     }
 
@@ -944,6 +957,242 @@ def check_versions(rname, results, graphs, by_version, oracle) -> None:
                      f"{bad} source(s) differ from the BFS oracle")
 
 
+OVERLAP_ARRIVALS = 48  # 3b's backlog at most, every query due at once
+OVERLAP_ORDER = (True, False, False, True)  # overlap on, off, off, on
+
+
+def overlap_probe(loop) -> dict:
+    """Wrap ``loop`` and its dispatcher to record, per batch, when it
+    began, whether it was cold, its phase-1 ms, and when its phase 1
+    ended (a done callback on the phase-1 future, which runs on the
+    worker's thread as phase 1 returns); per finalize, when it started,
+    its ms and the batch in flight."""
+    disp = loop.dispatcher
+    rec = {"begin": [], "p1_end": [], "cold": [], "phase1_ms": [],
+           "fin": [], "inflight": None}
+    begin, settle, finalize = (disp.begin_batch, disp.settle_batch,
+                               loop._finalize_tail)
+
+    def stamp(i):
+        return lambda _: rec["p1_end"].__setitem__(i, time.perf_counter())
+
+    def begin_batch(*args, **kwargs):
+        compiles = disp.cache.compile_events
+        t = time.perf_counter()
+        inflight = begin(*args, **kwargs)
+        i = len(rec["begin"])
+        rec["begin"].append(t)
+        rec["p1_end"].append(None)
+        rec["cold"].append(compiles)
+        rec["inflight"] = i
+        phase1 = inflight.payload.get("phase1") if isinstance(
+            inflight.payload, dict) else None
+        if phase1 is not None:
+            phase1.add_done_callback(stamp(i))
+        return inflight
+
+    def settle_batch(inflight):
+        settled = settle(inflight)
+        i = rec["inflight"]
+        rec["cold"][i] = disp.cache.compile_events > rec["cold"][i]
+        rec["phase1_ms"].append(settled.outcome.phase_ms["phase1"])
+        return settled
+
+    def finalize_tail(overlapped):
+        t = time.perf_counter()
+        finalize(overlapped)
+        rec["fin"].append((overlapped, t, time.perf_counter() - t,
+                           rec["inflight"] if overlapped else None))
+
+    disp.begin_batch, disp.settle_batch = begin_batch, settle_batch
+    loop._finalize_tail = finalize_tail
+    return rec
+
+
+def overlap_figures(rec: dict, t_end: float) -> dict:
+    """Warm per-batch wall (begin to the next begin, the last batch to the
+    stream's end), phase-1 and finalize ms (p50 of the warm batches), and
+    how many finalizes started before the phase 1 in flight ended."""
+    begins = rec["begin"] + [t_end]
+    warm = [i for i, c in enumerate(rec["cold"]) if not c]
+    wall = [(begins[i + 1] - begins[i]) * 1e3 for i in warm]
+    p50 = lambda xs: float(np.percentile(xs, 50)) if xs else None
+    hidden = sum(1 for o, t, _, i in rec["fin"]
+                 if o and rec["p1_end"][i] is not None
+                 and rec["p1_end"][i] > t)
+    return {
+        "batches": len(rec["begin"]),
+        "warm_batches": len(warm),
+        "warm_wall_ms_p50": p50(wall),
+        "warm_phase1_ms_p50": p50([rec["phase1_ms"][i] for i in warm]),
+        # begin to the worker's end of phase 1 (phase1_ms runs to the join)
+        "warm_phase1_worker_ms_p50": p50([
+            (rec["p1_end"][i] - rec["begin"][i]) * 1e3 for i in warm
+            if rec["p1_end"][i] is not None]),
+        "finalize_ms_p50": p50([ms * 1e3 for _, _, ms, _ in rec["fin"]]),
+        "finalizes": len(rec["fin"]),
+        "overlapped_finalizes": sum(1 for f in rec["fin"] if f[0]),
+        "finalizes_before_phase1_end": hidden,
+    }
+
+
+def overlap_comparison(rname, disp, queries, oracle, launches,
+                       kernel: str) -> dict:
+    """Phase 3b's overlap comparison on ``disp``, an open-loop dispatcher:
+    the first ``OVERLAP_ARRIVALS`` of an open run's seeded ``queries``
+    (``serve.poisson_arrivals`` entries) as one backlog, all due at time
+    0, served by ``ServingLoop.run_stream`` one query a batch
+    (``max_batch_sources``) with overlap on and off in the order
+    ``OVERLAP_ORDER``. Every run's results are bitwise the first's, and
+    those ``oracle``'s (the BFS of ``disp``'s graph); each run must launch
+    ``kernel`` and overlap every finalize but the last. Returns each run's
+    ``overlap_figures``, stream seconds and launches."""
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+    from repro_torch.runtime.service import ServingLoop
+
+    t0 = time.perf_counter()
+    counters = {"binned_pull": bp_mod.fused_binned_pull,
+                "msbfs_extend": mx_mod.msbfs_extend_blocks}
+    arrivals = [{"t_ms": 0.0, "sources": q["sources"], "tenant": q["tenant"]}
+                for q in queries[:OVERLAP_ARRIVALS]]
+    spq = len(arrivals[0]["sources"])
+    first, runs = None, []
+    for overlap in OVERLAP_ORDER:
+        for c in counters.values():
+            c.launches = 0
+        loop = ServingLoop(dispatcher=disp, overlap=overlap,
+                           max_batch_sources=spq)
+        rec = overlap_probe(loop)
+        t1 = time.perf_counter()
+        loop.run_stream(arrivals)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = {k: c.launches for k, c in counters.items()}
+        if counts[kernel] <= 0:
+            fail(f"3b overlap {rname}: never launched {kernel}")
+        for k, v in counts.items():
+            launches[k] += v
+        if len(loop.results) != len(arrivals):
+            fail(f"3b overlap {rname}: {len(loop.results)} of "
+                 f"{len(arrivals)} queries served")
+        if first is None:
+            first = loop.results
+            t_orc = time.perf_counter()
+            refs = oracle.levels_of([a["sources"] for a in arrivals])
+            for i, ref in enumerate(refs):
+                if not np.array_equal(first[f"q{i}"], ref):
+                    fail(f"3b overlap {rname}: q{i} differs from the BFS "
+                         "oracle")
+            oracle_s = time.perf_counter() - t_orc
+        elif any(not np.array_equal(first[q], loop.results[q])
+                 for q in first):
+            fail(f"3b overlap {rname}: overlap {overlap} differs bitwise "
+                 "from the first run")
+        figs = overlap_figures(rec, t2)
+        if overlap and figs["overlapped_finalizes"] != len(arrivals) - 1:
+            fail(f"3b overlap {rname}: {figs['overlapped_finalizes']} "
+                 f"finalizes overlapped of {len(arrivals) - 1}")
+        runs.append({"overlap": overlap, **figs,
+                     "occupancy": loop.stats.overlap_occupancy,
+                     "stream_s": t2 - t1, "launches": counts})
+    return {"runs": runs, "oracle_s": oracle_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_3b(dev, csr, oracle, launches) -> dict:
+    """Phase 3b: the open-loop runs of ``serve.main`` with deltas
+    mid-stream, each checked against the BFS of every query's graph
+    version, then ``overlap_comparison`` on each run's dispatcher and
+    last graph version. Prints a JSON line for each and returns them."""
+    from repro_torch.kernels.binned_pull import binned_pull as bp_mod
+    from repro_torch.kernels.msbfs_extend import msbfs_extend as mx_mod
+    from repro_torch.launch import serve
+
+    served = {}
+    open_runs = {
+        "open dopt_fused x8": (["--backend", "dopt_fused",
+                                "--sources-per-batch", "8", "--tenants", "2",
+                                "--rate", "20", "--arrivals", "120",
+                                "--mutate-stream", "4", "--delta-edges",
+                                "64"], "binned_pull"),
+        "open recommend x64": (["--sources-per-batch", "64", "--rate", "20",
+                                "--arrivals", "40", "--mutate-stream", "2",
+                                "--delta-edges", "64"], "msbfs_extend"),
+    }
+    overlap = {}
+    for rname, (extra, kernel) in open_runs.items():
+        t0 = time.perf_counter()
+        streams = []
+        bp_mod.fused_binned_pull.launches = 0
+        mx_mod.msbfs_extend_blocks.launches = 0
+        rc = serve.main(["--device", str(dev), "--dataset", "ldbc",
+                         "--scale", str(SCALE), *extra],
+                        on_stream=streams.append)
+        counts = {"binned_pull": bp_mod.fused_binned_pull.launches,
+                  "msbfs_extend": mx_mod.msbfs_extend_blocks.launches}
+        torch.cuda.synchronize()
+        if rc != 0 or len(streams) != 1:
+            fail(f"open-loop run {rname} exited {rc}")
+        if counts[kernel] <= 0:
+            fail(f"open-loop run {rname} never launched {kernel}: {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        t1 = time.perf_counter()
+        loop, arrivals = streams[0].loop, streams[0].arrivals
+        graphs, by_version = stream_versions(csr, arrivals)
+        st = loop.stats
+        n_queries = sum(len(q) for q in by_version)
+        if st.completed != n_queries:
+            fail(f"{rname}: {st.completed} of {n_queries} queries served")
+        check_versions(rname, loop.results, graphs, by_version, oracle)
+        reps = loop.delta_reports
+        if len(reps) != len(graphs) - 1 or (
+                loop.dispatcher.csr.n_edges != graphs[-1].n_edges):
+            fail(f"{rname}: {len(reps)} deltas applied of "
+                 f"{len(graphs) - 1}")
+        served[rname] = {
+            "queries": n_queries,
+            "batches": st.batches,
+            "cold_batches": st.cold_batches,
+            # None where no query was served by a warm batch
+            "warm_p50_ms": finite(st.p50()),
+            "warm_p99_ms": finite(st.p99()),
+            "cold_ms": st.cold_ms,
+            "all_p50_ms": finite(st.p50(warm=False)),
+            "all_p99_ms": finite(st.p99(warm=False)),
+            "sources_per_batch": sum(len(src) for q in by_version
+                                     for _, src in q) / max(st.batches, 1),
+            "overlap_occupancy": st.overlap_occupancy,
+            "shed": st.shed,
+            "deadline_misses": st.deadline_misses,
+            "deltas": len(reps),
+            "deltas_same_shape": sum(r.same_shape for r in reps),
+            "engines_invalidated": sum(r.engines_invalidated for r in reps),
+            "apply_delta_ms": [r.ms for r in reps],
+            "delta_reports": [dataclasses.asdict(r) for r in reps],
+            "stream_s": streams[0].wall_s,
+            "launches": counts,
+            "oracle_s": time.perf_counter() - t1,
+            "seconds": time.perf_counter() - t0,
+        }
+        print(f"phase 3b: {rname}: " + json.dumps(served[rname]), flush=True)
+        # the same backlog with overlap on and off, on this run's
+        # dispatcher and its last graph version
+        kind = rname.removeprefix("open ")
+        overlap[kind] = overlap_comparison(
+            kind, loop.dispatcher,
+            [a for a in arrivals if "sources" in a], BFSOracle(graphs[-1]),
+            launches, kernel)
+        print(f"phase 3b: overlap {kind}: " + json.dumps(overlap[kind]),
+              flush=True)
+        del loop, arrivals, streams, graphs, by_version
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    return {"open": served, "overlap": overlap}
+
+
 def star_csr(n, csr_from_edges):
     dsts = np.arange(1, n - 8)
     return csr_from_edges(n, np.zeros_like(dsts), dsts)
@@ -1014,7 +1263,8 @@ def _swap_delta(csr, GraphDelta, rng, n_swaps=32):
         (u, v), (x, y) = (int(s[i]), int(t[i])), (int(s[j]), int(t[j]))
         new = [(u, y), (x, v)]
         k = np.array([a * n + b for a, b in new])
-        if (u == x or v == y or np.isin(k, keys).any()
+        at = np.minimum(np.searchsorted(keys, k), len(keys) - 1)
+        if (u == x or v == y or (keys[at] == k).any()
                 or any(e in used for e in [(u, v), (x, y), *new])):
             continue
         used.update([(u, v), (x, y), *new])
@@ -1099,6 +1349,44 @@ def host_rss_gb() -> float:
     """This process's resident host memory now (``/proc/self/statm``)."""
     with open("/proc/self/statm") as f:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def work_bound(nbytes: int, ops: int) -> tuple:
+    """(bound ms, "bytes" or "operations"): ``nbytes`` at the card's
+    memory rate against ``ops`` int8 operations at its peak rate."""
+    b, o = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
+
+
+def pull_bound(pack, open_rows, in_bytes: int, out_bytes: int,
+               lanes: int = 1) -> tuple:
+    """``work_bound`` of one ``binned_pull`` call on ``pack``, counted as
+    phase 4 counts it: the slab ids of the rows it reads (``open_rows``
+    of the local rows, 4 bytes a slot), its inputs (``in_bytes``),
+    ``perm_pad`` and its output, each once; a compare a lane a slot."""
+    from repro_torch.kernels.binned_pull.ops import launch_record
+
+    plan = launch_record(pack).plan
+    wpos = np.zeros(plan.rbp, np.int64)
+    for b, w in enumerate(plan.widths):
+        wpos[plan.astarts[b]: plan.astarts[b] + plan.rows_pad[b]] = w
+    widths = wpos[pack.inv_pad[0].cpu().numpy()]
+    slots = int(widths[np.asarray(open_rows, bool)].sum())
+    return work_bound(4 * slots + in_bytes + 4 * plan.rbp + out_bytes,
+                      slots * lanes)
+
+
+def extend_bound(blocks, brows, bcols, lanes, g_out: int) -> tuple:
+    """``work_bound`` of one ``msbfs_extend`` call, counted as phase 4
+    counts it: the tiles under an active source stripe, every tile's
+    coordinates, the lane stripes in and ``g_out`` row blocks of lanes
+    out; a multiply-add a lane a tile entry."""
+    bsz, n_lanes = int(blocks.shape[-1]), int(lanes.shape[-1])
+    act = (lanes != 0).any(dim=2).any(dim=1)
+    active = int((act[brows.long()] & (bcols < g_out)).sum())
+    nbytes = (active * bsz * bsz + 8 * int(blocks.shape[0]) + lanes.numel()
+              + g_out * bsz * n_lanes)
+    return work_bound(nbytes, active * 2 * bsz * bsz * n_lanes)
 
 
 def phase7_engine_cases(mesh, g, n_pad, bundle, backends, src8, src64,
@@ -1249,6 +1537,7 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64,
     (2, 2) mesh in both state layouts, each kernel at its shard shape
     against its plain version, then ``serve`` on (1, 4), closed loop and
     open loop. Returns its report; rank 0 also the served levels."""
+    t_entry = time.perf_counter()
     from repro_torch.core import policy_ntks, prepare_graph
     from repro_torch.graph.generators import PAPER_DATASETS
     from repro_torch.kernels.binned_pull import binned_pull as bp_mod
@@ -1303,13 +1592,19 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64,
             gl = torch.tensor((lanes == 2).astype(np.uint8), device=dev)
             vl = torch.tensor((lanes <= 2)[lo:lo + rows].astype(np.uint8),
                               device=dev)
-            for op, a, v in (("reach", gsrc, vloc),
-                             ("reach_lanes", gl, vl),
-                             ("min_parent_lanes", gl, vl)):
+            for op, a, v, out_bytes in (("reach", gsrc, vloc, rows),
+                                        ("reach_lanes", gl, vl, rows * 64),
+                                        ("min_parent_lanes", gl, vl,
+                                         4 * rows * 64)):
                 got = binned_pull(pack, a, v, op=op)
                 exp = binned_pull(pack, a, v, op=op, use_ref=True)
                 torch.cuda.synchronize()
+                open_rows = (v == 0).reshape(rows, -1).any(dim=1)
+                bound_ms, bound_by = pull_bound(
+                    pack, open_rows.cpu().numpy(), a.numel() + v.numel(),
+                    out_bytes, lanes=a.numel() // a.shape[0])
                 kernel_checks[f"binned_pull/{op}"] = {
+                    "bound_ms": bound_ms, "bound_by": bound_by,
                     "equal": bool(torch.equal(got, exp)),
                     "ms": time_ms(lambda: binned_pull(pack, a, v, op=op),
                                   reps=10, rounds=3),
@@ -1331,7 +1626,9 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64,
             exp = extend_blocks(*tiles, loc, g_out=n_pad // bsz,
                                 use_ref=True)
             torch.cuda.synchronize()
+            bound_ms, bound_by = extend_bound(*tiles, loc, n_pad // bsz)
             kernel_checks["msbfs_extend"] = {
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "equal": bool(torch.equal(got, exp)),
                 "ms": time_ms(lambda: extend_blocks(
                     *tiles, loc, g_out=n_pad // bsz), reps=10, rounds=3),
@@ -1372,16 +1669,16 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64,
     for sname, extra in (
             ("closed dopt_fused x8", ["--closed-loop", "--backend",
                                       "dopt_fused", "--sources-per-batch",
-                                      "8", "--batches", "4"]),
+                                      "8", "--batches", "3"]),
             ("closed recommend x64", ["--closed-loop",
                                       "--sources-per-batch", "64",
-                                      "--batches", "3"]),
+                                      "--batches", "2"]),
             ("open dopt_fused x8", ["--backend", "dopt_fused",
                                     "--sources-per-batch", "8",
-                                    "--arrivals", "40", "--rate", "20",
+                                    "--arrivals", "24", "--rate", "20",
                                     "--mutate-stream", "2"]),
             ("open recommend x64", ["--sources-per-batch", "64",
-                                    "--arrivals", "20", "--rate", "20",
+                                    "--arrivals", "12", "--rate", "20",
                                     "--mutate-stream", "1"])):
         torch.cuda.reset_peak_memory_stats()
         bp_mod.fused_binned_pull.launches = 0
@@ -1426,6 +1723,8 @@ def phase7_rank(rank: int, world: int, scale: float, src8, src64,
         torch.cuda.empty_cache()
     rep["served"] = served
     rep["levels"] = levels
+    rep["setup_s"] = t0 - t_entry
+    rep["wall_s"] = time.perf_counter() - t_entry
     return rep
 
 
@@ -1485,9 +1784,11 @@ def phase_7(csr, oracle) -> dict:
     # the engine part's deltas; block_mxu's rows pad for the four ranks
     deltas, graphs = phase7_deltas(csr, GraphDelta, apply_delta_csr,
                                    padded_n(csr.n_nodes, RANKS, TILE))
+    t_ranks = time.perf_counter()
     reports = run_ranks(phase7_rank, RANKS, (SCALE, src8, src64, deltas),
                         backend="gloo", timeout_s=RANKS_TIMEOUT_S,
                         threads=RANK_THREADS)
+    ranks_s = time.perf_counter() - t_ranks
     n = csr.n_nodes
     refs = {"": (oracle.levels(src8), oracle.levels(src64))}
     for step, g in enumerate(graphs, 1):
@@ -1563,6 +1864,7 @@ def phase_7(csr, oracle) -> dict:
     if min(kernel_launch.values()) <= 0:
         fail(f"phase 7 serve runs launched no kernel: {kernel_launch}")
     t1 = time.perf_counter()
+    checks_s = t1 - t_ranks - ranks_s
     (nccl,) = run_ranks(phase7_nccl, 1, (SCALE,), backend="nccl",
                         timeout_s=RANKS_TIMEOUT_S, threads=RANK_THREADS)
     if nccl["rc"] != 0 or nccl["backend"] != "nccl":
@@ -1571,7 +1873,9 @@ def phase_7(csr, oracle) -> dict:
         got = unpack_levels(lv, {"q": (0, len(srcs))}, n, False)["q"]
         if not np.array_equal(got, oracle.levels(srcs)):
             fail("phase 7 NCCL serve: levels differ from the BFS oracle")
-    summary = {"ranks": [], "nccl_s": time.perf_counter() - t1}
+    summary = {"ranks": [], "nccl_s": time.perf_counter() - t1,
+               "prep_s": t_ranks - t0, "ranks_s": ranks_s,
+               "checks_s": checks_s}
     for r in reports:
         line = {
             "rank": r["rank"], "coords": r["coords"],
@@ -1591,6 +1895,7 @@ def phase_7(csr, oracle) -> dict:
                 {k: {**c["launches"], "trips": c["trips"]}
                  for k, c in e["cases"].items()} for e in r["deltas"]],
             "deltas_s": r["deltas_s"],
+            "setup_s": r["setup_s"], "wall_s": r["wall_s"],
             "serve": {s: {"launches": e["launches"],
                           "peak_gb": e["peak_gb"], "seconds": e["seconds"]}
                       for s, e in r["served"].items()},
@@ -1616,7 +1921,8 @@ def phase_7(csr, oracle) -> dict:
     print("phase 7: " + json.dumps({
         "serve": lead_serve, "serve_launches": kernel_launch,
         "nccl_batches": len(nccl["batches"]), "nccl_s": summary["nccl_s"],
-        "seconds": summary["seconds"]}), flush=True)
+        "prep_s": summary["prep_s"], "ranks_s": ranks_s,
+        "checks_s": checks_s, "seconds": summary["seconds"]}), flush=True)
     return summary
 
 
@@ -1985,7 +2291,10 @@ TRAIN_SMOKE_BATCH = (2, 64)  # 8a: MiniCPM-smoke, card against the CPU
 TRAIN_SMOKE_LR = 1e-3
 TRAIN_BATCH = (2, 4096)  # 8b: train_4k's 256 x 4,096 cut to 2 x 4,096
 TRAIN_STEPS = 4  # 8b: step 0 (lr scale 0), step 1, two warm steps
-RESUME_LAYERS = 2  # 8c: the full-width config cut to 2 layers
+#: 8b: MiniCPM-2B's 40 layers cut to 10 at full width, so that the whole
+#: run stays inside its time limit (PERF.md names the cut)
+TRAIN_LAYERS = 10
+RESUME_LAYERS = 1  # 8c: the full-width config cut to 1 layer
 RESUME_BATCH = (2, 1024)
 RESUME_STEPS = 4  # 8c: checkpoints at 2 and 4, a failure injected at 3
 RESUME_SAVE_EVERY = 2
@@ -2152,9 +2461,9 @@ def phase_8a(dev, train) -> dict:
 
 
 def phase_8b(dev, train) -> dict:
-    """MiniCPM-2B at full width through ``train.build(smoke=False)``: four
-    bf16 steps at ``TRAIN_BATCH``, then one warm step under the
-    profiler."""
+    """MiniCPM-2B at full width cut to ``TRAIN_LAYERS`` through
+    ``train.build(smoke=False)``: four bf16 steps at ``TRAIN_BATCH``,
+    then one warm step under the profiler."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
@@ -2166,7 +2475,7 @@ def phase_8b(dev, train) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b, s = TRAIN_BATCH
     cfg, model, opt, sched, stream, step = train.build(
-        LM_ARCH, False, b, s, TRAIN_LR, dev)
+        LM_ARCH, False, b, s, TRAIN_LR, dev, n_layers=TRAIN_LAYERS)
     n_l = cfg.n_layers
     t_build = time.perf_counter() - t_phase
     opt_ms: list = []
@@ -2260,7 +2569,8 @@ def phase_8b(dev, train) -> dict:
                                         for p in model.parameters()),
         "dtype": "bfloat16 parameters, float32 AdamW moments",
         "batch": [b, s], "reduced": {"train_4k": "256 x 4096 -> "
-                                     f"{b} x {s} sequences"},
+                                     f"{b} x {s} sequences",
+                                     "n_layers": f"40 -> {n_l}"},
         "remat": cfg.remat, "ce_chunk": cfg.ce_chunk,
         "build_s": t_build,
         "steps": steps[:TRAIN_STEPS],
@@ -3545,6 +3855,31 @@ PAPER_CUT_WHY = {
     "2 x scale numbers an edge (scale 20's 33M edges take about 26 s)",
 }
 PAPER_SCIPY_LANES = 2  # lanes also held against scipy.sparse.csgraph
+PAPER_GRAPH_TIMEOUT_S = 600  # a prefetched graph, or phase 11 fails
+
+
+def paper_graph_timed(shape: str, n_nodes: int):
+    """``shape``'s seeded graph at ``n_nodes`` nodes and the seconds it
+    took (in the prefetch process)."""
+    from repro_torch.launch.steps import paper_graph
+
+    t0 = time.perf_counter()
+    csr = paper_graph(shape, n_nodes)
+    return csr, time.perf_counter() - t0
+
+
+def prefetch_paper_graphs():
+    """Start making phase 11's graphs (host numpy, about 100 s) in one
+    spawned process, so that they are made while earlier phases use the
+    card. Returns the pool (a daemon: it ends with this process at the
+    latest) and each shape's pending ``paper_graph_timed``."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, {
+        shape: pool.apply_async(paper_graph_timed, (shape, (
+            PAPER_CUTS.get(shape) or cell_dims(shape))["n_nodes"]))
+        for shape in PAPER_SHAPES}
 
 
 def lane_bfs(csr, sources, cap: int, dev) -> torch.Tensor:
@@ -3615,10 +3950,12 @@ def check_paper_cell(shape: str, keep: dict, dev) -> dict:
         levels.shape[-1]) * levels.shape[0], "scipy_lanes": len(srcs)}
 
 
-def phase_11(dev, launches_before) -> dict:
+def phase_11(dev, launches_before, graphs=None) -> dict:
     """The paper engine's Table 2 cells (``launch/dryrun.py``, the cell
     builder of ``launch/steps.py``; no kernel: the cell's engine extends
-    by ``ell_push``, as JAX's ``build_engine`` default does)."""
+    by ``ell_push``, as JAX's ``build_engine`` default does). ``graphs``,
+    from ``prefetch_paper_graphs``, holds each cell's graph in the making;
+    without it ``run_cell`` makes the graph itself."""
     from repro_torch.launch import dryrun
 
     t0 = time.perf_counter()
@@ -3630,8 +3967,13 @@ def phase_11(dev, launches_before) -> dict:
         keep = {}
         cut = PAPER_CUTS.get(shape)
         t1 = time.perf_counter()
+        graph, graph_s = (graphs[shape].get(PAPER_GRAPH_TIMEOUT_S)
+                          if graphs else (None, None))
+        wait_s = time.perf_counter() - t1
         rec = dryrun.run_cell(PAPER_ARCH, shape, "card", out_dir,
-                              force=True, device=dev, cut=cut, keep=keep)
+                              force=True, device=dev, cut=cut, keep=keep,
+                              csr=graph)
+        del graph
         if rec["status"] != "ok":
             fail(f"phase 11 {shape}: {rec.get('error')}\n"
                  f"{rec.get('traceback', '')}")
@@ -3652,7 +3994,9 @@ def phase_11(dev, launches_before) -> dict:
             argument_bytes=rec["memory"]["argument_size_in_bytes"],
             roofline={k: rl[k] for k in ("compute_s", "memory_s",
                                          "collective_s", "dominant")},
-            check=chk, profile=prof, seconds=time.perf_counter() - t1)
+            check=chk, profile=prof, graph_s=graph_s,
+            graph_wait_s=wait_s if graphs else None,
+            seconds=time.perf_counter() - t1)
         if cut:
             out["reduced"].append({"cell": shape, **cut,
                                    "why": PAPER_CUT_WHY[shape]})
@@ -3680,11 +4024,11 @@ def phase_11(dev, launches_before) -> dict:
 # -- phase 12: the LM serving cells on a mesh of ranks -------------------------
 
 PHASE12_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
-PHASE12_STEPS = 4  # decode steps against the 4 x 4,128 cache
-#: MiniCPM-2B's 40 layers cut to 4 at full width, so that the whole run
+PHASE12_STEPS = 2  # decode steps against the 4 x 4,128 cache
+#: MiniCPM-2B's 40 layers cut to 2 at full width, so that the whole run
 #: stays inside its time limit with phases 14 and 15 (PERF.md names the
 #: cut)
-PHASE12_LAYERS = 4
+PHASE12_LAYERS = 2
 PHASE12_TIMEOUT_S = 600  # the rank group, or it fails
 #: mesh against one rank, bfloat16: phase 6b's tolerance for the kernel
 #: route against the scan route, a logits row's cosine similarity; greedy
@@ -4958,14 +5302,14 @@ def phase_14(dev, launches_before) -> dict:
 
 PHASE15_ARCH = "olmoe-1b-7b"  # 64 experts, top-8, every layer MoE
 PHASE15_MESH = (2, 2)  # ("data", "model"): 4 gloo ranks sharing the card
-#: olmoe's 16 layers cut to 2 to serve and to 1 to train, at full width,
-#: so that the phase stays inside the run's time limit (PERF.md names
-#: the cuts: at 4 and 2 layers the phase took 214 s, 160 s of it in the
+#: olmoe's 16 layers cut to 1 to serve and to train, at full width, so
+#: that the phase stays inside the run's time limit (PERF.md names the
+#: cuts: at 4 and 2 layers the phase took 214 s, 160 s of it in the
 #: ranks' host-staged collectives)
-PHASE15_LAYERS = 2
+PHASE15_LAYERS = 1
 PHASE15_TRAIN_LAYERS = 1
 PHASE15_PROMPTS = (4, 4096)  # prefill_32k's 32 x 32,768, cut as phase 12's
-PHASE15_STEPS = 4  # decode steps against 4 x 4,128 slots (dropless)
+PHASE15_STEPS = 2  # decode steps against 4 x 4,098 slots (dropless)
 #: train_4k's 256 x 4,096 cut to 8 x 1,024: olmoe's n_micro 4 x data 2,
 #: one row a rank a microbatch
 PHASE15_TRAIN = (8, 1024)
@@ -5669,8 +6013,8 @@ def phase_15(dev, launches_before) -> dict:
                       "cache": [b, max_seq], "decode_steps": PHASE15_STEPS},
             "train": {"n_layers": PHASE15_TRAIN_LAYERS,
                       "global_batch": tb, "seq_len": ts},
-            "why": "olmoe's 16 layers cut to 4 (serving) and 2 "
-                   "(training), prefill_32k's 32 x 32,768 to phase 12's 4 "
+            "why": f"olmoe's 16 layers cut to {PHASE15_LAYERS} (serving) "
+                   f"and {PHASE15_TRAIN_LAYERS} (training), prefill_32k's 32 x 32,768 to phase 12's 4 "
                    "x 4,096, train_4k's 256 x 4,096 to 8 x 1,024 (n_micro "
                    "4 x data 2): four ranks share one card and every "
                    "collective is staged through host memory",
@@ -6093,75 +6437,7 @@ def main() -> int:
 
     mark("3b")
     # -- phase 3b: the open loop, with graph deltas mid-stream --------------
-    open_runs = {
-        "open dopt_fused x8": (["--backend", "dopt_fused",
-                                "--sources-per-batch", "8", "--tenants", "2",
-                                "--rate", "20", "--arrivals", "120",
-                                "--mutate-stream", "4", "--delta-edges",
-                                "64"], "binned_pull"),
-        "open recommend x64": (["--sources-per-batch", "64", "--rate", "20",
-                                "--arrivals", "40", "--mutate-stream", "2",
-                                "--delta-edges", "64"], "msbfs_extend"),
-    }
-    for rname, (extra, kernel) in open_runs.items():
-        t0 = time.perf_counter()
-        streams = []
-        bp_mod.fused_binned_pull.launches = 0
-        mx_mod.msbfs_extend_blocks.launches = 0
-        rc = serve.main(["--device", str(dev), "--dataset", "ldbc",
-                         "--scale", str(SCALE), *extra],
-                        on_stream=streams.append)
-        counts = {"binned_pull": bp_mod.fused_binned_pull.launches,
-                  "msbfs_extend": mx_mod.msbfs_extend_blocks.launches}
-        torch.cuda.synchronize()
-        if rc != 0 or len(streams) != 1:
-            fail(f"open-loop run {rname} exited {rc}")
-        if counts[kernel] <= 0:
-            fail(f"open-loop run {rname} never launched {kernel}: {counts}")
-        for k, v in counts.items():
-            launches[k] += v
-        t1 = time.perf_counter()
-        loop, arrivals = streams[0].loop, streams[0].arrivals
-        graphs, by_version = stream_versions(csr, arrivals)
-        st = loop.stats
-        n_queries = sum(len(q) for q in by_version)
-        if st.completed != n_queries:
-            fail(f"{rname}: {st.completed} of {n_queries} queries served")
-        check_versions(rname, loop.results, graphs, by_version, oracle)
-        reps = loop.delta_reports
-        if len(reps) != len(graphs) - 1 or (
-                loop.dispatcher.csr.n_edges != graphs[-1].n_edges):
-            fail(f"{rname}: {len(reps)} deltas applied of "
-                 f"{len(graphs) - 1}")
-        served[rname] = {
-            "queries": n_queries,
-            "batches": st.batches,
-            "cold_batches": st.cold_batches,
-            # None where no query was served by a warm batch
-            "warm_p50_ms": finite(st.p50()),
-            "warm_p99_ms": finite(st.p99()),
-            "cold_ms": st.cold_ms,
-            "all_p50_ms": finite(st.p50(warm=False)),
-            "all_p99_ms": finite(st.p99(warm=False)),
-            "sources_per_batch": sum(len(src) for q in by_version
-                                     for _, src in q) / max(st.batches, 1),
-            "overlap_occupancy": st.overlap_occupancy,
-            "shed": st.shed,
-            "deadline_misses": st.deadline_misses,
-            "deltas": len(reps),
-            "deltas_same_shape": sum(r.same_shape for r in reps),
-            "engines_invalidated": sum(r.engines_invalidated for r in reps),
-            "apply_delta_ms": [r.ms for r in reps],
-            "delta_reports": [dataclasses.asdict(r) for r in reps],
-            "stream_s": streams[0].wall_s,
-            "launches": counts,
-            "oracle_s": time.perf_counter() - t1,
-            "seconds": time.perf_counter() - t0,
-        }
-        print(f"phase 3b: {rname}: " + json.dumps(served[rname]), flush=True)
-        del loop, arrivals, streams, graphs, by_version
-        gc.collect()
-        torch.cuda.empty_cache()
+    phase_3b(dev, csr, oracle, launches)
 
     mark("3c")
     # -- phase 3c: the weighted relax and the non-reach query kinds ---------
@@ -6518,6 +6794,18 @@ def main() -> int:
     fa["served"] = lm["served"]
 
     mark("7")
+    # phase 11's graphs are made on the host from here on, mostly while
+    # phase 7's ranks and phase 8 run; this process leaves that one a
+    # core until they are made
+    prefetch, paper_graphs = prefetch_paper_graphs()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))
+
+    def prefetched():
+        """All of phase 11's graphs made: this process's threads back."""
+        if all(r.ready() for r in paper_graphs.values()):
+            torch.set_num_threads(threads)
+
     # -- phase 7: ranks sharing the card, then one NCCL rank -----------------
     ranks = phase_7(csr, BFSOracle(csr))
 
@@ -6534,10 +6822,12 @@ def main() -> int:
         }
 
     mark("8")
+    prefetched()
     # -- phase 8: LM training at full width ----------------------------------
     training = phase_8(dev)
 
     mark("9")
+    prefetched()
     # -- phase 9: GNN training ---------------------------------------------
     counters = {"binned_pull": bp_mod.fused_binned_pull,
                 "msbfs_extend": mx_mod.msbfs_extend_blocks,
@@ -6548,6 +6838,7 @@ def main() -> int:
                                      for k, f in counters.items()})
 
     mark("10")
+    prefetched()
     # -- phase 10: recsys, and the mesh substrate's compression and pipeline
     before = {k: f.launches for k, f in counters.items()}
     recsys = phase_10(dev, lambda: {k: f.launches - before[k]
@@ -6557,7 +6848,12 @@ def main() -> int:
     # -- phase 11: the paper engine's Table 2 cells --------------------------
     before = {k: f.launches for k, f in counters.items()}
     paper = phase_11(dev, lambda: {k: f.launches - before[k]
-                                   for k, f in counters.items()})
+                                   for k, f in counters.items()},
+                     paper_graphs)
+    prefetch.terminate()
+    prefetch.join()
+    del paper_graphs
+    torch.set_num_threads(threads)
 
     mark("12")
     # -- phase 12: the LM serving cells on a mesh of ranks --------------------

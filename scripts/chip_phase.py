@@ -1,10 +1,13 @@
-"""Run one mesh phase of ``chip_smoke.py`` alone on the card: phase 12
+"""Run one phase of ``chip_smoke.py`` alone on the card: 3b (the open
+loop with deltas, then one backlog served with overlap on and off), 7
+(four gloo ranks sharing the card), 12
 (MiniCPM-2B served on a ``(2, 2)`` mesh of gloo ranks), 14 (MiniCPM-2B
 trained there) or 15 (olmoe-1b-7b served and trained there). Builds the
 kernels first, sets TF32 off, prints the card's name and power limit and
 writes the phase's result to ``chiprun_out/phase<N>.json``.
 
     python3 scripts/chip_phase.py 15
+    python3 scripts/chip_phase.py 3b
 
 The body runs under ``if __name__ == "__main__"``: the spawned ranks
 import this script again.
@@ -22,7 +25,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-PHASES = ("12", "14", "15")
+PHASES = ("3b", "7", "12", "14", "15")
 
 
 def main() -> int:
@@ -59,8 +62,17 @@ def main() -> int:
         return {k: f.launches - before[k] for k, f in counters.items()}
 
     t = time.perf_counter()
-    out = (cs.phase_12(dev) if phase == "12"
-           else getattr(cs, f"phase_{phase}")(dev, launched))
+    if phase in ("3b", "7"):
+        from repro_torch.graph.generators import PAPER_DATASETS
+
+        csr = PAPER_DATASETS["ldbc"](cs.SCALE)
+        oracle = cs.BFSOracle(csr)
+        out = (cs.phase_7(csr, oracle) if phase == "7" else
+               cs.phase_3b(dev, csr, oracle, dict.fromkeys(counters, 0)))
+    elif phase == "12":
+        out = cs.phase_12(dev)
+    else:
+        out = getattr(cs, f"phase_{phase}")(dev, launched)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"phase{phase}.json").write_text(

@@ -51,14 +51,13 @@ from ..graph.csr import (
     binned_plan,
     binned_rev_csr,
     binned_rev_shard,
-    ell_from_csr,
     ell_shard,
     sharded_blocks_from_csr,
     sharded_blocks_nb,
     sharded_blocks_shard,
     truncate_csr,
 )
-from ..graph.partition import pad_ell, padded_n, reverse_shard
+from ..graph.partition import padded_n, reverse_shard
 from ..kernels.binned_pull.ops import (
     BinnedPullPack,
     binned_pull as _fused_pull,
@@ -226,11 +225,11 @@ def build_operands(
     spec = as_spec(extend)
     pad_block = block or spec.pad_block
     eff = effective_csr(csr, max_deg)
-    fwd = pad_ell(ell_from_csr(eff), shards, block=pad_block)
-    n_pad = fwd.n_nodes
+    n_pad = padded_n(eff.n_nodes, shards, pad_block)
+    fwd = _padded_ell(eff, n_pad)
     rev = None
     if spec.needs_rev:
-        rev = pad_ell(ell_from_csr(eff.reverse()), shards, block=pad_block)
+        rev = _padded_ell(eff.reverse(), n_pad)
     rev_binned = None
     rev_binned_pack = None
     if spec.needs_binned:
@@ -251,6 +250,16 @@ def build_operands(
         ),
         n_pad,
     )
+
+
+def _padded_ell(csr: CSRGraph, n_pad: int) -> EllGraph:
+    """``pad_ell(ell_from_csr(csr), ...)`` at ``n_pad`` rows, built in one
+    slab (``ell_shard`` over every row) rather than built and copied."""
+    cap = _round8(int(csr.degrees.max()) if csr.n_nodes else 0)
+    idx, degs, w = ell_shard(csr, 0, n_pad, cap, n_pad)
+    return EllGraph(indices=torch.from_numpy(idx),
+                    degrees=torch.from_numpy(degs),
+                    weights=None if w is None else torch.from_numpy(w))
 
 
 def operands_from_numpy(leaves: dict, device="cpu") -> GraphOperands:

@@ -184,19 +184,18 @@ def ell_from_csr(
         cap = max(int(max_deg), 0)
     if cap > 0:
         cap = -(-cap // pad_to_multiple) * pad_to_multiple
-    indices = np.full((n, cap), n, dtype=np.int32)  # sentinel = n
+    # torch fills the slab on all its threads (numpy's fill of a
+    # multi-GB slab is one thread faulting its pages in); the edges are
+    # written through the numpy view
+    indices = torch.full((n, cap), n, dtype=torch.int32)  # sentinel = n
     rows, slots, pos = _ell_slot_positions(csr.indptr, cap)
-    indices[rows, slots] = csr.indices[pos]
+    indices.numpy()[rows, slots] = csr.indices[pos]
     w = None
     if csr.weights is not None:
-        w = np.zeros((n, cap), dtype=np.float32)
-        w[rows, slots] = csr.weights[pos]
+        w = torch.zeros((n, cap), dtype=torch.float32)
+        w.numpy()[rows, slots] = csr.weights[pos]
     clipped = np.minimum(degs, cap).astype(np.int32)
-    return EllGraph(
-        indices=_t(indices),
-        degrees=_t(clipped),
-        weights=None if w is None else _t(w),
-    )
+    return EllGraph(indices=indices, degrees=_t(clipped), weights=w)
 
 
 def truncate_csr(csr: CSRGraph, max_deg: Optional[int]) -> CSRGraph:
@@ -498,9 +497,11 @@ def ell_shard(
     n = csr.n_nodes
     rows = hi - lo
     lo_r, hi_r = min(lo, n), min(hi, n)
-    indices = np.full((rows, cap), sentinel, np.int32)
+    # the slabs are filled by torch on all its threads (see ell_from_csr)
+    indices = torch.full((rows, cap), sentinel, dtype=torch.int32).numpy()
     degs = np.zeros(rows, np.int32)
-    w = np.zeros((rows, cap), np.float32) if csr.weights is not None else None
+    w = (torch.zeros((rows, cap), dtype=torch.float32).numpy()
+         if csr.weights is not None else None)
     if hi_r > lo_r and cap > 0:
         sub = csr.indptr[lo_r : hi_r + 1] - csr.indptr[lo_r]
         r, s, p = _ell_slot_positions(sub, cap)
@@ -580,7 +581,10 @@ def sharded_blocks_from_csr(
     key = (shard * rb + br) * g + bc
     uniq, inv = np.unique(key, return_inverse=True)
     nb_tot = len(uniq)
-    tiles = np.zeros((max(nb_tot, 1), block, block), dtype=np.int8)
+    # multi-GB tile slabs zeroed by torch on all its threads (numpy would
+    # fault their pages in on one)
+    tiles = torch.zeros((max(nb_tot, 1), block, block),
+                        dtype=torch.int8).numpy()
     tiles[inv, src % block, dst % block] = 1
     u_shard = (uniq // (rb * g)).astype(np.int64)
     u_row = ((uniq // g) % rb).astype(np.int32)
@@ -589,7 +593,8 @@ def sharded_blocks_from_csr(
         shards, np.int64
     )
     nb = max(int(counts.max()) if nb_tot else 0, 1)
-    out_blocks = np.zeros((shards, nb, block, block), dtype=np.int8)
+    out_blocks = torch.zeros((shards, nb, block, block),
+                             dtype=torch.int8).numpy()
     out_rows = np.zeros((shards, nb), dtype=np.int32)
     out_cols = np.full((shards, nb), g, dtype=np.int32)  # sentinel col
     if nb_tot:
@@ -650,7 +655,8 @@ def sharded_blocks_shard(
     lo = min(f_lo * rows_local, n)
     hi = min(f_hi * rows_local, n)
     e_lo, e_hi = int(csr.indptr[lo]), int(csr.indptr[hi])
-    out_blocks = np.zeros((span, nb, block, block), np.int8)
+    out_blocks = torch.zeros((span, nb, block, block),
+                             dtype=torch.int8).numpy()
     out_rows = np.zeros((span, nb), np.int32)
     out_cols = np.full((span, nb), g, np.int32)  # sentinel col
     if e_hi > e_lo:
@@ -660,7 +666,8 @@ def sharded_blocks_shard(
         shard = src // rows_local
         key = (shard * rb + (src % rows_local) // block) * g + dst // block
         uniq, inv = np.unique(key, return_inverse=True)
-        tiles = np.zeros((len(uniq), block, block), np.int8)
+        tiles = torch.zeros((len(uniq), block, block),
+                            dtype=torch.int8).numpy()
         tiles[inv, src % block, dst % block] = 1
         u_shard = (uniq // (rb * g)).astype(np.int64) - f_lo
         counts = np.bincount(u_shard, minlength=span)

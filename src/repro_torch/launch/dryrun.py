@@ -202,7 +202,8 @@ def _cut_cell(arch, shape, mesh, overrides, cut):
     return steps._paper_cell(spec, s, mesh, False, **overrides)
 
 
-def _card_fields(arch, shape, device, overrides, cut, keep) -> dict:
+def _card_fields(arch, shape, device, overrides, cut, keep,
+                 csr=None) -> dict:
     from .hlo_analysis import HBM_BW, collective_stats
     from .mesh import make_mesh
     from . import steps
@@ -218,7 +219,10 @@ def _card_fields(arch, shape, device, overrides, cut, keep) -> dict:
         torch.cuda.synchronize(dev)
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    bound = steps.bind_cell(cell, mesh)
+    if csr is not None and csr.n_nodes != cell.dims["n_nodes"]:
+        raise ValueError(f"a graph of {csr.n_nodes} nodes for a cell of "
+                         f"{cell.dims['n_nodes']}")
+    bound = steps.bind_cell(cell, mesh, csr=csr)
     t_bind = time.perf_counter() - t0 - t_build
 
     def run():
@@ -823,12 +827,16 @@ def _layout_fields(arch, shape, mesh_tag, overrides) -> dict:
 def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
              force: bool = False, tag: str = "",
              overrides: dict | None = None, device=None,
-             cut: dict | None = None, keep: dict | None = None) -> dict:
+             cut: dict | None = None, keep: dict | None = None,
+             csr=None) -> dict:
     """One cell's record (written to ``out_dir``; a cached record is
     returned unless ``force``). ``mesh_tag`` is ``single``, ``multi``
     (analytic) or ``card`` (run on ``device``, ``cuda`` unless the caller
     passes ``"cpu"``; ``cut`` changes the shape's dims; ``keep``, if
-    given, receives the cell, the bound inputs and the result)."""
+    given, receives the cell, the bound inputs and the result). A paper
+    cell on the ``card`` binds ``csr`` if given (the shape's seeded graph
+    at the cell's node count, made beforehand; its ``bind_s`` then leaves
+    the generation out), else generates it."""
     from .hlo_analysis import roofline_terms
 
     name = f"{arch}__{shape}__{mesh_tag}" + (f"__{tag}" if tag else "")
@@ -866,7 +874,8 @@ def run_cell(arch: str, shape: str, mesh_tag: str, out_dir: str,
                 rec["reduced"] = dict(cut, why=LM_CUT_WHY)
             f = _lm_card_fields(arch, shape, device, cut or {}, keep)
         elif mesh_tag == "card":
-            f = _card_fields(arch, shape, device, overrides, cut, keep)
+            f = _card_fields(arch, shape, device, overrides, cut, keep,
+                             csr)
         elif lm:
             f = _lm_layout_fields(arch, shape, mesh_tag)
         else:

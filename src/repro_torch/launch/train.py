@@ -65,15 +65,18 @@ def make_train_step(cfg, ocfg: AdamWConfig):
 
 
 def build(arch: str, smoke: bool, batch: int, seq: int, lr: float,
-          device=None):
+          device=None, n_layers: int | None = None):
     """(cfg, model, opt, sched, stream, train_step); the model's
     parameters require a gradient, ``train_step`` is
-    ``make_train_step``'s."""
+    ``make_train_step``'s. ``n_layers``, if given, cuts the config's
+    depth (its widths kept)."""
     dev = resolve_device(device)
     spec = cfgbase.get(arch)
     if spec.family != "lm":
         raise ValueError(f"train.py drives the LM family, not {spec.family}")
     cfg = spec.smoke_config() if smoke else spec.full_config()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     model.requires_grad_(True)
     ocfg = AdamWConfig(lr=lr)

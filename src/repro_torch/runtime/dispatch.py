@@ -7,13 +7,38 @@ gang-scheduled phase-2 re-dispatch of the survivors), backend
 recommendation and the online learners (per-bucket budget model and
 in-flight direction-threshold refits). The split-phase surface is kept:
 
-- ``begin_batch`` plans the batch and runs phase 1 (or the static
-  engine). The port's engines read their loop condition on the host, so
-  phase 1 has finished on the device when ``begin_batch`` returns;
-- ``settle_batch`` takes the survivors, resumes them (phase 2), runs the
-  post-batch learning and returns a ``SettledBatch``;
+- ``begin_batch`` plans the batch on the calling thread and hands phase 1
+  (or the static engine) to the dispatcher's phase-1 worker, then returns
+  with it in flight, as JAX's asynchronous dispatch does;
+- ``settle_batch`` joins phase 1, takes the survivors, resumes them
+  (phase 2), runs the post-batch learning and returns a ``SettledBatch``;
 - ``finalize_batch`` stitches the phase-2 survivors back over the
   phase-1 state.
+
+**The phase-1 worker.** The port's engines read their loop condition on
+the host every iteration, so an engine call blocks its thread until the
+morsels converge. One daemon thread per dispatcher, started at the first
+``begin_batch``, runs those calls one at a time in submission order; on a
+CUDA device it runs them on a stream of its own. At submit the worker's
+stream waits on an event recorded on the caller's stream (the morsels and
+the operands are in place); at the end of phase 1 it records an event that
+the caller's stream waits on when the batch is joined, before any output
+is read, and the outputs are marked as used on the caller's stream for
+the caching allocator. The two events also keep ``binned_pull``'s shared
+hub counters and partials ordered between phase 1 and phase 2. An error
+raised in phase 1 re-raises where the batch is joined, with its
+traceback; nothing runs phase 1 again on the calling thread. Everything
+else stays on the calling thread: planning, the engine cache, phase 2,
+learning and the stitch, so ``settle(i)`` still precedes ``begin(i+1)``.
+
+**One thread per process group at a time.** Phase 1 runs collectives over
+the mesh's axis groups. Every dispatcher call that issues collectives on
+those groups, or replaces operands, while a batch is in flight joins
+phase 1 first: ``settle_batch``, ``apply_delta``, ``release_followers``
+and ``query``. The control channel (``_bcast``, the default group) and
+the stitch do not join: the axis groups are process groups of their own
+(``launch.mesh.Mesh``), so a leader's broadcast and a follower's
+``follow`` loop run beside the worker's collectives.
 
 What differs from the JAX package:
 
@@ -60,7 +85,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import queue
+import threading
 import time
+import weakref
+from concurrent.futures import Future
 from pathlib import Path
 from typing import Any, Callable
 
@@ -335,9 +364,11 @@ class OperandBundle:
 
 @dataclasses.dataclass
 class InflightBatch:
-    """A planned batch whose phase 1 (or static engine) has run;
+    """A planned batch whose phase 1 (or static engine) is in flight on
+    the phase-1 worker (``payload["phase1"]``, a ``Future``);
     ``kind`` routes ``settle_batch``: "hybrid", "static" or "chunked"
-    (an oversized batch run as a chunk loop at settle time)."""
+    (an oversized batch run as a chunk loop at settle time: nothing is in
+    flight)."""
 
     kind: str
     name: str
@@ -377,6 +408,67 @@ class SettledBatch:
 
 def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+class _Phase1Worker:
+    """The dispatcher's phase-1 thread (module docstring): ``submit``
+    queues one engine call and returns a ``Future`` of ``(output, event
+    recorded on the worker's stream or None)``. The thread holds only its
+    queue, so it ends once the owning dispatcher is gone; it is a daemon
+    and never keeps the process alive."""
+
+    def __init__(self, device: torch.device):
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self._jobs: queue.SimpleQueue = queue.SimpleQueue()
+        threading.Thread(target=_phase1_loop, args=(self._jobs, device),
+                         name="phase1", daemon=True).start()
+        weakref.finalize(self, self._jobs.put, None)
+
+    def submit(self, fn, *args) -> Future:
+        fut: Future = Future()
+        ready = (torch.cuda.current_stream(self.device).record_event()
+                 if self.device.type == "cuda" else None)
+        self._jobs.put((fut, ready, fn, args))
+        return fut
+
+
+def _phase1_loop(jobs: queue.SimpleQueue, device: torch.device) -> None:
+    stream = None
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        stream = torch.cuda.Stream(device)
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        _phase1_job(stream, *job)
+        del job  # an idle thread pins no batch
+
+
+def _phase1_job(stream, fut: Future, ready, fn, args) -> None:
+    try:
+        if stream is None:
+            out, done = fn(*args), None
+        else:
+            with torch.cuda.stream(stream):
+                stream.wait_event(ready)
+                out = fn(*args)
+                done = stream.record_event()
+    except BaseException as e:
+        # handed to the future, which re-raises it where the batch is
+        # joined (as concurrent.futures' own workers do): a join never
+        # waits on a future left unresolved
+        fut.set_exception(e)
+    else:
+        fut.set_result((out, done))
+
+
+def _used_on(t: torch.Tensor, stream) -> torch.Tensor:
+    if t.is_cuda:
+        t.record_stream(stream)
+    return t
 
 
 def _take_padded(x: torch.Tensor, idx: torch.Tensor, rows: int):
@@ -467,6 +559,36 @@ class QueryDispatcher:
         # called with (seq, outcome) as each batch is finalized, on every
         # rank (a follower's replays included)
         self.on_finalized: Callable[[int, QueryOutcome], None] | None = None
+        self._worker: _Phase1Worker | None = None  # started at first use
+        self._inflight: Future | None = None  # the last phase 1 submitted
+
+    # ------------------------------------------------------ phase-1 worker
+
+    def _submit_phase1(self, engine, *args) -> Future:
+        """Queue one engine call on the phase-1 worker."""
+        if self._worker is None:
+            self._worker = _Phase1Worker(self.device)
+        self._inflight = self._worker.submit(engine, *args)
+        return self._inflight
+
+    def _await(self, phase1: Future):
+        """``phase1``'s output once it has finished (its error re-raised
+        here): the caller's stream waits on its end and the outputs are
+        marked as used on that stream."""
+        if self._inflight is phase1:
+            self._inflight = None
+        out, done = phase1.result()
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            map_tensors(lambda t: _used_on(t, stream), out)
+        return out
+
+    def _join(self) -> None:
+        """Wait for every phase 1 submitted (the worker runs them in
+        order): the rule of the module docstring."""
+        if self._inflight is not None:
+            self._await(self._inflight)
 
     # ------------------------------------------------------- rank 0 leads
 
@@ -500,6 +622,7 @@ class QueryDispatcher:
 
     def release_followers(self) -> None:
         """Rank 0: let every follower's ``follow`` return."""
+        self._join()
         if self.leads:
             _bcast(("stop", 0, {}))
 
@@ -571,7 +694,10 @@ class QueryDispatcher:
         the keys of engines scanning a rebuilt structure. Batches planned
         after this call see the new graph; batches in flight keep the
         tensors they pinned at begin time. On a mesh every rank calls it
-        (SPMD, or rank 0 leading and the followers replaying it)."""
+        (SPMD, or rank 0 leading and the followers replaying it). A phase 1
+        in flight is joined first: the fold's collectives run over its
+        process groups."""
+        self._join()
         if self.leads:
             _bcast(("delta", self.operands_version, {"delta": delta}))
         t0 = time.perf_counter()
@@ -929,9 +1055,10 @@ class QueryDispatcher:
 
     def _begin_hybrid(self, pol, ec, g, n_pad, morsels, state_layout,
                       extend=ExtendSpec(), n_real=0, buckets=(), epoch=0):
-        """Choose the budget and run phase 1. The phase-2 operands and
-        their epoch are resolved and pinned here too, so a delta applied
-        before ``_settle_hybrid`` cannot run phase 2 on another graph."""
+        """Choose the budget and hand phase 1 to the worker. The phase-2
+        operands and their epoch are resolved and pinned here too, so a
+        delta applied before ``_settle_hybrid`` cannot run phase 2 on
+        another graph."""
         p1, p2 = hybrid_phases(
             pol.source_axes, pol.graph_axes, lanes=pol.lanes,
             or_impl=pol.or_impl,
@@ -946,24 +1073,24 @@ class QueryDispatcher:
         )
         b2 = self._graph_for(p2, extend)
         t0 = time.perf_counter()
-        out1 = eng1(g, morsels)
+        phase1 = self._submit_phase1(eng1, g, morsels)
         return {
             "pol": pol, "p2": p2, "ec": ec, "g": g, "n_pad": n_pad,
             "state_layout": state_layout, "extend": extend,
             "n_real": n_real, "budget": budget, "collect": collect,
-            "out1": out1, "t0": t0, "g2": b2.ops,
+            "phase1": phase1, "t0": t0, "g2": b2.ops,
             "n_pad2": b2.n_pad, "epoch2": self._spec_epoch(b2, extend),
         }
 
     def _settle_hybrid(self, inf) -> SettledBatch:
-        """Read phase 1's survivors, resume them (phase 2) and defer the
-        state stitch into ``SettledBatch.finalize``."""
+        """Join phase 1, read its survivors, resume them (phase 2) and
+        defer the state stitch into ``SettledBatch.finalize``."""
         pol, p2, ec = inf["pol"], inf["p2"], inf["ec"]
         g, n_pad = inf["g"], inf["n_pad"]
         state_layout, extend = inf["state_layout"], inf["extend"]
         n_real, budget, collect = inf["n_real"], inf["budget"], inf["collect"]
         sharded = state_layout == "sharded" and self.mesh.size > 1
-        out1 = inf["out1"]
+        out1 = self._await(inf["phase1"])
         res1, stats1 = out1 if collect else (out1, None)
         f1 = res1.state.frontier
         active = _host((f1 != 0).reshape(f1.shape[0], -1).any(dim=1))
@@ -1080,14 +1207,15 @@ class QueryDispatcher:
             extend=extend, morsel_shape=morsels.shape[:1], epoch=epoch,
         )
         t0 = time.perf_counter()
-        res = eng(g, morsels)
-        return {"pol": pol, "res": res, "t0": t0}
+        phase1 = self._submit_phase1(eng, g, morsels)
+        return {"pol": pol, "phase1": phase1, "t0": t0}
 
     def _settle_static(self, inf) -> SettledBatch:
+        res = self._await(inf["phase1"])
         synchronize(self.device)
         t1 = time.perf_counter()
         return SettledBatch(QueryOutcome(
-            result=inf["res"], policy=inf["pol"].name, hybrid=False,
+            result=res, policy=inf["pol"].name, hybrid=False,
             redispatched=0,
             phase_ms={"phase1": (t1 - inf["t0"]) * 1e3, "phase2": 0.0},
             phase1_budget=0,
@@ -1206,9 +1334,10 @@ class QueryDispatcher:
         backend=None,
         query_kind: str = "reach",
     ) -> InflightBatch:
-        """Plan one batch and run its phase 1 (or static engine). Settle
-        it with ``settle_batch`` before the next ``begin_batch``: learning
-        is host-serial. On a mesh, rank 0 first tells the followers."""
+        """Plan one batch and hand its phase 1 (or static engine) to the
+        phase-1 worker; returns with it in flight. Settle it with
+        ``settle_batch`` before the next ``begin_batch``: learning is
+        host-serial. On a mesh, rank 0 first tells the followers."""
         seq = self._seq
         self._seq += 1
         if self.leads:
@@ -1245,8 +1374,8 @@ class QueryDispatcher:
         return InflightBatch("static", name, n_real, buckets, inf)
 
     def settle_batch(self, inflight: InflightBatch) -> SettledBatch:
-        """Resume survivors, run post-batch learning; the stitched state
-        may still be deferred to ``finalize_batch``."""
+        """Join phase 1, resume survivors, run post-batch learning; the
+        stitched state may still be deferred to ``finalize_batch``."""
         if self.leads:
             _bcast(("settle", inflight.seq, {}))
         if inflight.kind == "chunked":
@@ -1334,7 +1463,9 @@ class QueryDispatcher:
         query_kind: str = "reach",
     ) -> QueryOutcome:
         """Serve one request batch synchronously: ``begin_batch`` +
-        ``settle_batch`` + ``finalize_batch``."""
+        ``settle_batch`` + ``finalize_batch``, after any phase 1 in
+        flight."""
+        self._join()
         inflight = self.begin_batch(
             sources, returns_paths=returns_paths, policy=policy,
             state_layout=state_layout, backend=backend,

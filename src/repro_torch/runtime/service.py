@@ -20,10 +20,10 @@ unfinalized batch riding behind the one in flight::
 Learning order is untouched (``settle(i)`` precedes ``begin(i+1)``), so
 results, budgets and thresholds are those of the synchronous façade on the
 same admission order; ``overlap=False`` runs the same steps strictly in
-series. In the port ``begin_batch`` returns with phase 1 already run (its
-loop reads the frontier on the host every iteration), so a finalize
-counted as overlapped has no device work to hide behind yet: the counter
-keeps the JAX package's order and meaning, not its effect.
+series. ``begin_batch`` returns with batch i's phase 1 in flight on the
+dispatcher's phase-1 worker (its own thread and, on a card, its own
+stream), so ``finalize(i-1)`` runs on this thread while phase 1 runs, and
+``settle(i)`` joins it.
 
 **Telemetry.** Per-tenant submitted / completed / shed / deadline-miss
 counters and latencies, split warm/cold: a batch that raised the engine
@@ -97,7 +97,8 @@ class TenantStats:
 @dataclasses.dataclass
 class ServingStats:
     """Loop-level counters. A finalize is one batch's deferred state
-    stitch; it is overlapped when it ran after a later batch began.
+    stitch; it is overlapped when it ran after a later batch began, that
+    is while the later batch's phase 1 was in flight.
     ``cold_ms`` sums the wall of cold batches, reported apart from the warm
     percentiles."""
 
@@ -111,8 +112,8 @@ class ServingStats:
 
     @property
     def overlap_occupancy(self) -> float:
-        """Fraction of finalizes run after a later batch began (0.0 in
-        serial mode and on one-batch streams)."""
+        """Fraction of finalizes run after a later batch began, behind
+        its phase 1 (0.0 in serial mode and on one-batch streams)."""
         return (
             self.overlapped_finalizes / self.finalizes
             if self.finalizes
@@ -272,6 +273,8 @@ class ServingLoop:
             pb.sources, policy=pb.policy, query_kind=pb.query_kind,
         )
         if self._tail is not None and self.overlap:
+            # batch i's phase 1 is in flight on the dispatcher's worker:
+            # stitch batch i-1 meanwhile
             self._finalize_tail(overlapped=True)
         settled = self.dispatcher.settle_batch(inflight)
         # compile_events (builds + first-seen morsel shapes), not misses

@@ -44,6 +44,11 @@ torch and numpy, so it runs on a machine with a GPU and no JAX:
   slot was freed and claimed by another, bitwise; and a short
   ``ServingLoop`` stream with one delta, per query equal to the same
   stream on the CPU.
+- The phase-1 worker on the card: its morsel loops run on the worker's
+  own stream, not the caller's, and its future carries an event of that
+  stream; the open loop's order over the split-phase API with a delta
+  between a batch's begin and settle (``test_torch_ranks.pipelined_run``),
+  overlapped and serial, equals the CPU bitwise.
 - Shard-local operands (the multi-rank layout): ``binned_pull`` on one
   rank's pack (``rows_local < n_out``, a nonzero row base), all five
   ops, and ``msbfs_extend`` on one rank's tiles (``g_out`` above the
@@ -654,6 +659,53 @@ def test_serving_loop_with_delta_on_card_matches_cpu(backend, per_query,
     assert sorted(cpu) == sorted(card)
     for qid in cpu:
         np.testing.assert_array_equal(card[qid], cpu[qid], err_msg=qid)
+
+
+@pytest.mark.parametrize("backend", ["dopt_fused", "block_mxu"])
+def test_phase1_worker_stream_on_card_matches_cpu(backend, cuda_device,
+                                                  monkeypatch):
+    """Phase 1 runs on the worker's stream; the pipelined split-phase
+    loop with a delta in flight gives the CPU's bits, overlapped and
+    serial."""
+    import threading
+
+    import repro_torch.core.dispatcher as cd
+    from repro_torch.graph.delta import random_delta
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    import test_torch_ranks as TR
+
+    streams = set()
+    run_morsel = cd._run_morsel
+
+    def recording(*args, **kwargs):
+        if threading.current_thread().name == "phase1":
+            streams.add(torch.cuda.current_stream().cuda_stream)
+        return run_morsel(*args, **kwargs)
+
+    monkeypatch.setattr(cd, "_run_morsel", recording)
+    csr = powerlaw(160, 5.0, seed=0)
+    delta = random_delta(csr, 15, 15, seed=9)
+    batches = TR.overlap_batches()
+    d = QueryDispatcher(cuda_device, csr, max_iters=64, phase1_iters=1)
+    inflight = d.begin_batch(batches[0][0], policy="ntks", backend=backend)
+    _, done = inflight.payload["phase1"].result(timeout=120)
+    assert isinstance(done, torch.cuda.Event)
+    d.settle_batch(inflight).finalize()
+    assert streams and torch.cuda.current_stream().cuda_stream not in streams
+    runs = {}
+    for dev, overlap in (("cpu", False), (cuda_device, True),
+                         (cuda_device, False)):
+        d = QueryDispatcher(dev, csr, max_iters=64, phase1_iters=1)
+        runs[str(dev), overlap] = TR.pipelined_run(
+            d, batches, delta, TR.OVERLAP_DELTA_AT, overlap, backend)
+    cpu = runs["cpu", False]
+    for key, outs in runs.items():
+        for i, (a, b) in enumerate(zip(outs, cpu)):
+            assert torch.equal(a.result.iterations.cpu(),
+                               b.result.iterations), (key, i)
+            for x, y in zip(a.result.state, b.result.state):
+                assert torch.equal(x.cpu(), y), (key, i)
 
 
 @pytest.mark.parametrize("backend", ["pull_binned_fused", "dopt_fused"])

@@ -165,6 +165,29 @@ def test_cpu_card_record_has_jax_keys(tmp_path):
     assert cached["wall_ms"] == rec["wall_ms"]  # read back, not rerun
 
 
+def test_card_record_binds_a_graph_made_beforehand(tmp_path):
+    from repro_torch.launch.steps import paper_graph
+
+    made = {}
+    rec = dryrun.run_cell(ARCH, "ldbc100", "card", str(tmp_path),
+                          device="cpu", cut={"n_nodes": 2000}, keep=made)
+    given = {}
+    csr = paper_graph("ldbc100", 2000)
+    rec2 = dryrun.run_cell(ARCH, "ldbc100", "card", str(tmp_path),
+                           force=True, device="cpu", cut={"n_nodes": 2000},
+                           keep=given, csr=csr)
+    assert rec2["status"] == "ok", rec2.get("traceback")
+    for k in ("n_nodes", "n_edges_generated", "n_edges_cut", "iterations",
+              "edges_scanned"):
+        assert rec2[k] == rec[k], k
+    assert all(torch.equal(a, b) for a, b in zip(
+        made["result"].state, given["result"].state))
+    bad = dryrun.run_cell(ARCH, "ldbc100", "card", str(tmp_path),
+                          force=True, device="cpu", cut={"n_nodes": 2048},
+                          csr=csr)
+    assert bad["status"] == "error" and "2000 nodes" in bad["error"]
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_layout_records_are_analytic(mesh, tmp_path):
     for shape in ("ldbc100", "graph500_28"):

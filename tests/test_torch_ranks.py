@@ -1411,3 +1411,91 @@ def moe_mesh_rank(rank: int, world: int, shape: tuple, trees: dict) -> dict:
                                               trees[arch, "float32"])
             set_activation_rules(None)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The pipelined split-phase loop with a delta in flight (test_torch_overlap).
+# ---------------------------------------------------------------------------
+
+OVERLAP_MESH = ((1, 2), ("data", "model"))
+OVERLAP_DELTA_AT = 2  # the delta lands between this batch's begin and settle
+
+
+def overlap_batches() -> list:
+    """``[(sources, state_layout)]`` of the pipelined loop, seeded, over
+    ``powerlaw(160, 5.0, seed=0)``."""
+    rng = np.random.default_rng(4)
+    return [(rng.integers(0, 160, 4).astype(np.int32),
+             ("replicated", "sharded")[i % 2]) for i in range(5)]
+
+
+def pipelined_run(d, batches, delta, at: int, overlap: bool,
+                  backend: str = "dopt") -> list:
+    """``ServingLoop``'s order over a dispatcher's split-phase API,
+    ``begin(i)``, ``finalize(i-1)``, ``settle(i)``, nTkS on ``backend``,
+    with ``delta`` applied between the begin and the settle of batch
+    ``at``; ``overlap=False`` finalizes each batch before the next begins.
+    Either package's dispatcher; returns the outcomes in batch order."""
+    tail, outs = None, []
+    for i, (srcs, lay) in enumerate(batches):
+        inflight = d.begin_batch(srcs, policy="ntks", state_layout=lay,
+                                 backend=backend)
+        if overlap and tail is not None:
+            outs.append(tail.finalize())
+        if i == at:
+            d.apply_delta(delta)
+        settled = d.settle_batch(inflight)
+        if overlap:
+            tail = settled
+        else:
+            outs.append(settled.finalize())
+    if tail is not None:
+        outs.append(tail.finalize())
+    return outs
+
+
+def overlap_rank(rank: int, world: int) -> dict:
+    """``pipelined_run`` on ``OVERLAP_MESH`` with rank 0 leading and the
+    follower replaying, overlapped and then serial: each rank's finalized
+    batches (levels, iterations) by control-channel number, its ``Wire``
+    (calls, bytes, by kind, by axis) and the threads that ran phase 1's
+    morsel loops."""
+    import threading
+
+    import repro_torch.core.dispatcher as cd
+    from repro_torch.graph.delta import random_delta
+    from repro_torch.graph.generators import powerlaw
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.dispatch import QueryDispatcher
+
+    threads = set()
+    run_morsel = cd._run_morsel
+
+    def recording(*args, **kwargs):
+        threads.add(threading.current_thread().name)
+        return run_morsel(*args, **kwargs)
+
+    cd._run_morsel = recording
+    mesh = make_mesh(*OVERLAP_MESH, "cpu")
+    csr = powerlaw(160, 5.0, seed=0)
+    delta = random_delta(csr, 15, 15, seed=9)
+    out = {}
+    for mode, overlap in (("overlap", True), ("serial", False)):
+        mesh.wire.reset()
+        d = QueryDispatcher(mesh, csr, max_iters=64, phase1_iters=1)
+        d.leading = True
+        got = {}
+        d.on_finalized = lambda seq, o: got.__setitem__(seq, (
+            o.result.state.levels.numpy(), o.result.iterations.numpy()))
+        if rank == 0:
+            pipelined_run(d, overlap_batches(), delta, OVERLAP_DELTA_AT,
+                          overlap)
+            d.release_followers()
+        else:
+            d.follow()
+        w = mesh.wire
+        out[mode] = got
+        out[mode, "wire"] = (w.calls, w.bytes, w.staged_bytes, w.by_kind,
+                             w.by_axis)
+    out["threads"] = sorted(threads)
+    return out

@@ -588,3 +588,23 @@ def test_train_main_crash_restart_matches_jax(tmp_path, capsys,
     manifests = [json.loads((tmp_path / n / "step_40" / "manifest.json")
                             .read_text())["leaves"] for n in ("jax", "port")]
     assert manifests[0] == manifests[1]
+
+
+def test_build_cuts_depth_and_keeps_widths():
+    """``build(n_layers=k)``: the smoke config with ``k`` layers, its
+    widths JAX's, the model's stack ``k`` deep, one finite step."""
+    jcfg = jbase.get("minicpm-2b").smoke_config()
+    cfg, model, opt, sched, stream, step = ttrain.build(
+        "minicpm-2b", True, 2, 16, 1e-3, "cpu", n_layers=1)
+    whole = ttrain.build("minicpm-2b", True, 2, 16, 1e-3, "cpu")[0]
+    assert jcfg.n_layers > 1 and cfg.n_layers == 1
+    assert dataclasses.replace(whole, n_layers=1) == cfg
+    assert (cfg.d_model, cfg.n_heads, cfg.vocab) == (
+        jcfg.d_model, jcfg.n_heads, jcfg.vocab)
+    n_cut = sum(p.numel() for p in model.parameters())
+    n_whole = sum(p.numel() for p in ttrain.build(
+        "minicpm-2b", True, 2, 16, 1e-3, "cpu")[1].parameters())
+    assert n_cut < n_whole
+    batch = ttrain.device_batch(stream.batch(0), "cpu")
+    _, opt, loss, gnorm = step(model, opt, batch, sched(1))
+    assert np.isfinite(float(loss)) and np.isfinite(float(gnorm))

@@ -329,10 +329,18 @@ Phases (any failure exits non-zero and prints no result):
    0.1 lr but where the step's gradient is rounding-sized, there 2 lr:
    ``PHASE14_TOL``). Every step's ``Wire`` records equal
    ``collective_schedule(kind="train")``, ``mha`` launches 0 times and no
-   kernel counter moves. Prints the slowest rank's warm step beside one
-   rank's, per rank the collectives' calls, ms by kind, payload and
-   staged bytes by kind and axis, peak device memory and the check's
-   spreads;
+   kernel counter moves. Then the elastic checkpoint: the float32 state
+   saved through ``CheckpointManager.save(shardings=)`` under ``build/``
+   (rank 0 writes 4.13 GB), restored onto a ``(1, 4)`` mesh of the same
+   ranks and into a one-rank model on the card, every block bitwise
+   ``block_of`` the saved arrays (leaf digests against the one-rank
+   restore's blocks), and one more float32 step on both meshes held
+   against each other at ``PHASE14_TOL``. Prints the slowest rank's
+   warm step beside one rank's, per rank the collectives' calls, ms by
+   kind, payload and staged bytes by kind and axis, peak device memory
+   and the check's spreads, and the checkpoint's bytes, gather, write
+   and restore seconds, peak memory and added seconds with the card's
+   name and power limit;
 15. MoE layers on a mesh of ranks (``models/transformer_mesh.py``'s
    expert-parallel ``_moe``: each ``model`` rank runs its 32 of the 64
    experts over the tokens it holds, with JAX's global capacity, slot
@@ -2657,11 +2665,11 @@ def phase_8c(dev, train) -> dict:
             self.secs = {"snapshot": [], "write": [], "restore": []}
             self.saved = None
 
-        def save(self, step, tree, blocking=False):
+        def save(self, step, tree, blocking=False, shardings=None):
             if self.saved is None:
                 self.saved = (step, tfm.state_to_numpy(model, live["opt"]))
             t0 = time.perf_counter()
-            super().save(step, tree, blocking)
+            super().save(step, tree, blocking, shardings)
             self.secs["snapshot"].append(time.perf_counter() - t0)
 
         def _write(self, step, leaves):
@@ -2669,9 +2677,9 @@ def phase_8c(dev, train) -> dict:
             super()._write(step, leaves)
             self.secs["write"].append(time.perf_counter() - t0)
 
-        def restore(self, like, step=None):
+        def restore(self, like, step=None, shardings=None):
             t0 = time.perf_counter()
-            out = super().restore(like, step)
+            out = super().restore(like, step, shardings)
             torch.cuda.synchronize()
             self.secs["restore"].append(time.perf_counter() - t0)
             return out
@@ -4998,6 +5006,13 @@ PHASE14_SEED = 14  # the batch's tokens
 PHASE14_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "moment": 1e-4,
                "rounding": 1e-6}
 PHASE14_REF = "phase14_ref"  # the one-rank state, under build/, removed
+#: the float32 (2, 2) state's elastic checkpoint, under build/, removed;
+#: it restores onto this mesh of the same four ranks and onto one rank
+PHASE14_CKPT = "phase14_ckpt"
+PHASE14_RESIZE = (1, 4)
+#: words one int64 sum of ``bits_digest`` adds: 2^22 words below 2^31
+#: times weights of at most 251 stay below 2^63
+DIGEST_CHUNK = 1 << 22
 
 
 def phase14_cell(mesh, dtype):
@@ -5040,15 +5055,190 @@ def _phase14_model(cfg, dev):
     return tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def bits_digest(t: torch.Tensor) -> list:
+    """A fingerprint of a tensor's bits, computed where it lies: its
+    shape, dtype and two integer sums of its 32-, 16- or 8-bit words,
+    plain and weighted by position (mod 251, plus 1), exact in any
+    order. Two tensors with the same bits have the same digest; a
+    restore that misplaces, drops or rounds a value changes it."""
+    words = t.detach().contiguous().reshape(-1)
+    words = words.view({4: torch.int32, 2: torch.int16,
+                        1: torch.int8}[words.element_size()])
+    total = weighted = 0
+    for i in range(0, words.numel(), DIGEST_CHUNK):
+        c = words[i:i + DIGEST_CHUNK].long()
+        w = torch.arange(i, i + c.numel(), device=c.device) % 251 + 1
+        total += int(c.sum())
+        weighted += int((c * w).sum())
+    return [list(t.shape), str(t.dtype), total, weighted]
+
+
+def state_digests(tree, specs=None, mesh_shape=None, coords=None) -> dict:
+    """``{leaf key: bits_digest}`` of a checkpoint tree's tensors (a
+    ``Stacked`` leaf's groups as ``key#g``); with ``specs`` (by leaf
+    key), of each leaf's block under its spec at ``coords``."""
+    from repro_torch.checkpoint.checkpoint import Stacked, _flatten_with_paths
+    from repro_torch.nn.module import block_slices
+
+    out = {}
+    for key, leaf in _flatten_with_paths(tree).items():
+        spec = None if specs is None else specs[key]
+        parts = (list(enumerate(leaf.tensors)) if isinstance(leaf, Stacked)
+                 else [(None, leaf)])
+        for g, t in parts:
+            if spec is not None:
+                sp = spec if g is None else spec[1:]
+                t = t[block_slices(t.shape, sp, mesh_shape, coords)]
+            out[key if g is None else f"{key}#{g}"] = bits_digest(t)
+    return out
+
+
+def phase14_elastic(mesh, cell, model, opt, gbatch, ref_dir: str,
+                    ckpt_dir: str, dev) -> dict:
+    """The elastic checkpoint on this rank, after the float32 check
+    step: the (2, 2) state saved (rank 0 writes), restored onto a
+    ``PHASE14_RESIZE`` mesh of the same ranks, one more float32 step on
+    each mesh, the two held against each other leaf by leaf. Returns
+    each mesh's leaf digests and specs, the steps' loss, norm and ms,
+    the check's spreads, the seconds and the peak memory."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import (CheckpointManager,
+                                                   _flatten_with_paths)
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.core.collectives import max_allreduce
+    from repro_torch.nn.module import reshard_block
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    t_all = time.perf_counter()
+    dist.barrier()  # every rank has read the one-rank reference
+    if mesh.rank == 0:  # so that one copy of the state is on disk at most
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = {}
+
+    def specs_of(shardings):
+        return {k: s.spec for k, s in _flatten_with_paths(shardings).items()}
+
+    sh22 = steps.state_shardings(model, mesh)
+    state = steps.train_state(model, opt)
+    rec["digests"] = {"22": state_digests(state)}
+    rec["specs"] = {"22": specs_of(sh22)}
+    rec["coords"] = {"22": {a: mesh.coord(a) for a in mesh.axis_names}}
+    mesh.wire.reset()
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mgr.save(1, state, shardings=sh22)
+    rec["gather_s"] = time.perf_counter() - t0
+    rec["gather_wire"] = _wire13(mesh)
+    rec["host_rss_gb_after_gather"] = host_rss_gb()
+    t0 = time.perf_counter()
+    mgr.wait()
+    rec["write_s"] = time.perf_counter() - t0
+    del state
+    # restore onto PHASE14_RESIZE over the same ranks
+    mesh14 = make_mesh(PHASE14_RESIZE, ("data", "model"), dev)
+    cell14 = phase14_cell(mesh14, torch.float32)
+    model14 = _phase14_model(cell14.config, dev)
+    steps.shard_lm(cell14, model14, mesh14)
+    model14.requires_grad_(True)
+    opt14 = adamw_init(steps.params_dict(model14), AdamWConfig(
+        moment_dtype=steps._moment_dtype(cell14.config)))
+    sh14 = steps.state_shardings(model14, mesh14)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, rec["restored_step"] = CheckpointManager(ckpt_dir).restore(
+        steps.train_state(model14, opt14), shardings=sh14)
+    torch.cuda.synchronize(dev)
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["digests"]["14"] = state_digests(steps.train_state(model14, opt14))
+    rec["specs"]["14"] = specs_of(sh14)
+    rec["coords"]["14"] = {a: mesh14.coord(a) for a in mesh14.axis_names}
+    # one more float32 step on each mesh, from the same state
+    runs = {}
+    for key, c, m, o, msh in (("14", cell14, model14, opt14, mesh14),
+                              ("22", cell, model, opt, mesh)):
+        (_, o, loss, gnorm), ms = _timed(lambda: c.fn(m, o, gbatch), dev)
+        runs[key] = {"ms": ms, "loss": float(loss),
+                     "grad_norm": float(gnorm)}
+        if key == "14":
+            opt14 = o
+        else:
+            opt = o
+    rec["steps"] = runs
+    # the (2, 2) blocks against the same blocks of the (1, 4) state,
+    # leaf by leaf, each rank receiving its (2, 2) block's part of the
+    # (1, 4) state on the wire device
+    lr, specs22, specs14 = 3e-4, model.shard_specs, model14.shard_specs
+    p22 = dict(model.named_parameters())
+    p14 = dict(model14.named_parameters())
+    every = mesh.axes(mesh.axis_names)
+    share = {"mu": 0.0, "nu": 0.0}
+    n = loose = over = 0
+    p_max = 0.0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for name in specs22:
+            ref, top = {}, {}
+            for part, t in (("params", p14[name]), ("mu", opt14.mu[name]),
+                            ("nu", opt14.nu[name])):
+                ref[part] = reshard_block(
+                    t.detach().to(mesh14.wire_device), specs14[name],
+                    mesh14, specs22[name], mesh).to(dev)
+                top[part] = float(max_allreduce(
+                    ref[part].abs().max().reshape(1).to(mesh.wire_device),
+                    every)[0])
+            for part in ("mu", "nu"):
+                e = float((getattr(opt, part)[name] - ref[part]).abs().max())
+                share[part] = max(share[part], e / max(top[part], 1e-30))
+            d = (p22[name].detach() - ref["params"]).abs()
+            tiny = ref["mu"].abs() <= PHASE14_TOL["rounding"] * top["mu"]
+            p_max = max(p_max, float(d.max()))
+            over += (int(((d > 0.1 * lr) & ~tiny).sum())
+                     + int((d > 2 * lr).sum()))
+            n += d.numel()
+            loose += int((d > TRAIN_PARAM_ABS).sum())
+            del ref, d, tiny
+    rec["compare_s"] = time.perf_counter() - t0
+    rec["check"] = {"moment_share": share, "param_max_abs": p_max,
+                    "param_over": over, "param_loose": loose, "param_n": n}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model14, opt14
+    dist.barrier()
+    rec["seconds"] = time.perf_counter() - t_all
+    return rec
+
+
 def phase14_rank(rank: int, world: int, batch: dict, ref_dir: str,
-                 device: str) -> dict:
+                 ckpt_dir: str, device: str) -> dict:
     """One of four gloo ranks sharing the card: the cell's model (seed 0,
     as the one-rank run) cut by ``steps.shard_lm``; a cold and
     ``PHASE14_TIMED`` warm bfloat16 steps on the global ``batch``, then
     a float32 step from fresh weights held, block by block, against the
-    one-rank state under ``ref_dir``. Returns each step's ms, loss,
+    one-rank state under ``ref_dir``; then the elastic checkpoint under
+    ``ckpt_dir`` (``phase14_elastic``). Returns each step's ms, loss,
     norm and collectives (equal to the schedule or not), peak memory,
-    kernel launches and the check's spreads."""
+    kernel launches, the check's spreads and the elastic record."""
     from repro_torch.kernels.binned_pull import binned_pull as bp_mod
     from repro_torch.kernels.block_spmm import block_spmm as bs_mod
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
@@ -5100,15 +5290,13 @@ def phase14_rank(rank: int, world: int, batch: dict, ref_dir: str,
         rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         rec["notes"] = cell.notes
         rec["remat"] = cell.decisions["remat"]
-        return rec, model, opt
+        return rec, model, opt, cell
 
-    rec, model, opt = run(torch.bfloat16, 1 + PHASE14_TIMED)
+    rec, model, opt, _ = run(torch.bfloat16, 1 + PHASE14_TIMED)
     out["runs"]["bfloat16"] = rec
     del model, opt
-    rec, model, opt = run(torch.float32, 1)
+    rec, model, opt, cell = run(torch.float32, 1)
     out["runs"]["float32"] = rec
-    out["launches"] = {k: f.launches for k, f in counters.items()}
-    out["route_calls"] = dict(attn.route_calls)
     # the check: each block against its slice of the one-rank state
     with open(os.path.join(ref_dir, "max.json")) as f:
         top = json.load(f)
@@ -5141,7 +5329,90 @@ def phase14_rank(rank: int, world: int, batch: dict, ref_dir: str,
                     "param_over": over, "param_loose": loose,
                     "param_n": n, "tiny_gradients": tiny_n,
                     "worst_leaf": max(worst.items(), key=lambda kv: kv[1])}
+    out["elastic"] = phase14_elastic(mesh, cell, model, opt, gbatch,
+                                     ref_dir, ckpt_dir, dev)
+    out["launches"] = {k: f.launches for k, f in counters.items()}
+    out["route_calls"] = dict(attn.route_calls)
     return out
+
+
+def phase14_scale_down(dev, ckpt_dir: Path, reps: list) -> dict:
+    """The main process's part of the elastic checkpoint: the (2, 2)
+    state's checkpoint restored into a one-rank float32 model on the
+    card, every rank's (2, 2) and ``PHASE14_RESIZE`` block digests held
+    against the same blocks of it (so the file is the gathered state
+    and each restore ``block_of`` it, bit for bit), and each rank's
+    step on both meshes against ``PHASE14_TOL``. Returns the figures
+    and the faults found (``bad``)."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    t_all = time.perf_counter()
+    bad = []
+    cfg = phase14_cell(make_mesh((1, 1), ("data", "model"), dev),
+                       torch.float32).config
+    model = _phase14_model(cfg, dev)
+    opt = adamw_init(dict(model.named_parameters()), AdamWConfig(
+        moment_dtype=steps._moment_dtype(cfg)))
+    nbytes = sum(f.stat().st_size for f in (ckpt_dir / "step_1").iterdir())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tree = tfm.state_tree(model, opt)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, step = CheckpointManager(str(ckpt_dir)).restore(tree)
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    if step != 1:
+        bad.append(f"the one-rank restore read step {step}, not 1")
+    t0 = time.perf_counter()
+    for r in reps:
+        e = r["elastic"]
+        if e["restored_step"] != 1:
+            bad.append(f"rank {r['rank']} restored step "
+                       f"{e['restored_step']}, not 1")
+        for key, shape in (("22", PHASE14_MESH), ("14", PHASE14_RESIZE)):
+            want = state_digests(tree, e["specs"][key],
+                                 dict(zip(("data", "model"), shape)),
+                                 e["coords"][key])
+            off = [k for k in want if want[k] != e["digests"][key].get(k)]
+            if off or set(want) != set(e["digests"][key]):
+                bad.append(f"rank {r['rank']} {shape} blocks are not the "
+                           f"one-rank restore's at {off[:5]}")
+        s14, s22 = e["steps"]["14"], e["steps"]["22"]
+        for k in ("loss", "grad_norm"):
+            if not abs(s14[k] - s22[k]) <= PHASE14_TOL[k] * abs(s22[k]):
+                bad.append(f"rank {r['rank']} {k} {s14[k]} on "
+                           f"{PHASE14_RESIZE} against {s22[k]} on "
+                           f"{PHASE14_MESH}")
+        c = e["check"]
+        if (max(c["moment_share"].values()) > PHASE14_TOL["moment"]
+                or c["param_over"]
+                or c["param_loose"] > TRAIN_PARAM_LOOSE * c["param_n"]):
+            bad.append(f"rank {r['rank']} state after the step on "
+                       f"{PHASE14_RESIZE} against {PHASE14_MESH}: {c}")
+    digest_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model, opt, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_s = time.perf_counter() - t_all
+    per = [{k: r["elastic"][k] for k in (
+        "gather_s", "write_s", "restore_s", "compare_s", "seconds",
+        "peak_gb", "steps", "check", "host_rss_gb_after_gather")}
+        | {"rank": r["rank"],
+           "gather_payload_gb": r["elastic"]["gather_wire"]["payload_bytes"]
+           / 1e9} for r in reps]
+    return {"bytes": nbytes, "resize": list(PHASE14_RESIZE),
+            "ranks": per, "one_rank_restore_s": restore_s,
+            "digest_check_s": digest_s, "one_rank_peak_gb": peak,
+            "main_s": main_s,
+            "added_s": max(p["seconds"] for p in per) + main_s,
+            "card": card_line(), "bad": bad}
 
 
 def phase_14(dev, launches_before) -> dict:
@@ -5206,15 +5477,18 @@ def phase_14(dev, launches_before) -> dict:
     one_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    ckpt_dir = ROOT / "build" / PHASE14_CKPT
     try:
         reps = run_ranks(phase14_rank, RANKS,
-                         (batch, str(ref_dir), f"{DEVICE}:0"),
+                         (batch, str(ref_dir), str(ckpt_dir), f"{DEVICE}:0"),
                          backend="gloo", timeout_s=PHASE14_TIMEOUT_S,
                          threads=RANK_THREADS)
+        ranks_s = time.perf_counter() - t1
+        elastic = phase14_scale_down(dev, ckpt_dir, reps)
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
-    ranks_s = time.perf_counter() - t1
-    bad = []
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    bad = list(elastic["bad"])
     o32 = one["float32"]["steps"][0]
     for r in reps:
         for dt, rec in r["runs"].items():
@@ -5273,6 +5547,7 @@ def phase_14(dev, launches_before) -> dict:
         "mha_launches": [r["launches"]["flash_attention"] for r in reps],
         "kernel_launches": launched, "device": torch.cuda.get_device_name(
             dev), "one_rank_s": one_s, "ranks_s": ranks_s,
+        "elastic": {k: v for k, v in elastic.items() if k != "bad"},
         "seconds": time.perf_counter() - t0,
     }
     for r in reps:
@@ -5288,6 +5563,20 @@ def phase_14(dev, launches_before) -> dict:
               f"{r['runs']['bfloat16']['peak_gb']:.3f} GB (float32 "
               f"{r['runs']['float32']['peak_gb']:.3f} GB); the float32 "
               f"check {r['check']}", flush=True)
+    el = elastic["ranks"]
+    print(f"phase 14: elastic checkpoint of the {PHASE14_MESH} float32 "
+          f"state, {elastic['bytes'] / 1e9:.3f} GB: gather "
+          f"{max(p['gather_s'] for p in el):.2f} s, rank 0's write "
+          f"{el[0]['write_s']:.2f} s, restore on {PHASE14_RESIZE} per rank "
+          + ", ".join(f"{p['restore_s']:.2f}" for p in el)
+          + f" s, bitwise block_of the saved arrays; a float32 step on "
+          f"{PHASE14_RESIZE} {el[0]['steps']['14']['ms']:.1f} ms and on "
+          f"{PHASE14_MESH} {el[0]['steps']['22']['ms']:.1f} ms agree "
+          f"within PHASE14_TOL; one-rank restore on the card "
+          f"{elastic['one_rank_restore_s']:.2f} s, bitwise; peak "
+          f"{max(p['peak_gb'] for p in el):.3f} GB a rank, "
+          f"{elastic['one_rank_peak_gb']:.3f} GB one rank; added "
+          f"{elastic['added_s']:.1f} s on {elastic['card']}", flush=True)
     print(f"phase 14: {cfg16.name} ({PHASE14_LAYERS} layers) train_4k "
           f"[{b}, {s}] on a {PHASE14_MESH} mesh of {RANKS} gloo ranks: "
           f"warm step {out['warm_ms']:.1f} ms (slowest rank; cold "
@@ -6981,14 +7270,7 @@ def main() -> int:
     print("phase seconds: " + json.dumps(phase_s))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 loop with deltas, then one backlog served with overlap on and off), 7
 (four gloo ranks sharing the card), 12
 (MiniCPM-2B served on a ``(2, 2)`` mesh of gloo ranks), 14 (MiniCPM-2B
-trained there) or 15 (olmoe-1b-7b served and trained there). Builds the
+trained there, its state checkpointed and restored on ``(1, 4)`` and one
+rank) or 15 (olmoe-1b-7b served and trained there). Builds the
 kernels first, sets TF32 off, prints the card's name and power limit and
 writes the phase's result to ``chiprun_out/phase<N>.json``.
 

@@ -229,6 +229,53 @@ class Wire:
         return out
 
 
+    def exchange(self, sends: dict, recvs: dict, kind: str) -> None:
+        """Point to point over the default process group, which holds
+        the mesh's ranks: each tensor of ``sends`` (``{rank: tensor}``)
+        goes to its rank, each of ``recvs`` is filled from its rank, all
+        posted at once. One call of ``kind``, by the bytes received, its
+        group the whole mesh."""
+        t0 = self._start()
+        ops, back = [], []
+        for r, t in sends.items():
+            ops.append(dist.P2POp(dist.isend, self._to_wire(t), r))
+        for r, t in recvs.items():
+            w = t
+            if self.stage and t.device.type == "cuda":
+                w = torch.empty(t.shape, dtype=t.dtype)
+            ops.append(dist.P2POp(dist.irecv, w, r))
+            back.append((t, w))
+        if ops:
+            for q in dist.batch_isend_irecv(ops):
+                q.wait()
+        got = 0
+        for t, w in back:
+            got += t.numel() * t.element_size()
+            if w is not t:
+                self.mesh.wire.staged_bytes += w.numel() * w.element_size()
+                t.copy_(w)
+        w = self.mesh.wire
+        sent = sum(t.numel() * t.element_size() for t in sends.values())
+        ms = (time.perf_counter() - t0[0]) * 1e3
+        w.calls += 1
+        w.bytes += sent
+        w.ms += ms
+        w.ms_by_kind[kind] = w.ms_by_kind.get(kind, 0.0) + ms
+        w.record(kind, got, self.mesh.size)
+        if w.staged_bytes > t0[1]:
+            w.staged_by_kind[kind] = (w.staged_by_kind.get(kind, 0)
+                                      + w.staged_bytes - t0[1])
+
+
+def exchange(sends: dict, recvs: dict, mesh, kind: str) -> None:
+    """``Wire.exchange`` on ``mesh`` (a one-rank mesh has no peer)."""
+    if mesh.size == 1:
+        if sends or recvs:
+            raise ValueError("a one-rank mesh has no peer to exchange with")
+        return
+    _wire(mesh.axes(())).exchange(sends, recvs, kind)
+
+
 def _wire(axes) -> Wire:
     mesh = axes.mesh
     w = mesh.__dict__.get("_wire")

@@ -47,7 +47,10 @@ axes, a rank's loss share and backward a block (the gradients summed in
 float32 over the blocks and divided by ``n_micro`` when there are
 several), the mean loss, and AdamW over the rank's blocks
 (``_mesh_update``). An MoE layer's capacity and aux loss are a
-microbatch's, as in JAX's scan.
+microbatch's, as in JAX's scan. ``train_state`` and
+``state_shardings`` give a cut model's train state in JAX's layout and
+its tree of ``NamedSharding``: what the elastic checkpoint saves from
+one mesh and restores onto another.
 
 GNN and recsys cells on a mesh (``_gnn_cell``, ``_gnn_batch_specs``,
 ``_recsys_cell``): JAX's decisions for every cell (the config change,
@@ -85,6 +88,7 @@ from ..core.policies import POLICIES
 from ..data.pipeline import RecsysStream
 from ..graph.csr import CSRGraph, EllGraph, ell_shard, truncate_csr
 from ..graph.generators import erdos_renyi, pick_sources, powerlaw, rmat
+from ..checkpoint.checkpoint import Stacked
 from ..core.collectives import gather_rows, psum
 from ..graph.partition import padded_n, slab_edges
 from ..graph.sampler import tree_edges
@@ -96,6 +100,7 @@ from ..models import transformer_mesh as tmesh
 from ..models.transformer_mesh import decode_seq_axes
 from ..nn.attention import KVCache
 from ..nn.module import (
+    NamedSharding,
     block_of,
     logical_to_spec,
     param_axes,
@@ -825,6 +830,47 @@ def shard_lm(cell: Cell, model, mesh, opt: Optional[AdamWState] = None):
             for k, v in moments.items():
                 moments[k] = block_of(v, specs[k], mesh).clone()
     return model
+
+
+def train_state(model, opt: AdamWState) -> dict:
+    """JAX's train state ``{"params", "opt": AdamWState(step, mu, nu)}``
+    holding the model's and the optimizer's own tensors (a rank's blocks
+    on a mesh): what ``CheckpointManager`` saves and restores in place.
+    An LM's is ``transformer.state_tree`` (block leaves ``Stacked`` by
+    group); another model's nests its dotted parameter names."""
+    if isinstance(model, tfm.Transformer):
+        return tfm.state_tree(model, opt)
+    nest = gnn_common.named_tree
+    return {"params": nest(dict(model.named_parameters())),
+            "opt": AdamWState(opt.step, nest(opt.mu), nest(opt.nu))}
+
+
+def state_shardings(model, mesh) -> dict:
+    """The tree of ``train_state(model, opt)`` with a ``NamedSharding``
+    on ``mesh`` at every leaf, from ``model.shard_specs`` (``shard_lm``,
+    ``shard_gnn`` or ``shard_recsys``): the parameters' and both
+    moments' specs alike, a ``Stacked`` leaf's with its group dim
+    first, the step replicated. What ``CheckpointManager.save`` and
+    ``restore`` take as ``shardings`` on that mesh."""
+    specs = model.shard_specs
+    if isinstance(model, tfm.Transformer):
+        tree = tfm.named_tree(model.cfg, specs)
+    else:
+        tree = gnn_common.named_tree(specs)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        if isinstance(x, Stacked):
+            if len(set(x.tensors)) != 1:
+                raise ValueError(f"a stacked leaf's groups have specs "
+                                 f"{set(x.tensors)}")
+            return NamedSharding(mesh, (None, *x.tensors[0]))
+        return NamedSharding(mesh, x)
+
+    params = leaf(tree)
+    return {"params": params,
+            "opt": AdamWState(NamedSharding(mesh, ()), params, params)}
 
 
 def lm_components(arch_id: str, shape_name: str, mesh,

@@ -21,7 +21,10 @@ does, and ``logical_to_spec`` gives a spec: a tuple with one entry a dim,
 ``PartitionSpec``). ``sanitize_spec`` drops the entry of a dim that does
 not divide (JAX's ``_sanitize``), ``shard_params`` cuts every parameter
 to this rank's block of its sanitized spec (JAX's ``devices_indices_map``
-block of the device at the rank's coordinates). ``set_activation_rules``
+block of the device at the rank's coordinates). ``NamedSharding(mesh,
+spec)`` is one leaf's layout, the record a checkpoint's ``shardings=``
+tree holds; ``gather_block_to_root`` and ``reshard_block`` move a
+leaf's blocks point to point, each part once. ``set_activation_rules``
 installs the rules, process-global as in JAX, and a rank's ``Mesh``
 beside them. ``shard_activation`` then moves a rank's block of a tensor
 from the layout the caller says it has into the layout ``axes`` names: a
@@ -34,7 +37,9 @@ layout: a row-parallel product reduces its own partial sums.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch import nn
@@ -150,6 +155,131 @@ def gather_block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         if axes:
             x = gather_rows(x, mesh.axes(axes), d)
     return x
+
+
+def _coords_of(mesh, rank: int) -> dict:
+    """The coordinates of ``rank`` on ``mesh`` (row-major, as
+    ``Mesh`` lays ranks out)."""
+    out = {}
+    for a, n in reversed(list(zip(mesh.axis_names, mesh.axis_sizes))):
+        rank, out[a] = divmod(rank, n)
+    return out
+
+
+def _owns(mesh, spec: tuple, coords: dict) -> bool:
+    """Whether the rank at ``coords`` is its block's first holder:
+    coordinate 0 on every axis ``spec`` does not shard. The first
+    holders' blocks tile the global tensor once."""
+    used = {a for part in spec for a in part_axes(part)}
+    return all(coords[a] == 0 for a in mesh.axis_names if a not in used)
+
+
+def _box_cut(a: tuple, b: tuple):
+    """The intersection of two boxes of slices, None when empty."""
+    out = tuple(slice(max(x.start, y.start), min(x.stop, y.stop))
+                for x, y in zip(a, b))
+    return None if any(s.start >= s.stop for s in out) else out
+
+
+def _box_in(cut: tuple, box: tuple) -> tuple:
+    """``cut``'s slices relative to ``box``'s start."""
+    return tuple(slice(c.start - b.start, c.stop - b.start)
+                 for c, b in zip(cut, box))
+
+
+def _redistribute(x: torch.Tensor, src_box, dst_box, mesh):
+    """Move parts of a global tensor between the ranks of ``mesh``:
+    rank ``r`` holds ``x`` as the box ``src_box(r)`` of it (None: it
+    sends nothing) and assembles the box ``dst_box(r)`` (None: nothing).
+    Every part goes once, point to point, from the rank whose source
+    box holds it (the source boxes must not overlap). Returns this
+    rank's assembled box or None."""
+    from ..core.collectives import exchange
+
+    me = mesh.rank
+    mine, want = src_box(me), dst_box(me)
+    out = (None if want is None else
+           x.new_empty(tuple(s.stop - s.start for s in want)))
+    sends, recvs, parts = {}, {}, []
+    for r in range(mesh.size):
+        to = dst_box(r)
+        cut = None if mine is None or to is None else _box_cut(mine, to)
+        if cut is not None:
+            piece = x[_box_in(cut, mine)]
+            if r == me:
+                parts.append((cut, piece))
+            else:
+                sends[r] = piece.contiguous()
+        frm = None if want is None or r == me else src_box(r)
+        cut = None if frm is None else _box_cut(frm, want)
+        if cut is not None:
+            recvs[r] = x.new_empty(tuple(s.stop - s.start for s in cut))
+            parts.append((cut, recvs[r]))
+    exchange(sends, recvs, mesh, "gather")
+    for cut, piece in parts:
+        out[_box_in(cut, want)] = piece
+    return out
+
+
+def global_shape(shape, spec: tuple, mesh) -> tuple:
+    """The global shape of a block of ``shape`` under ``spec``."""
+    return tuple(dim * _axes_size(mesh.shape, part_axes(spec[i]) if
+                                  i < len(spec) else ())
+                 for i, dim in enumerate(shape))
+
+
+def gather_block_to_root(x: torch.Tensor, spec: tuple, mesh):
+    """``gather_block``'s global tensor on rank 0 alone (None on the
+    others): each block goes once, from its first holder straight to
+    rank 0, on ``x``'s device."""
+    shape = global_shape(x.shape, spec, mesh)
+    whole = tuple(slice(0, n) for n in shape)
+
+    def src(r):
+        c = _coords_of(mesh, r)
+        return (block_slices(shape, spec, mesh.shape, c)
+                if _owns(mesh, spec, c) else None)
+
+    return _redistribute(x, src, lambda r: whole if r == 0 else None, mesh)
+
+
+def reshard_block(x: torch.Tensor, spec: tuple, mesh, to_spec: tuple,
+                  to_mesh) -> torch.Tensor:
+    """This rank's block under ``to_spec`` on ``to_mesh`` of the global
+    tensor whose block under ``spec`` on ``mesh`` it holds as ``x``
+    (two meshes over the same ranks): each rank receives what its new
+    block needs, each part once, point to point."""
+    if to_mesh.size != mesh.size or to_mesh.rank != mesh.rank:
+        raise ValueError(f"{to_mesh} and {mesh} order other ranks")
+    shape = global_shape(x.shape, spec, mesh)
+
+    def src(r):
+        c = _coords_of(mesh, r)
+        return (block_slices(shape, spec, mesh.shape, c)
+                if _owns(mesh, spec, c) else None)
+
+    return _redistribute(
+        x, src, lambda r: block_slices(shape, to_spec, to_mesh.shape,
+                                       _coords_of(to_mesh, r)), mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout on a mesh of ranks, the port's
+    ``jax.sharding.NamedSharding(mesh, PartitionSpec(*spec))``: ``spec``
+    has one entry a dim (``None``, an axis name or a tuple of names;
+    missing trailing entries are ``None``). A ``checkpoint.Stacked``
+    leaf's spec starts with its group dim, which is never sharded."""
+
+    mesh: Any  # launch.mesh.Mesh
+    spec: tuple
+
+    def __post_init__(self):
+        names = {a for part in self.spec for a in part_axes(part)}
+        unknown = names - set(self.mesh.axis_names)
+        if unknown:
+            raise ValueError(f"spec {self.spec} names axes {sorted(unknown)}"
+                             f" that the mesh {self.mesh.shape} lacks")
 
 
 _ACTIVATION_RULES: dict | None = None

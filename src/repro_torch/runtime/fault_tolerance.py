@@ -63,12 +63,23 @@ class StragglerDetector:
 
 @dataclasses.dataclass
 class TrainGuard:
-    """Restartable step loop with periodic checkpointing."""
+    """Restartable step loop with periodic checkpointing.
+
+    On a mesh of ranks each rank runs the loop over its blocks of the
+    state, with ``shardings`` (the state's tree of ``NamedSharding``,
+    e.g. ``launch.steps.state_shardings``) passed to ``save`` and
+    ``restore``: rank 0 writes, every rank restores its blocks of rank
+    0's latest step. A failure must be raised on every rank at the same
+    step, as an SPMD program's is (a collective's error, or a fault the
+    caller turns into one on every rank). A failure on one rank alone,
+    with its peers blocked in a collective, is out of scope: they wait
+    until their process group's timeout."""
 
     ckpt: Any  # CheckpointManager
     save_every: int = 100
     max_retries: int = 3
     detector: Optional[StragglerDetector] = None
+    shardings: Any = None
 
     def run(
         self,
@@ -92,7 +103,7 @@ class TrainGuard:
                 step += 1
                 retries = 0
                 if step % self.save_every == 0 or step == n_steps:
-                    self.ckpt.save(step, state)
+                    self.ckpt.save(step, state, shardings=self.shardings)
             except KeyboardInterrupt:
                 raise
             except Exception as e:  # transient node failure path
@@ -101,8 +112,11 @@ class TrainGuard:
                           retries, self.max_retries)
                 if retries > self.max_retries:
                     raise
+                if self.shardings is not None:
+                    self.ckpt.wait()  # rank 0 has published its saves
                 latest = self.ckpt.latest_step()
                 if latest is not None:
-                    state, step = self.ckpt.restore(state)[0], latest
+                    state, step = self.ckpt.restore(
+                        state, latest, shardings=self.shardings)[0], latest
         self.ckpt.wait()
         return state, step

@@ -1499,3 +1499,333 @@ def overlap_rank(rank: int, world: int) -> dict:
                              w.by_axis)
     out["threads"] = sorted(threads)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Elastic checkpoints of a mesh's train state (CheckpointManager's
+# shardings=, steps.state_shardings, TrainGuard on a mesh).
+# ---------------------------------------------------------------------------
+
+#: (arch, global batch, length) of each float32 smoke LM: the batch
+#: splits into n_micro x data rows on (2, 2) and on (4, 1)
+CKPT_LM = (("minicpm-2b", 4, 16), ("olmoe-1b-7b", 16, 16))
+CKPT_MESHES = ((2, 2), (1, 4), (4, 1))  # where JAX's checkpoint restores
+CKPT_STEPS = 3  # the uninterrupted (2, 2) run; its save after step 1
+CKPT_FAIL_AT = 2  # TrainGuard's step that fails, after its update
+#: the small checkpoint the error cases restore: "x" (8, 6) float32 and
+#: "s" a Stacked leaf of two (4,) groups
+CKPT_SMALL = {"x": (8, 6), "s": (2, 4)}
+
+
+def ckpt_small_arrays() -> dict:
+    x = np.arange(48, dtype=np.float32).reshape(CKPT_SMALL["x"])
+    s = np.arange(8, dtype=np.float32).reshape(CKPT_SMALL["s"]) + 100
+    return {"x": x, "s": s}
+
+
+def _lm_state(cell, mesh, tree=None):
+    """(model, opt) of a train ``cell`` on this rank of ``mesh``, cut by
+    ``shard_lm``: JAX's train state ``tree`` (numpy, ``opt`` a (step,
+    mu, nu) tuple) or, without one, a seed-1 model and zero moments."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    if tree is None:
+        model = tfm.init(cell.config, torch.Generator().manual_seed(1),
+                         "cpu")
+        model.requires_grad_(True)
+        opt = adamw_init(dict(model.named_parameters()), AdamWConfig())
+    else:
+        model, opt = tfm.state_from_jax(cell.config, tree, "cpu")
+    steps.shard_lm(cell, model, mesh, opt)
+    return model, opt
+
+
+def lm_by_name(cfg, tree: dict) -> dict:
+    """JAX's numpy train state ``{"params", "opt": (step, mu, nu)}`` as
+    ``{"params", "mu", "nu"}`` by the port's parameter names."""
+    from repro_torch.models import transformer as tfm
+
+    names = [n for n, _ in tfm.init(cfg, None, "meta").named_parameters()]
+
+    def flat(t):
+        out = {}
+        for name in names:
+            path, g = tfm.jax_path(cfg, name)
+            leaf = t
+            for k in path:
+                leaf = leaf[k]
+            out[name] = np.asarray(leaf if g is None else leaf[g])
+        return out
+
+    _, mu, nu = tree["opt"]
+    return {"params": flat(tree["params"]), "mu": flat(mu), "nu": flat(nu)}
+
+
+def _mismatches(model, opt, whole: dict, mesh) -> list:
+    """(part, name) of each block of this rank's state that is not,
+    bit for bit, its spec's slice of ``whole`` (numpy by part and
+    name)."""
+    from repro_torch.nn.module import block_of
+
+    mine = {"params": {k: p.detach() for k, p in model.named_parameters()},
+            "mu": opt.mu, "nu": opt.nu}
+    bad = []
+    for part, leaves in mine.items():
+        for name, t in leaves.items():
+            want = np.ascontiguousarray(block_of(
+                np.asarray(whole[part][name]), model.shard_specs[name],
+                mesh))
+            got = t.detach().cpu().numpy()
+            if (got.dtype != want.dtype or got.shape != want.shape
+                    or got.tobytes() != want.tobytes()):
+                bad.append((part, name))
+    return bad
+
+
+def _state_copy(model, opt, mesh) -> dict:
+    """``_global_state``, copied: a leaf that needs no gather is the
+    live tensor's memory, which the next step writes in place."""
+    return {part: {k: v.copy() for k, v in leaves.items()}
+            for part, leaves in _global_state(model, opt, mesh).items()}
+
+
+def _ckpt_lm(meshes: dict, arch: str, b: int, seq: int, tree: dict,
+             root: str) -> dict:
+    """One arch's cases on this rank (``ckpt_mesh_rank``)."""
+    import os
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.launch import steps
+    from repro_torch.nn.module import set_activation_rules
+    from repro_torch.runtime.fault_tolerance import TrainGuard
+
+    def fresh_cell(shape):
+        set_activation_rules(None)
+        return lm_train_cell(meshes[shape], arch, b, seq, "float32")
+
+    def manager(kind):
+        return CheckpointManager(os.path.join(root, kind, arch))
+
+    rec = {}
+    cell = fresh_cell((2, 2))
+    jax_named = lm_by_name(cell.config, tree)
+    batch = {k: torch.from_numpy(v) for k, v in
+             lm_train_batch(cell.config.vocab, b, seq).items()}
+    # JAX's checkpoint onto each mesh, into a seed-1 model
+    for shape in CKPT_MESHES:
+        mesh = meshes[shape]
+        c = fresh_cell(shape)
+        model, opt = _lm_state(c, mesh)
+        _, step = manager("jax").restore(
+            steps.train_state(model, opt),
+            shardings=steps.state_shardings(model, mesh))
+        rec["jax", shape] = {
+            "step": step, "opt_step": int(opt.step),
+            "mismatches": _mismatches(model, opt, jax_named, mesh)}
+    # the uninterrupted (2, 2) run from JAX's state, saved after step 1
+    m22 = meshes[2, 2]
+    cell = fresh_cell((2, 2))
+    model, opt = _lm_state(cell, m22, tree)
+    mgr = manager("mesh")
+    run = {"steps": [], "states": []}
+    for i in range(CKPT_STEPS):
+        _, opt, loss, gnorm = cell.fn(model, opt, batch)
+        run["steps"].append((float(loss), float(gnorm)))
+        run["states"].append(_state_copy(model, opt, m22))
+        if i == 0:
+            mgr.save(1, steps.train_state(model, opt),
+                     shardings=steps.state_shardings(model, m22))
+            run["saved_opt_step"] = int(opt.step)
+    mgr.wait()
+    run["opt_step"] = int(opt.step)
+    rec["run"] = run
+    # TrainGuard on (2, 2): step CKPT_FAIL_AT fails on every rank after
+    # its update, once
+    model, opt = _lm_state(cell, m22, tree)
+    live = {"opt": opt}
+    failed = []
+
+    def step_fn(state, i):
+        # the step count is a new tensor each step: take the state's,
+        # which a restore wrote
+        live["opt"] = live["opt"]._replace(step=state["opt"].step)
+        _, live["opt"], _, _ = cell.fn(model, live["opt"], batch)
+        if i == CKPT_FAIL_AT and not failed:
+            failed.append(i)
+            raise RuntimeError("injected failure after the update")
+        return steps.train_state(model, live["opt"])
+
+    gmgr = manager("guard")
+    guard = TrainGuard(ckpt=gmgr, save_every=1,
+                       shardings=steps.state_shardings(model, m22))
+    _, end = guard.run(steps.train_state(model, opt), step_fn, CKPT_STEPS)
+    rec["guard"] = {"failed": failed, "end": end,
+                    "saved": gmgr.all_steps(),
+                    "opt_step": int(live["opt"].step),
+                    "state": _state_copy(model, live["opt"], m22)}
+    # the step-1 checkpoint onto (4, 1), then step 2 there
+    m41 = meshes[4, 1]
+    c41 = fresh_cell((4, 1))
+    model, opt = _lm_state(c41, m41)
+    _, step = manager("mesh").restore(
+        steps.train_state(model, opt),
+        shardings=steps.state_shardings(model, m41))
+    restored = _state_copy(model, opt, m41)
+    _, opt, loss, gnorm = c41.fn(model, opt, batch)
+    rec["resize"] = {"step": step, "restored": restored,
+                     "next": (float(loss), float(gnorm)),
+                     "state": _state_copy(model, opt, m41),
+                     "opt_step": int(opt.step)}
+    set_activation_rules(None)
+    return rec
+
+
+def _ckpt_dcn(meshes: dict, tree: dict, root: str) -> dict:
+    """DCN-v2's ``train_batch`` on (2, 2) from JAX's weights: one step,
+    saved; restored on (4, 1) into seed-1 weights."""
+    import os
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.launch import steps
+    from repro_torch.models import dcn_v2 as dcn
+    from repro_torch.nn.module import set_activation_rules
+    from repro_torch.optim.adamw import adamw_init
+
+    dims = RECSYS_MESH_DIMS["train_batch"]
+    where = os.path.join(root, "mesh", "dcn-v2")
+
+    def state(mesh, weights):
+        cell = steps.build_cell("dcn-v2", "train_batch", mesh, False,
+                                smoke=True, dims=dims)
+        if weights is None:
+            model, _ = dcn.init(cell.config, torch.Generator().manual_seed(1),
+                                "cpu")
+        else:
+            model, _ = dcn.params_from_jax(weights, cell.config, "cpu")
+        model.requires_grad_(True)
+        steps.shard_recsys(cell, model, mesh)
+        return cell, model, adamw_init(steps.params_dict(model),
+                                       steps.RECSYS_ADAMW)
+
+    m22, m41 = meshes[2, 2], meshes[4, 1]
+    cell, model, opt = state(m22, tree)
+    b, _ = steps.recsys_rank_batch(cell, m22,
+                                   recsys_mesh_batch("train_batch", 0))
+    _, opt, _, _ = cell.fn(model, opt, b)
+    mgr = CheckpointManager(where)
+    mgr.save(1, steps.train_state(model, opt),
+             shardings=steps.state_shardings(model, m22))
+    mgr.wait()
+    saved, saved_step = _state_copy(model, opt, m22), int(opt.step)
+    set_activation_rules(None)
+    _, model, opt = state(m41, None)
+    _, step = CheckpointManager(where).restore(
+        steps.train_state(model, opt),
+        shardings=steps.state_shardings(model, m41))
+    set_activation_rules(None)
+    return {"saved": saved, "saved_opt_step": saved_step, "step": step,
+            "opt_step": int(opt.step),
+            "mismatches": _mismatches(model, opt, saved, m41)}
+
+
+def _ckpt_errors(meshes: dict, root: str) -> dict:
+    """Restores of the small checkpoint (``CKPT_SMALL``): one that fits
+    on (2, 2) (the rank's blocks), and the messages of those that must
+    raise (None where one did not)."""
+    import os
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, Stacked
+    from repro_torch.nn.module import NamedSharding
+
+    mgr = CheckpointManager(os.path.join(root, "small"))
+    m22, m14 = meshes[2, 2], meshes[1, 4]
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+
+    def like(x=None, s=None):
+        return {"x": zeros(4, 3) if x is None else x,
+                "s": Stacked([zeros(2), zeros(2)]) if s is None else s}
+
+    def sh(mesh=m22, x=("data", "model"), s=(None, "model")):
+        return {"x": NamedSharding(mesh, x), "s": NamedSharding(mesh, s)}
+
+    def raised(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    fits = like()
+    mgr.restore(fits, shardings=sh())
+    return {
+        "x": fits["x"].numpy(), "s": [t.numpy() for t in fits["s"].tensors],
+        "coords": {a: m22.coord(a) for a in m22.axis_names},
+        "non_dividing": raised(lambda: mgr.restore(
+            like(x=zeros(8, 1), s=Stacked([zeros(1), zeros(1)])),
+            shardings=sh(m14, x=(None, "model")))),
+        "wrong_shape": raised(lambda: mgr.restore(like(x=zeros(4, 2)),
+                                                  shardings=sh())),
+        "wrong_dtype": raised(lambda: mgr.restore(
+            like(x=zeros(4, 3, dtype=torch.float64)), shardings=sh())),
+        "group_dim": raised(lambda: mgr.restore(like(), shardings=sh(
+            s=("model",)))),
+        "unknown_axis": raised(lambda: NamedSharding(m22, ("pod",))),
+        "missing_leaf": raised(lambda: mgr.restore(
+            like(), shardings={"x": sh()["x"]})),
+    }
+
+
+#: the layouts ``reshard_block`` and ``gather_block_to_root`` move an
+#: (8, 12) tensor between (each divides on every mesh of CKPT_MESHES)
+RESHARD_SPECS = (("data", "model"), (None, ("data", "model")),
+                 (None, None))
+
+
+def reshard_cases(meshes: dict) -> dict:
+    """On this rank: an (8, 12) tensor's block under each of
+    ``RESHARD_SPECS`` on each mesh moved to each layout on each other
+    mesh (``reshard_block``) and to rank 0 (``gather_block_to_root``):
+    ``{case: the result is bitwise what it should be}``."""
+    from repro_torch.nn.module import (block_of, gather_block_to_root,
+                                       reshard_block)
+
+    x = torch.arange(96, dtype=torch.float32).reshape(8, 12)
+    out = {}
+    for a, ma in meshes.items():
+        for sa in RESHARD_SPECS:
+            block = block_of(x, sa, ma).clone()
+            root = gather_block_to_root(block, sa, ma)
+            out["root", a, sa] = (torch.equal(root, x) if ma.rank == 0
+                                  else root is None)
+            for b, mb in meshes.items():
+                for sb in RESHARD_SPECS:
+                    got = reshard_block(block, sa, ma, sb, mb)
+                    out[a, sa, b, sb] = torch.equal(got, block_of(x, sb, mb))
+    return out
+
+
+def ckpt_mesh_rank(rank: int, world: int, trees: dict, root: str) -> dict:
+    """On this rank of a four-rank world, over the meshes ``(2, 2)``,
+    ``(1, 4)`` and ``(4, 1)`` of the same ranks: for each ``CKPT_LM``
+    arch, JAX's checkpoint under ``root/jax/<arch>`` restored onto
+    each mesh, the uninterrupted (2, 2) run from JAX's state
+    ``trees[arch]`` (saved after step 1 under ``root/mesh/<arch>``), a
+    ``TrainGuard`` run with a failure, and the step-1 checkpoint
+    restored onto (4, 1) with its next step; DCN-v2's state saved on
+    (2, 2) and restored on (4, 1); the error cases; ``reshard_cases``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    meshes = {shape: make_mesh(shape, ("data", "model"), "cpu")
+              for shape in CKPT_MESHES}
+    out = {"coords": {shape: {a: m.coord(a) for a in m.axis_names}
+                      for shape, m in meshes.items()}}
+    for arch, b, seq in CKPT_LM:
+        out[arch] = _ckpt_lm(meshes, arch, b, seq, trees[arch], root)
+    out["dcn-v2"] = _ckpt_dcn(meshes, trees["dcn-v2"], root)
+    out["errors"] = _ckpt_errors(meshes, root)
+    out["reshard"] = reshard_cases(meshes)
+    return out

@@ -38,6 +38,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import trace
 from ..graph.csr import CSRGraph, ShardedBlocks
 from ..kernels.common import to_device
 from ..launch.mesh import Mesh, as_mesh
@@ -102,7 +103,9 @@ class QueryEngine:
     def __call__(self, graph, *args):
         """Static/phase-1 engines: ``engine(graph, source_morsels)``.
         Resume engines: ``engine(graph, state0, it0)``."""
-        return self.fn(strip_operands(self.extend, as_operands(graph)), *args)
+        with trace.engine_call(self.device):
+            return self.fn(strip_operands(self.extend, as_operands(graph)),
+                           *args)
 
 
 def strip_operands(spec: ExtendSpec, ops: GraphOperands) -> GraphOperands:
@@ -185,13 +188,16 @@ def _run_morsel(ec, be, ops, ctx, state, it: int, cap: int, stats, bw,
     """One morsel's convergence loop from (state, it); the stats tap
     writes row ``it`` before each extension. The condition is reduced
     over ``sync_axes``, so every rank of the sync group runs the same
-    trip count."""
+    trip count. Each iteration is one ``engine.iter`` span, on the device's
+    current stream from its first launch to its last."""
+    dev = state.frontier.device
     while it < cap and any_over(bool((state.frontier != 0).any()),
                                 sync_axes):
-        if stats is not None:
-            stats[it] = frontier_stats(ops, state, ctx, bin_widths=bw)
-        merged = merge(ec.extend(be, ops, state, ctx))
-        state = ec.apply(state, merged, it)
+        with trace.span("engine.iter", dev):
+            if stats is not None:
+                stats[it] = frontier_stats(ops, state, ctx, bin_widths=bw)
+            merged = merge(ec.extend(be, ops, state, ctx))
+            state = ec.apply(state, merged, it)
         it += 1
     return state, it
 
@@ -373,7 +379,8 @@ def build_gang_resume_engine(
     its live members one by one, as JAX ``vmap``s it); a member is live
     while its own frontier is non-empty on some rank and its own counter
     is under the cap, and only live members update state and counter.
-    Bit-identical to the serial resume, counters included.
+    Bit-identical to the serial resume, counters included. Each gang
+    iteration is one ``engine.iter`` span.
 
     ``state_layout="sharded"``: ``state0`` holds this rank's rows
     (``collectives.gang_handoff``), the merge is the reduce-scatter of
@@ -413,22 +420,24 @@ def build_gang_resume_engine(
             live = act.cpu().numpy().astype(bool) & (it < cap)
             if not live.any():
                 break
-            if stats is not None:
-                for s in np.nonzero(live)[0]:
-                    stats[s, min(int(it[s]), cap - 1)] = frontier_stats(
-                        ops, _member(state, int(s)), ctx, bin_widths=bw
-                    )
-            contrib = (ec.gang_extend(be, ops, state, ctx) if ec.LANES_OK
-                       else _map_extend(ec, be, ops, state, ctx, live))
-            merged = merge(contrib)
-            it_b = torch.as_tensor(it, dtype=torch.int32, device=dev)
-            applied = ec.apply(state, merged, it_b.view((-1,) + tail))
-            mask = torch.as_tensor(live, device=dev)
-            state = type(state)(*(
-                torch.where(mask.view((-1,) + (1,) * (new.ndim - 1)),
-                            new, old)
-                for new, old in zip(applied, state)
-            ))
+            with trace.span("engine.iter", dev):
+                if stats is not None:
+                    for s in np.nonzero(live)[0]:
+                        stats[s, min(int(it[s]), cap - 1)] = frontier_stats(
+                            ops, _member(state, int(s)), ctx, bin_widths=bw
+                        )
+                contrib = (ec.gang_extend(be, ops, state, ctx)
+                           if ec.LANES_OK
+                           else _map_extend(ec, be, ops, state, ctx, live))
+                merged = merge(contrib)
+                it_b = torch.as_tensor(it, dtype=torch.int32, device=dev)
+                applied = ec.apply(state, merged, it_b.view((-1,) + tail))
+                mask = torch.as_tensor(live, device=dev)
+                state = type(state)(*(
+                    torch.where(mask.view((-1,) + (1,) * (new.ndim - 1)),
+                                new, old)
+                    for new, old in zip(applied, state)
+                ))
             it = it + live
         if lay.sharded:
             state = type(state)(*(gather_rows(x, lay.ga, 1) for x in state))

@@ -51,6 +51,7 @@ from typing import Callable
 
 import numpy as np
 
+from .. import trace
 from ..core import QUERY_KINDS, recommend_policy
 from ..core.msbfs import LanePacker
 
@@ -282,7 +283,13 @@ class AdmissionQueue:
         the queries pack into ONE shared MS-BFS batch — then the deadline
         pass predicts the pack's slowest-lane completion and evicts/sheds
         members that cannot survive it (see module docstring). Otherwise
-        every query is its own solo batch, in arrival order."""
+        every query is its own solo batch, in arrival order. The whole
+        plan is the ``admission.plan`` span, each pass of the deadline
+        pass's depth estimates an ``admission.predict`` span."""
+        with trace.span("admission.plan"):
+            return self._plan(now)
+
+    def _plan(self, now: float | None) -> AdmissionPlan:
         now = self.clock() if now is None else now
         instant = dict(self._instant)
         self._instant.clear()
@@ -357,10 +364,11 @@ class AdmissionQueue:
             # so re-check until no member violates its slack
             # (arrival-order scan => determinism)
             while len(packer):
-                ests = {
-                    qid: self._predicted_ms(by_qid[qid].sources, 1, rate)
-                    for qid in packer.qids
-                }
+                with trace.span("admission.predict"):
+                    ests = {
+                        qid: self._predicted_ms(by_qid[qid].sources, 1, rate)
+                        for qid in packer.qids
+                    }
                 if any(v is None for v in ests.values()):
                     break  # cold: no estimate, no eviction
                 pack_ms = max(ests.values())

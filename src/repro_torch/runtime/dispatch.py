@@ -97,6 +97,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..core import (
     POLICIES,
     QUERY_KINDS,
@@ -448,14 +449,17 @@ def _phase1_loop(jobs: queue.SimpleQueue, device: torch.device) -> None:
 
 
 def _phase1_job(stream, fut: Future, ready, fn, args) -> None:
+    """One engine call on the worker, the ``dispatch.phase1`` span."""
     try:
         if stream is None:
-            out, done = fn(*args), None
+            with trace.span("dispatch.phase1"):
+                out, done = fn(*args), None
         else:
             with torch.cuda.stream(stream):
                 stream.wait_event(ready)
-                out = fn(*args)
-                done = stream.record_event()
+                with trace.span("dispatch.phase1"):
+                    out = fn(*args)
+                    done = stream.record_event()
     except BaseException as e:
         # handed to the future, which re-raises it where the batch is
         # joined (as concurrent.futures' own workers do): a join never
@@ -574,10 +578,12 @@ class QueryDispatcher:
     def _await(self, phase1: Future):
         """``phase1``'s output once it has finished (its error re-raised
         here): the caller's stream waits on its end and the outputs are
-        marked as used on that stream."""
+        marked as used on that stream. The wait is the ``dispatch.join``
+        span."""
         if self._inflight is phase1:
             self._inflight = None
-        out, done = phase1.result()
+        with trace.span("dispatch.join"):
+            out, done = phase1.result()
         if done is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(done)

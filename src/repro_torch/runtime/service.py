@@ -38,6 +38,7 @@ from typing import Callable
 
 import numpy as np
 
+from .. import trace
 from ..core import QUERY_KINDS
 from .admission import AdmissionQueue, AdmissionTicket, PlannedBatch
 from .dispatch import QueryDispatcher, SettledBatch, _host
@@ -287,45 +288,52 @@ class ServingLoop:
             self._finalize_tail(overlapped=False)
 
     def _finalize_tail(self, overlapped: bool) -> None:
+        """The ``service.finalize`` span, from the stitch to the last
+        delivery; the copy to the host and the unpack are the
+        ``service.unpack`` span inside it."""
         settled, pb, t0, cold = self._tail
         self._tail = None
-        outcome = settled.finalize()
-        t1 = self.clock()
-        self.stats.finalizes += 1
-        if overlapped:
-            self.stats.overlapped_finalizes += 1
-        wall_ms = (t1 - t0) * 1e3
-        iters = _host(outcome.result.iterations)
-        depth = float(iters.max()) if iters.size else 0.0
-        if cold:
-            self.stats.cold_ms += wall_ms
-        elif depth > 0:
-            rate = wall_ms / depth
-            self._ms_per_iter = (
-                rate
-                if self._ms_per_iter is None
-                else 0.5 * self._ms_per_iter + 0.5 * rate
-            )
-        state = outcome.result.state
+        with trace.span("service.finalize"):
+            outcome = settled.finalize()
+            t1 = self.clock()
+            self.stats.finalizes += 1
+            if overlapped:
+                self.stats.overlapped_finalizes += 1
+            wall_ms = (t1 - t0) * 1e3
+            iters = _host(outcome.result.iterations)
+            depth = float(iters.max()) if iters.size else 0.0
+            if cold:
+                self.stats.cold_ms += wall_ms
+            elif depth > 0:
+                rate = wall_ms / depth
+                self._ms_per_iter = (
+                    rate
+                    if self._ms_per_iter is None
+                    else 0.5 * self._ms_per_iter + 0.5 * rate
+                )
+            with trace.span("service.unpack"):
+                out = self._unpack(outcome.result.state, pb)
+            for q in pb.queries:
+                self._deliver(q.qid, out[q.qid], cold)
+
+    def _unpack(self, state, pb: PlannedBatch) -> dict:
+        """Each query's result, copied to the host and sliced."""
         n = self.dispatcher.csr.n_nodes
         if pb.query_kind == "reach":
-            out = unpack_levels(_host(state.levels), pb.spans, n, pb.packed)
-        else:
-            # non-reach kinds are never lane-packed, so each result leaf
-            # holds one row per source: slice the spans and the padding
-            assert not pb.packed, pb.query_kind
-            leaves = QUERY_KINDS[pb.query_kind].result_leaves
-            arrs = {leaf: _host(getattr(state, leaf)) for leaf in leaves}
-            out = {
-                qid: (
-                    arrs[leaves[0]][a:b, :n]
-                    if len(leaves) == 1
-                    else {leaf: arrs[leaf][a:b, :n] for leaf in leaves}
-                )
-                for qid, (a, b) in pb.spans.items()
-            }
-        for q in pb.queries:
-            self._deliver(q.qid, out[q.qid], cold)
+            return unpack_levels(_host(state.levels), pb.spans, n, pb.packed)
+        # non-reach kinds are never lane-packed, so each result leaf holds
+        # one row per source: slice the spans and the padding
+        assert not pb.packed, pb.query_kind
+        leaves = QUERY_KINDS[pb.query_kind].result_leaves
+        arrs = {leaf: _host(getattr(state, leaf)) for leaf in leaves}
+        return {
+            qid: (
+                arrs[leaves[0]][a:b, :n]
+                if len(leaves) == 1
+                else {leaf: arrs[leaf][a:b, :n] for leaf in leaves}
+            )
+            for qid, (a, b) in pb.spans.items()
+        }
 
     def _deliver(self, qid: str, levels: np.ndarray, cold: bool) -> None:
         t_done = self.clock()

@@ -25,7 +25,11 @@ the serving policy:
   EWMA), ``plan()`` predicts the pack's slowest-lane time and EVICTS any
   member whose deadline slack cannot survive it — the evictee re-packs as
   its own solo batch (``core.msbfs.LanePacker.evict`` is a pure deletion:
-  the survivors keep arrival order, so their rows are untouched).
+  the survivors keep arrival order, so their rows are untouched). Only a
+  deadline reads the estimates: a pack none of whose members has one
+  makes none, and otherwise each member is estimated once a plan round
+  (the estimators' state changes only between rounds, when a batch
+  settles or a delta lands), however many eviction passes follow.
 
 - **Load shedding**: a query is dropped (never executed, reported shed)
   when its deadline has already expired at plan time, or when even a solo
@@ -119,6 +123,7 @@ class AdmissionStats:
     admitted: int = 0
     shed: int = 0
     evictions: int = 0  # pulled out of the shared pack to a solo batch
+    estimated: int = 0  # depth_hint calls made by plan()
     zero_source: int = 0
     sheds_by_reason: collections.Counter = dataclasses.field(
         default_factory=collections.Counter
@@ -272,6 +277,7 @@ class AdmissionQueue:
                       rate: float | None) -> float | None:
         if rate is None or self.depth_hint is None:
             return None
+        self.stats.estimated += 1
         depth = self.depth_hint(sources, lanes)
         return None if depth is None else depth * rate
 
@@ -280,12 +286,14 @@ class AdmissionQueue:
 
         Paper Fig 14 rule first: one pooled ``recommend_policy`` decision
         over every queued source. If the pool saturates the 64-wide lanes
-        the queries pack into ONE shared MS-BFS batch — then the deadline
-        pass predicts the pack's slowest-lane completion and evicts/sheds
+        the queries pack into ONE shared MS-BFS batch — then, when a
+        member has a deadline, the deadline pass estimates each member
+        once, predicts the pack's slowest-lane completion and evicts/sheds
         members that cannot survive it (see module docstring). Otherwise
         every query is its own solo batch, in arrival order. The whole
-        plan is the ``admission.plan`` span, each pass of the deadline
-        pass's depth estimates an ``admission.predict`` span."""
+        plan is the ``admission.plan`` span; a round that packs enters
+        one ``admission.predict`` span around the deadline pass's
+        estimates (none when no member has a deadline)."""
         with trace.span("admission.plan"):
             return self._plan(now)
 
@@ -357,21 +365,27 @@ class AdmissionQueue:
             by_qid = {q.qid: q for q in poolable}
             for q in poolable:
                 packer.add(q.qid, q.sources)
-            rate = self.ms_per_iter() if self.ms_per_iter else None
+            # only a deadline reads the estimates: without one nothing can
+            # be evicted or shed, so none is made. With one, every member
+            # is estimated once (the pack's time is the max over all of
+            # them); nothing changes the estimators within a round
+            ests = None
+            with trace.span("admission.predict"):
+                if any(q.t_deadline is not None for q in poolable):
+                    rate = self.ms_per_iter() if self.ms_per_iter else None
+                    ests = {
+                        q.qid: self._predicted_ms(q.sources, 1, rate)
+                        for q in poolable
+                    }
+                    if any(v is None for v in ests.values()):
+                        ests = None  # cold: no estimate, no eviction
             # eviction fixpoint: a packed batch finishes with its SLOWEST
             # lane, so the pack estimate is the max over the members' solo
             # depth estimates; pulling the deepest member out lowers it,
             # so re-check until no member violates its slack
             # (arrival-order scan => determinism)
-            while len(packer):
-                with trace.span("admission.predict"):
-                    ests = {
-                        qid: self._predicted_ms(by_qid[qid].sources, 1, rate)
-                        for qid in packer.qids
-                    }
-                if any(v is None for v in ests.values()):
-                    break  # cold: no estimate, no eviction
-                pack_ms = max(ests.values())
+            while ests is not None and len(packer):
+                pack_ms = max(ests[qid] for qid in packer.qids)
                 evicted = None
                 for qid in packer.qids:
                     q = by_qid[qid]
@@ -386,7 +400,7 @@ class AdmissionQueue:
                 packer.evict(evicted.qid)
                 solo_ms = ests[evicted.qid]
                 slack_ms = (evicted.t_deadline - now) * 1e3
-                if solo_ms is not None and slack_ms < solo_ms:
+                if slack_ms < solo_ms:
                     # even alone it cannot make its deadline: shed instead
                     # of burning a solo batch on a guaranteed miss
                     shed_query(evicted, SHED_HOPELESS)

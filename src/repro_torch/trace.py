@@ -35,9 +35,9 @@ The spans, each where its work is done:
 span                thread           covers
 ==================  ===============  =========================================
 admission.plan      serving          all of ``AdmissionQueue.plan``
-admission.predict   serving          each pass of the eviction fixpoint's
-                                     depth estimates (``_predicted_ms`` for
-                                     every member of a packed batch)
+admission.predict   serving          once a packing plan round: the
+                                     deadline pass's depth estimates, none
+                                     when no member has a deadline
 dispatch.phase1     phase-1 worker   the engine call of phase 1 (or of the
                                      static engine) to its end event
 dispatch.join       serving          the wait for phase 1 in
